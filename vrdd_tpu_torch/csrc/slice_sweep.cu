@@ -1,15 +1,25 @@
 // Fused front-to-back slice sweep for Hopper (sm_90a), with an optional
-// per-voxel histogram decode prologue.
+// per-voxel histogram decode prologue and optional transmittance
+// checkpoints for the backward.
 //
-// Replaces the two forward Pallas launches of vrdd_tpu/pallas/slice_kernel.py
-// (both bodies are _make_kernel, :657):
-//   - MODE = kNone:  the scalar sweep, pallas_call at :1351
-//                    (sweep_preblended_planes, :1274);
-//   - MODE = kLinear / kVar / kEntropy: the in-kernel decode sweep of
-//                    pallas_hist_render (:1495, pallas_call :1595), whose
-//                    prologue is _decode_block (:586).
-// The plain torch version of both is vrdd_tpu_torch/march/slice.py
-// (sweep_preblended_planes_xla); kernels/slice_kernel.py holds the wrappers.
+// Replaces four Pallas launches whose body is _make_kernel
+// (vrdd_tpu/pallas/slice_kernel.py:657):
+//   - K1, MODE = kNone, CKPT off: the scalar sweep, pallas_call at :1351
+//     (sweep_preblended_planes, :1274);
+//   - K2, MODE = kLinear / kVar / kEntropy, CKPT off: the in-kernel decode
+//     sweep of pallas_hist_render (:1495, pallas_call :1595), whose
+//     prologue is _decode_block (:586);
+//   - K3, any MODE, CKPT off: the primal of the differentiable sweeps,
+//     vrdd_tpu/pallas/slice_vjp.py:698 (_make_diff_sweep._fwd_call), the
+//     same kernel launched with brightness 1 (folded outside, so it stays
+//     differentiable);
+//   - K4, any MODE, CKPT on: slice_vjp.py:714 (_fwd_ckpt_call,
+//     _make_kernel emit_ckpt=True): the image plus one transmittance
+//     checkpoint per ck_stride planes, tck[c, i, j] = T at the start of
+//     plane c * ck_stride, for the reverse sweep in slice_vjp.cu (K5).
+// The plain torch versions live in vrdd_tpu_torch/march/slice.py
+// (sweep_preblended_planes_xla, transmittance_checkpoints); the wrappers in
+// kernels/slice_kernel.py (K1, K2) and kernels/slice_vjp.py (K3, K4).
 //
 // Design. One thread per ray, 2-D blocks over the (H, W) image. The TPU
 // kernel's sequential (chunk, strip) grid, with its accumulator and
@@ -21,118 +31,46 @@
 // footprint predicates of the TPU kernel.
 //
 // The resample Wy * plane * Wx^T has at most two nonzero tent weights per
-// axis, so each sample fetches its four taps directly with the f32 weights
-// of _tent_weights (:222), never through the texture unit (whose 9-bit
-// filter weights the JAX package designed away). In the decode modes each
-// tap voxel is decoded from its B bins first and interpolated after: the
-// variance and entropy decodes are nonlinear, so interpolating histograms
-// first would give another answer. bf16 histograms stay bf16 in device
-// memory and are widened in registers; no f32 copy of the volume exists.
-// For n_planes == nz the plane walk reads layer nz-1-p for front-to-back
-// plane p (`reverse`), streaming the volume without a flipped copy.
+// axis, so each sample fetches its four taps directly with f32 weights,
+// never through the texture unit (whose 9-bit filter weights the JAX
+// package designed away). In the decode modes each tap voxel is decoded
+// from its B bins first and interpolated after. bf16 histograms stay bf16
+// in device memory and are widened in registers. For n_planes == nz the
+// plane walk reads layer nz-1-p for front-to-back plane p (`reverse`),
+// streaming the volume without a flipped copy. The per-sample arithmetic
+// is in sweep_common.cuh, shared with K5.
 //
-// The transfer function is evaluated for all four channels in the tent
-// basis (two LUT taps), the form march/slice.py uses; the TPU kernel's
-// factorised [A, R_l] accumulation saved VPU work and is not needed here.
+// Checkpoints (CKPT). T follows the backward's own recursion
+// T <- T - [T >= 1-thr] T a, not 1 - acc_a. The ray breaks only when both
+// the image (acc_a > thr) and T (T < 1-thr) are frozen, so T never stops
+// early; the rows past a break are filled with the frozen T, and a plane
+// that is skipped (behind the camera, outside the box) still gets its
+// chunk-start row, so K5 never reads an unwritten row. The image
+// arithmetic is the same code in the same order as with CKPT off: K4's
+// image is bitwise K3's.
 //
 // Bound on the H100: the histogram stream. At 512^3 x 16 bf16 -> 1024^2
 // every in-box sample reads 4 taps x B bins; neighbouring rays share taps, so
 // the traffic is served mostly from L1/L2, and the 4.3 GB volume is read
 // from HBM at least once. Left for later: staging plane tiles in shared
 // memory (TMA, double-buffered along z) so each voxel is decoded once per
-// block instead of once per tap, and the analytic backward.
+// block instead of once per tap.
 //
 // No atomics and one thread per ray: results are bitwise reproducible.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stddef.h>
-
-// Must match SweepParams in vrdd_tpu_torch/kernels/_build.py field for
-// field. Outside the anonymous namespace: the exported C entry point takes it.
-struct SweepParams {
-  float ox, oy, oz;
-  float density, brightness, tf_off, tf_scale, spacing;
-  float mx0, dmx, my0, dmy;
-  float xlo, ylo, xhi, yhi;
-  float tstep, threshold, tex_offset, sx, sy;
-  int height, width, ny, nx;
-  int n_planes, n_layers, n_lut, n_bins, n_rows;
-  int dz_sign, reverse, length_correction, filter_linear;
-};
+#include "sweep_common.cuh"
 
 namespace {
 
-enum DecodeMode { kNone = 0, kLinear = 1, kVar = 2, kEntropy = 3 };
+using namespace vrdd;
 
-// smallest positive value fed to log2 in the entropy decode; it only ever
-// multiplies an exactly-zero bin (vrdd_tpu/pallas/slice_kernel.py _ENT_TINY)
-constexpr float kEntTiny = 1e-30f;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Two tent taps of one axis (slice_kernel.py _tent_weights): q is the
-// clamped filter coordinate, w0/w1 the weights of texels i0 and i0 + 1
-// (w1 == 0 when i0 is the last texel), `inbox` the coverage predicate.
-__device__ __forceinline__ bool axis_taps(float coord, int n, float lo,
-                                          float hi, float scale,
-                                          float tex_offset, bool linear,
-                                          int& i0, int& i1, float& w0,
-                                          float& w1) {
-  const float p01 = (coord - lo) / (hi - lo);
-  float q = p01 * ((float)n * scale) - tex_offset;
-  q = fminf(fmaxf(q, 0.0f), (float)(n - 1));
-  if (!linear) q = floorf(q + 0.5f);
-  const float f = floorf(q);
-  i0 = (int)f;
-  i1 = min(i0 + 1, n - 1);
-  w0 = fmaxf(0.0f, 1.0f - fabsf(q - f));
-  w1 = fmaxf(0.0f, 1.0f - fabsf(q - (f + 1.0f)));
-  return p01 >= 0.0f && p01 <= 1.0f;
-}
-
-// The scalar value of one voxel: the plane value itself, or the decode of
-// its B bins (bins-major: bin b sits bstride elements after bin b - 1).
-template <int MODE, typename T>
-__device__ __forceinline__ float voxel(const T* __restrict__ v,
-                                       size_t bstride, int B,
-                                       const float* __restrict__ rows) {
-  if (MODE == kNone) return widen(v[0]);
-  if (MODE == kLinear) {
-    float acc = rows[0] * widen(v[0]);
-    for (int b = 1; b < B; ++b) acc += rows[b] * widen(v[b * bstride]);
-    return acc;
-  }
-  if (MODE == kVar) {
-    // rows [m, s*e, s*e^2, s]: dec = C2 - 2 m C1 + m^2 C0
-    float m = 0.0f, c1 = 0.0f, c2 = 0.0f, c0 = 0.0f;
-    for (int b = 0; b < B; ++b) {
-      const float h = widen(v[b * bstride]);
-      m += rows[b] * h;
-      c1 += rows[B + b] * h;
-      c2 += rows[2 * B + b] * h;
-      c0 += rows[3 * B + b] * h;
-    }
-    return c2 - 2.0f * m * c1 + m * m * c0;
-  }
-  // entropy: rows[0] = 1 / log2(B); exactly 0 at h == 0
-  float acc = 0.0f;
-  for (int b = 0; b < B; ++b) {
-    const float h = widen(v[b * bstride]);
-    acc += -h * log2f(fmaxf(h, kEntTiny));
-  }
-  return rows[0] * acc;
-}
-
-template <int MODE, typename T>
+template <int MODE, typename T, bool CKPT>
 __global__ void __launch_bounds__(256)
 slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
                    const float* __restrict__ zs,
                    const float* __restrict__ lut,
-                   const float* __restrict__ rows, float* __restrict__ out) {
+                   const float* __restrict__ rows, float* __restrict__ out,
+                   int ck_stride, float* __restrict__ tck) {
   extern __shared__ float smem[];
   float* s_lut = smem;                  // (n_lut, 4)
   float* s_rows = smem + 4 * p.n_lut;   // (n_rows, B)
@@ -148,105 +86,93 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= p.height || j >= p.width) return;
 
-  const float mx = p.mx0 + p.dmx * (float)j;
-  const float my = p.my0 + p.dmy * (float)i;
-  // per-ray opacity scale: slab length spacing * |d| / |d_z| over tstep
-  const float ascale =
-      p.length_correction
-          ? p.spacing * sqrtf(1.0f + my * my + mx * mx) / p.tstep
-          : 1.0f;
-  const bool linear = p.filter_linear != 0;
-  const int B = MODE == kNone ? 1 : p.n_bins;
-  const size_t plane_elems = (size_t)p.ny * (size_t)p.nx;
-  const size_t layer_elems = plane_elems * (size_t)B;
-  const float n_lut_f = (float)p.n_lut;
+  const Ray ray = make_ray(p, i, j);
+  const size_t pix = (size_t)i * p.width + j;
+  const size_t hw = (size_t)p.height * p.width;
+  const float thr1 = __fsub_rn(1.0f, p.threshold);
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_a = 0.0f;
-  for (int k = 0; k < p.n_planes; ++k) {
-    if (acc_a > p.threshold) break;  // frozen: nothing more can accumulate
-    const float z = __ldg(zs + k);
-    const bool in_front = p.dz_sign < 0 ? (z < p.oz) : (z > p.oz);
-    if (!in_front) continue;
-    const float xw = p.ox + (z - p.oz) * mx;
-    const float yw = p.oy + (z - p.oz) * my;
-    int x0, x1, y0, y1;
-    float wx0, wx1, wy0, wy1;
-    const bool in_x = axis_taps(xw, p.nx, p.xlo, p.xhi, p.sx, p.tex_offset,
-                                linear, x0, x1, wx0, wx1);
-    const bool in_y = axis_taps(yw, p.ny, p.ylo, p.yhi, p.sy, p.tex_offset,
-                                linear, y0, y1, wy0, wy1);
-    if (!(in_x && in_y)) continue;  // uncovered: alpha is exactly 0
-
+  float tr = 1.0f;  // CKPT: the backward's transmittance
+  int k = 0;
+  for (; k < p.n_planes; ++k) {
+    // frozen: nothing more can accumulate (and, with CKPT, T is frozen too)
+    if (acc_a > p.threshold && (!CKPT || !(tr >= thr1))) break;
+    if (CKPT && k % ck_stride == 0) tck[(size_t)(k / ck_stride) * hw + pix] = tr;
+    Taps tp;
+    if (!plane_taps(p, __ldg(zs + k), ray, tp)) continue;  // alpha exactly 0
     const int layer = p.reverse ? p.n_layers - 1 - k : k;
-    const T* base = vol + (size_t)layer * layer_elems;
-    const size_t r0 = (size_t)y0 * p.nx, r1 = (size_t)y1 * p.nx;
-    const float v00 = voxel<MODE, T>(base + r0 + x0, plane_elems, B, s_rows);
-    const float v01 = voxel<MODE, T>(base + r0 + x1, plane_elems, B, s_rows);
-    const float v10 = voxel<MODE, T>(base + r1 + x0, plane_elems, B, s_rows);
-    const float v11 = voxel<MODE, T>(base + r1 + x1, plane_elems, B, s_rows);
-    // the order of the two matmuls: y first, then x
-    const float res = (wy0 * v00 + wy1 * v10) * wx0 + (wy0 * v01 + wy1 * v11) * wx1;
-
-    // clamped linear LUT lookup in the tent basis: two nonzero taps
-    float q = (res - p.tf_off) * p.tf_scale * n_lut_f - 0.5f;
-    q = fminf(fmaxf(q, 0.0f), n_lut_f - 1.0f);
-    const float fl = floorf(q);
-    const int l0 = (int)fl;
-    const int l1 = min(l0 + 1, p.n_lut - 1);
-    const float ta = fmaxf(0.0f, 1.0f - fabsf(q - fl));
-    const float tb = fmaxf(0.0f, 1.0f - fabsf(q - (fl + 1.0f)));
-    const float cr = ta * s_lut[4 * l0 + 0] + tb * s_lut[4 * l1 + 0];
-    const float cg = ta * s_lut[4 * l0 + 1] + tb * s_lut[4 * l1 + 1];
-    const float cb = ta * s_lut[4 * l0 + 2] + tb * s_lut[4 * l1 + 2];
-    const float ca = ta * s_lut[4 * l0 + 3] + tb * s_lut[4 * l1 + 3];
-
-    const float a = fminf(ca * p.density * ascale, 1.0f);
-    const float t = 1.0f - acc_a;
-    acc_r += (cr * a) * t;
-    acc_g += (cg * a) * t;
-    acc_b += (cb * a) * t;
-    acc_a += a * t;
+    const float res = resample<MODE, T>(p, vol, layer, tp, s_rows);
+    const Tent tn = tent(p, res);
+    const float a = fminf(alpha_raw(lut_channel(s_lut, tn, 3), p.density,
+                                    ray.ascale), 1.0f);
+    if (acc_a <= p.threshold) {
+      const float t = __fsub_rn(1.0f, acc_a);
+      acc_r = __fmaf_rn(__fmul_rn(lut_channel(s_lut, tn, 0), a), t, acc_r);
+      acc_g = __fmaf_rn(__fmul_rn(lut_channel(s_lut, tn, 1), a), t, acc_g);
+      acc_b = __fmaf_rn(__fmul_rn(lut_channel(s_lut, tn, 2), a), t, acc_b);
+      acc_a = __fmaf_rn(a, t, acc_a);
+    }
+    if (CKPT) tr = t_step(tr, a, thr1);
+  }
+  if (CKPT) {
+    // rows of the chunks the loop never reached: the frozen T
+    const int n_chunks = (p.n_planes + ck_stride - 1) / ck_stride;
+    for (int c = (k + ck_stride - 1) / ck_stride; c < n_chunks; ++c)
+      tck[(size_t)c * hw + pix] = tr;
   }
   const float s = p.brightness;
-  reinterpret_cast<float4*>(out)[(size_t)i * p.width + j] =
-      make_float4(acc_r * s, acc_g * s, acc_b * s, acc_a * s);
+  reinterpret_cast<float4*>(out)[pix] = make_float4(
+      __fmul_rn(acc_r, s), __fmul_rn(acc_g, s), __fmul_rn(acc_b, s),
+      __fmul_rn(acc_a, s));
 }
 
 template <int MODE, typename T>
 cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
                    const float* lut, const float* rows, float* out,
-                   cudaStream_t stream) {
+                   int ck_stride, float* tck, cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((p.width + block.x - 1) / block.x,
                   (p.height + block.y - 1) / block.y);
   const size_t smem =
       sizeof(float) * (4 * (size_t)p.n_lut +
                        (MODE == kNone ? 0 : (size_t)p.n_rows * p.n_bins));
-  slice_sweep_kernel<MODE, T><<<grid, block, smem, stream>>>(
-      p, static_cast<const T*>(vol), zs, lut, rows, out);
+  const T* v = static_cast<const T*>(vol);
+  if (ck_stride > 0)
+    slice_sweep_kernel<MODE, T, true><<<grid, block, smem, stream>>>(
+        p, v, zs, lut, rows, out, ck_stride, tck);
+  else
+    slice_sweep_kernel<MODE, T, false><<<grid, block, smem, stream>>>(
+        p, v, zs, lut, rows, out, 0, nullptr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// mode: 0 none, 1 linear, 2 var, 3 entropy; bf16: volume element type.
+// mode: 0 none, 1 linear, 2 var, 3 entropy; bf16: volume element type;
+// ck_stride > 0 also writes the (ceil(n_planes / ck_stride), H, W)
+// transmittance checkpoints to tck (K4), 0 writes none (K1-K3).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" __attribute__((visibility("default"))) int vrdd_slice_sweep(
     const SweepParams* p, int mode, int bf16, const void* vol,
     const float* zs, const float* lut, const float* rows, float* out,
-    void* stream) {
+    int ck_stride, float* tck, void* stream) {
   if (p->height <= 0 || p->width <= 0) return (int)cudaSuccess;
+  if (ck_stride < 0 || (ck_stride > 0 && tck == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
+#define VRDD_LAUNCH(M, TYPE) \
+  launch<M, TYPE>(*p, vol, zs, lut, rows, out, ck_stride, tck, s)
   switch (mode * 2 + (bf16 ? 1 : 0)) {
-    case 0: return (int)launch<kNone, float>(*p, vol, zs, lut, rows, out, s);
-    case 1: return (int)launch<kNone, bf>(*p, vol, zs, lut, rows, out, s);
-    case 2: return (int)launch<kLinear, float>(*p, vol, zs, lut, rows, out, s);
-    case 3: return (int)launch<kLinear, bf>(*p, vol, zs, lut, rows, out, s);
-    case 4: return (int)launch<kVar, float>(*p, vol, zs, lut, rows, out, s);
-    case 5: return (int)launch<kVar, bf>(*p, vol, zs, lut, rows, out, s);
-    case 6: return (int)launch<kEntropy, float>(*p, vol, zs, lut, rows, out, s);
-    case 7: return (int)launch<kEntropy, bf>(*p, vol, zs, lut, rows, out, s);
+    case 0: return (int)VRDD_LAUNCH(kNone, float);
+    case 1: return (int)VRDD_LAUNCH(kNone, bf);
+    case 2: return (int)VRDD_LAUNCH(kLinear, float);
+    case 3: return (int)VRDD_LAUNCH(kLinear, bf);
+    case 4: return (int)VRDD_LAUNCH(kVar, float);
+    case 5: return (int)VRDD_LAUNCH(kVar, bf);
+    case 6: return (int)VRDD_LAUNCH(kEntropy, float);
+    case 7: return (int)VRDD_LAUNCH(kEntropy, bf);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef VRDD_LAUNCH
 }

@@ -2,9 +2,11 @@
 
 The sources compile with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes`` — no PyTorch
-headers, so a build takes seconds. The library goes to
-``vrdd_tpu_torch/_build/`` (ignored by git), named by a hash of the sources
-and flags, and is built at first use: importing this module does nothing.
+headers. Each ``.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more links them. The library goes to
+``vrdd_tpu_torch/_build/`` (ignored by git), named by a hash of every file
+under ``csrc/`` (sources and shared headers) and the flags, and is built at
+first use: importing this module does nothing.
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "slice_sweep.cu",)
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "slice_sweep.cu", CSRC / "slice_vjp.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _FLOAT_FIELDS = (
@@ -39,11 +42,21 @@ _INT_FIELDS = (
 
 
 class SweepParams(ctypes.Structure):
-    """Mirror of ``struct SweepParams`` in ``csrc/slice_sweep.cu``."""
+    """Mirror of ``struct SweepParams`` in ``csrc/sweep_common.cuh``."""
 
     _fields_ = [(n, ctypes.c_float) for n in _FLOAT_FIELDS] + [
         (n, ctypes.c_int) for n in _INT_FIELDS
     ]
+
+
+class BwdParams(ctypes.Structure):
+    """Mirror of ``struct BwdParams`` in ``csrc/slice_vjp.cu``: the
+    checkpoint stride (4 or 8), the number of checkpoint rows, and which
+    cotangents the reverse sweep computes."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "ck_stride", "n_chunks", "g_planes", "g_lut", "g_params",
+    )]
 
 
 def _nvcc() -> str:
@@ -59,13 +72,29 @@ def _nvcc() -> str:
     )
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path = CSRC) -> str:
+    """Hash of every source and header under ``csrc`` and of the flags: an
+    edit to a shared header alone names a new library."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def _run(cmds):
+    """Run the commands concurrently; raise with the output of the first
+    that fails. Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+            )
+    return "".join(outs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,32 +106,36 @@ def build() -> dict:
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(SOURCES, objs)])
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)]])
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    return {
-        "path": str(lib),
-        "seconds": time.perf_counter() - t0,
-        "log": proc.stdout + proc.stderr,
-    }
+    for o in objs:
+        o.unlink()
+    return {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log}
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(build()["path"])
-    fn = lib.vrdd_slice_sweep
-    fn.argtypes = [
-        ctypes.POINTER(SweepParams), ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fwd = lib.vrdd_slice_sweep
+    # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, stream
+    fwd.argtypes = [ctypes.POINTER(SweepParams), i32, i32, ptr, ptr, ptr,
+                    ptr, ptr, i32, ptr, ptr]
+    fwd.restype = i32
+    bwd = lib.vrdd_slice_bwd
+    # params, bwd params, mode, bf16, vol, zs, lut, rows, g, tck,
+    # d_planes, partials, mom, stream
+    bwd.argtypes = [ctypes.POINTER(SweepParams), ctypes.POINTER(BwdParams),
+                    i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                    ptr]
+    bwd.restype = i32
     return lib

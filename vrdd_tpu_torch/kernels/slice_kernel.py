@@ -144,37 +144,151 @@ def decode_weight_rows(stat: str, n_bins: int, *, family: str = "raw"):
     raise ValueError(f"unknown stat {stat!r}; use mean / var / entropy")
 
 
-def decode_with_rows(hist_bm: torch.Tensor, rows, mode: str) -> torch.Tensor:
-    """Materialized decode: bins-major ``(nz, B, ny, nx)`` histogram volume
-    -> ``(nz, ny, nx)`` float32 scalar volume, same rows/mode as
-    :func:`decode_weight_rows`. The plain version of K2's prologue.
+#: smallest positive value fed to log2 by the entropy chain; it only ever
+#: multiplies an exactly-zero bin (vrdd_tpu/pallas/slice_kernel.py _ENT_TINY)
+_ENT_TINY = 1e-30
+_INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
 
-    Works a few z-layers at a time, so no float32 copy of the whole
-    histogram volume exists (8.6 GB at 512^3 x 16)."""
-    if mode not in _N_ROWS:
-        raise ValueError(f"unknown decode mode {mode!r}")
-    dev = hist_bm.device
-    rows = torch.as_tensor(rows, dtype=torch.float32, device=dev)
-    if rows.ndim == 1:
-        rows = rows[None, :]
+
+def _z_step(hist_bm: torch.Tensor) -> int:
+    """z-layers per chunk of the materialized decode and its chains: about
+    32 M float32 temporaries, so no float32 copy of the whole histogram
+    volume exists (8.6 GB at 512^3 x 16)."""
+    _, B, ny, nx = hist_bm.shape
+    return max(1, (1 << 25) // (B * ny * nx))
+
+
+def _moments(hf: torch.Tensor, rows: torch.Tensor):
+    """(m, C1, C2, C0) of the variance decode of a float32 chunk."""
+    return [torch.einsum("zbyx,b->zyx", hf, rows[r]) for r in range(4)]
+
+
+def _decode_plain(hist_bm: torch.Tensor, rows: torch.Tensor,
+                  mode: str) -> torch.Tensor:
     nz, B, ny, nx = hist_bm.shape
-    out = torch.empty((nz, ny, nx), dtype=torch.float32, device=dev)
-    step = max(1, (1 << 25) // (B * ny * nx))
+    out = torch.empty((nz, ny, nx), dtype=torch.float32, device=hist_bm.device)
+    step = _z_step(hist_bm)
     for z0 in range(0, nz, step):
         hf = hist_bm[z0:z0 + step].to(torch.float32)
         if mode == "linear":
             dec = torch.einsum("zbyx,b->zyx", hf, rows[0])
         elif mode == "var":
-            m = torch.einsum("zbyx,b->zyx", hf, rows[0])
-            c1 = torch.einsum("zbyx,b->zyx", hf, rows[1])
-            c2 = torch.einsum("zbyx,b->zyx", hf, rows[2])
-            c0 = torch.einsum("zbyx,b->zyx", hf, rows[3])
+            m, c1, c2, c0 = _moments(hf, rows)
             dec = c2 - 2.0 * m * c1 + m * m * c0
         else:
             safe = torch.where(hf > 0.0, hf, 1.0)
             dec = rows[0, 0] * torch.sum(-hf * torch.log2(safe), dim=1)
         out[z0:z0 + step] = dec
     return out
+
+
+def decode_chain(hist_bm: torch.Tensor, rows: torch.Tensor, mode: str,
+                 d_dec: torch.Tensor, mom=None) -> torch.Tensor:
+    """The histogram cotangent from the decoded-volume cotangent ``d_dec``
+    ``(nz, ny, nx)``, in the histogram's storage dtype (as
+    vrdd_tpu/pallas/slice_vjp.py:874-908):
+
+    - linear: ``d h_b = d_dec * w_b`` (a broadcast);
+    - var: ``d h_b = d_dec * (w2_b - 2 m w1_b + m^2 w3_b + e w0_b)`` with the
+      moments ``m`` and ``e = 2 (m C0 - C1)`` from ``mom (nz, 2, ny, nx)``
+      (the reverse kernel writes them) or, without it, from the histograms;
+    - entropy: ``d h_b = -d_dec * w00 (log2 h_b + 1/ln2)``, exactly 0 at
+      ``h_b == 0``.
+
+    Runs a few z-layers at a time: no ``(nz, B, ny, nx)`` float32 temporary
+    exists. Shared by the in-kernel route's backward and the materialized
+    decode's (:class:`_Decode`)."""
+    d_hist = torch.empty_like(hist_bm)
+    step = _z_step(hist_bm)
+    for z0 in range(0, hist_bm.shape[0], step):
+        sl = slice(z0, z0 + step)
+        dz = d_dec[sl, None]
+        if mode == "linear":
+            d = dz * rows[0][None, :, None, None]
+        elif mode == "var":
+            if mom is not None:
+                m, e = mom[sl, 0, None], mom[sl, 1, None]
+            else:
+                m, c1, _, c0 = _moments(hist_bm[sl].to(torch.float32), rows)
+                e = (2.0 * (m * c0 - c1))[:, None]
+                m = m[:, None]
+            w = [r[None, :, None, None] for r in rows]
+            d = dz * (w[2] - 2.0 * m * w[1] + m * m * w[3] + e * w[0])
+        else:
+            hf = hist_bm[sl].to(torch.float32)
+            dlog = torch.where(
+                hf > 0.0,
+                -rows[0, 0] * (torch.log2(torch.clamp(hf, min=_ENT_TINY))
+                               + _INV_LN2),
+                0.0,
+            )
+            d = dz * dlog
+        d_hist[sl] = d.to(hist_bm.dtype)
+    return d_hist
+
+
+def _decode_rows_grad(hist_bm, rows, mode, d_dec) -> torch.Tensor:
+    """Cotangent of the decode rows, z-chunked."""
+    d_rows = torch.zeros_like(rows)
+    step = _z_step(hist_bm)
+    for z0 in range(0, hist_bm.shape[0], step):
+        hf = hist_bm[z0:z0 + step].to(torch.float32)
+        dz = d_dec[z0:z0 + step]
+        if mode == "linear":
+            d_rows[0] += torch.einsum("zbyx,zyx->b", hf, dz)
+        elif mode == "var":
+            m, c1, _, c0 = _moments(hf, rows)
+            # dec = C2 - 2 m C1 + m^2 C0: d/dm, d/dC1, d/dC2, d/dC0
+            for r, dc in enumerate((2.0 * (m * c0 - c1), -2.0 * m,
+                                    torch.ones_like(m), m * m)):
+                d_rows[r] += torch.einsum("zbyx,zyx->b", hf, dz * dc)
+        else:
+            safe = torch.where(hf > 0.0, hf, 1.0)
+            d_rows[0, 0] += torch.sum(
+                dz * torch.sum(-hf * torch.log2(safe), dim=1))
+    return d_rows
+
+
+class _Decode(torch.autograd.Function):
+    """The materialized decode under autograd, with the explicit z-chunked
+    chain of :func:`decode_chain` as its backward: plain autograd through
+    the chunked einsums would keep float32 copies of the histograms alive."""
+
+    @staticmethod
+    def forward(ctx, hist_bm, rows, mode):
+        ctx.save_for_backward(hist_bm, rows)
+        ctx.mode = mode
+        return _decode_plain(hist_bm, rows, mode)
+
+    @staticmethod
+    def backward(ctx, d_dec):
+        hist_bm, rows = ctx.saved_tensors
+        d_dec = d_dec.contiguous()
+        d_hist = d_rows = None
+        if ctx.needs_input_grad[0]:
+            d_hist = decode_chain(hist_bm, rows, ctx.mode, d_dec)
+        if ctx.needs_input_grad[1]:
+            d_rows = _decode_rows_grad(hist_bm, rows, ctx.mode, d_dec)
+        return d_hist, d_rows, None
+
+
+def decode_with_rows(hist_bm: torch.Tensor, rows, mode: str) -> torch.Tensor:
+    """Materialized decode: bins-major ``(nz, B, ny, nx)`` histogram volume
+    -> ``(nz, ny, nx)`` float32 scalar volume, same rows/mode as
+    :func:`decode_weight_rows`. The plain version of K2's prologue.
+
+    Works a few z-layers at a time, so no float32 copy of the whole
+    histogram volume exists (8.6 GB at 512^3 x 16), in the forward or, under
+    autograd, in the backward (:class:`_Decode`)."""
+    if mode not in _N_ROWS:
+        raise ValueError(f"unknown decode mode {mode!r}")
+    rows = torch.as_tensor(rows, dtype=torch.float32, device=hist_bm.device)
+    if rows.ndim == 1:
+        rows = rows[None, :]
+    if torch.is_grad_enabled() and (hist_bm.requires_grad
+                                    or rows.requires_grad):
+        return _Decode.apply(hist_bm, rows, mode)
+    return _decode_plain(hist_bm, rows, mode)
 
 
 def _host_floats(x, n: int) -> list:
@@ -216,9 +330,10 @@ def _check_unported(precision, empty_space_skip=False, ess_stats=None,
 
 
 def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
-            params: dict) -> torch.Tensor:
+            params: dict, ck_stride: int = 0):
     """Validate, allocate the (H, W, 4) output and launch the CUDA kernel on
-    the current stream of the volume's device."""
+    the current stream of the volume's device. ``ck_stride > 0`` also writes
+    the transmittance checkpoints (K4) and returns ``(out, tck)``."""
     from vrdd_tpu_torch.kernels import _build
 
     if vol.dtype not in (torch.float32, torch.bfloat16):
@@ -236,8 +351,12 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
         raise ValueError(f"tf_lut must be (n_lut, 4), got {tuple(lut_t.shape)}")
     if zs_t.numel() != params["n_planes"]:
         raise ValueError("zs must hold one depth per plane")
-    out = torch.empty((params["height"], params["width"], 4),
-                      dtype=torch.float32, device=dev)
+    H, W = params["height"], params["width"]
+    out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
+    tck = None
+    if ck_stride:
+        n_chunks = -(-params["n_planes"] // ck_stride)
+        tck = torch.empty((n_chunks, H, W), dtype=torch.float32, device=dev)
     p = _build.SweepParams(n_lut=lut_t.shape[0], **params)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -246,11 +365,11 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             p, _MODES[mode], int(vol.dtype == torch.bfloat16),
             vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(),
             None if rows_t is None else rows_t.data_ptr(), out.data_ptr(),
-            stream,
+            ck_stride, None if tck is None else tck.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"vrdd_slice_sweep launch failed: CUDA error {rc}")
-    return out
+    return (out, tck) if ck_stride else out
 
 
 def _sweep_params(origin, slopes, density, brightness, transfer_offset,
@@ -278,6 +397,15 @@ def _sweep_params(origin, slopes, density, brightness, transfer_offset,
     )
 
 
+def _slope_grids(slopes, width: int, height: int):
+    """The host slope grids ``mx0 + dmx * j``, ``my0 + dmy * i`` in float32,
+    rounded as the kernels build them (multiply, then add)."""
+    mx0, dmx, my0, dmy = _host_floats(slopes, 4)
+    mx = np.float32(mx0) + np.float32(dmx) * np.arange(width, dtype=np.float32)
+    my = np.float32(my0) + np.float32(dmy) * np.arange(height, dtype=np.float32)
+    return mx, my
+
+
 def sweep_preblended_planes_reference(
     planes_all, zs, origin, slopes, tf_lut, density=0.05, brightness=1.0,
     transfer_offset=0.0, transfer_scale=1.0, *, dz_sign=-1, width, height,
@@ -289,9 +417,7 @@ def sweep_preblended_planes_reference(
     grid ``mx0 + dmx * j`` is built in float32 exactly as the kernel builds
     it, then :func:`sweep_preblended_planes_xla` sweeps (a flipped copy of
     the stack when ``reverse_planes``)."""
-    mx0, dmx, my0, dmy = _host_floats(slopes, 4)
-    mx = np.float32(mx0) + np.float32(dmx) * np.arange(width, dtype=np.float32)
-    my = np.float32(my0) + np.float32(dmy) * np.arange(height, dtype=np.float32)
+    mx, my = _slope_grids(slopes, width, height)
     if reverse_planes:
         planes_all = planes_all.flip(0)
     return sweep_preblended_planes_xla(
