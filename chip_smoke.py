@@ -32,11 +32,39 @@ Phases (each prints its lines; any failure exits non-zero):
    evaluation render without gradients; launch counters reset before and
    read after each; gradients against the plain analytic VJP (1e-3
    relative L2); fwd+bwd and each of K3/K4/K5 timed against its plain
-   version.
+   version;
+7. the ``render`` path (``RenderPipeline``, queries 1/2/3/7):
+   7a. the reference's benchmark geometry, the Isabel-shaped 50 x 50 x 10
+       blocks x 32 bins, to 512^2 with the ``scan``, ``slice`` and
+       ``pallas`` renderers (ESS on and off): ``pallas`` against ``slice``
+       at the image tolerance, ESS on bitwise ESS off, frame ms and
+       MTexels/s of each;
+   7b. full size, a smooth 256^3-block x 32-bin float32 raw volume (2.1 GB,
+       made on the card from a seed, with empty space around its blobs) to
+       1024^2 through ``renderer='auto'``, which must resolve to the fused
+       kernel K1 with ESS on: launch counters reset before and read after;
+       the stats decode, the ESS plane stats, the per-frame bitmap and
+       pre-blend, K1 with and without ESS and the whole frame timed; the
+       culled share and peak memory printed; ESS bitwise no-ESS, ``pallas``
+       against the plain ``slice`` renderer. Then the differentiable sweep
+       with ESS (``wrt=('volume',)``) on the same volume: K3/K4 with ESS
+       bitwise without (image and every checkpoint row), ``d_volume`` within
+       1e-6 relative L2 of the gradient without ESS;
+   7c. ``python -m vrdd_tpu_torch.cli render --file none`` at its defaults
+       (and with ``--renderer auto``), printing its MTexels/s line.
 
 The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Without a GPU it exits with an error and
-prints no result. Needs nothing but the repository, torch, numpy, nvcc.
+``{"ok": true, "device": {...}}``. Each kernel's record holds its launches
+in the main-path run, its error against the plain version, its ms (median
+of warm runs, CUDA events), the plain version's ms, and ``bound_ms``: the
+larger of the bytes the call must move (each input read once, each output
+written once) over the H100's 3.35 TB/s and the FP32 operations of the
+samples this run's data needs (in front of the camera and in the box,
+before the ray's cutoff, not ESS-culled; counted with the plain version)
+over its 67 TFLOP/s, with ``bound_by`` naming the larger. No single
+PyTorch call computes a sweep, so ``library_ms`` is null. Without a GPU it
+exits with an error and prints no result. Needs nothing but the
+repository, torch, numpy, nvcc.
 """
 
 from __future__ import annotations
@@ -54,6 +82,24 @@ FLIP_BUDGET = 1e-3   # share of pixels allowed past TOL (cutoff flips)
 GRAD_TOL = 1e-3      # relative L2 of gradients (atomics, cutoff flips)
 ORIGIN = (0.0, 0.0, 4.0)
 TIMED_RUNS = 10
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_OPS_PER_S = 67e12      # H100 SXM, FP32 outside the tensor cores
+#: FP32 operations per evaluated sample of the forward sweep, counted from
+#: csrc/sweep_common.cuh and slice_sweep.cu (an FMA counts as two): the
+#: ray-plane taps 40, the bilinear resample 9, the LUT tent and lookup 24,
+#: the opacity 3, the "over" step 12
+SAMPLE_OPS = 88
+#: the reverse sweep (K5) replays the forward's samples and transposes
+#: them: counted as three forward samples
+K5_SAMPLE_FACTOR = 3
+
+
+def decode_ops(mode, B):
+    """FP32 operations of the in-kernel decode of one sample's four tap
+    voxels (log2 counted as one operation)."""
+    per_voxel = {"none": 0, "linear": 2 * B, "var": 8 * B + 6,
+                 "entropy": 4 * B + 1}[mode]
+    return 4 * per_voxel
 
 
 def fail(msg: str):
@@ -145,6 +191,80 @@ def timed_once(fn):
     end.record()
     end.synchronize()
     return start.elapsed_time(end), out
+
+
+def bound(n_bytes, n_ops):
+    """``bound_ms`` and ``bound_by`` of a call that must move ``n_bytes``
+    and compute ``n_ops`` FP32 operations."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
+                 reverse=False, ess=None, chunk=8):
+    """The samples the sweep kernels evaluate on these inputs: the plane in
+    front of the camera and the ray inside the box there, the ray not yet
+    past the opacity cutoff, the (tile, chunk) not culled by the ESS bitmap
+    ``ess``. Counted with the plain version's per-plane alpha, front to
+    back (``reverse``: the stack is stored z-ascending)."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.march.slice import _chunk_rgba_fn
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    march = MarchConfig()
+    dev = planes.device
+    P, ny, nx = planes.shape
+    mx, my = sk._slope_grids(slopes, W, H)
+    rgba = _chunk_rgba_fn(P, ny, nx, zs, torch.tensor(ORIGIN), mx, my, march,
+                          -1, None, True, 0.5, (1.0, 1.0), True, dev)
+    mx_t, my_t = torch.as_tensor(mx, device=dev), torch.as_tensor(my, device=dev)
+    th, tw = sk.ESS_TILE
+    ti = torch.arange(H, device=dev) // th
+    tj = torch.arange(W, device=dev) // tw
+    lut_t = torch.as_tensor(lut, dtype=torch.float32, device=dev)
+    ox, oy, oz = ORIGIN
+    (xlo, ylo, _), (xhi, yhi, _) = march.box_min, march.box_max
+    thr = march.opacity_threshold
+    acc = torch.zeros((H, W), device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for c0 in range(0, P, chunk):
+            idx = torch.arange(c0, min(c0 + chunk, P), device=dev)
+            a = rgba(c0, planes[P - 1 - idx if reverse else idx].float(),
+                     lut_t, density, toff, tscl)[..., 3]
+            for k in range(a.shape[0]):
+                z = float(zs[c0 + k])
+                if z < oz:
+                    xw, yw = ox + (z - oz) * mx_t, oy + (z - oz) * my_t
+                    live = ((acc <= thr) & ((yw >= ylo) & (yw <= yhi))[:, None]
+                            & ((xw >= xlo) & (xw <= xhi))[None, :])
+                    if ess is not None:
+                        live &= ess[(c0 + k) // chunk][ti][:, tj] != 0
+                    count += live.sum()
+                acc = torch.where(acc > thr, acc, acc + a[k] * (1.0 - acc))
+    return int(count)
+
+
+def host_ms(fn, runs):
+    """Median milliseconds of ``runs`` warm calls on the host clock, each
+    ending in a synchronize (a whole frame, host work included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    times.sort()
+    return times[len(times) // 2]
 
 
 def diff_counters():
@@ -328,6 +448,25 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         vol = hist if inkernel else sk.decode_with_rows(hist, rows, mode)
         cfg = sv.render_config(vol.shape, origin, stat=mode if inkernel
                                else "none", width=W, height=W)
+        decoded = vol if not inkernel else sk.decode_with_rows(hist, rows,
+                                                               mode)
+        n_live = live_samples(decoded, cfg.zs, cfg.slopes, tf, 0.05, 0.0,
+                              tscl, W, W, reverse=True)
+        del decoded
+        fwd_ops = n_live * (SAMPLE_OPS
+                            + decode_ops(mode if inkernel else "none", B))
+        vol_bytes = vol.numel() * vol.element_size()
+        img_bytes, tck_bytes = W * W * 16, cfg.n_chunks * W * W * 4
+        d_bytes = n * n * n * 4 * (3 if (inkernel and mode == "var") else 1)
+        bounds = {
+            "sweep_fwd": bound(vol_bytes + img_bytes, fwd_ops),
+            "sweep_fwd_ckpt": bound(vol_bytes + img_bytes + tck_bytes,
+                                    fwd_ops),
+            "sweep_bwd": bound(vol_bytes + tck_bytes + img_bytes + d_bytes,
+                               K5_SAMPLE_FACTOR * fwd_ops),
+        }
+        print(f"  [{tag}] evaluated samples {n_live} "
+              f"({n_live / (W * W * n):.4f} of rays x planes)")
         rows_t = torch.as_tensor(rows, device=dev) if inkernel else None
         args = (cfg, vol, rows_t, lut0,
                 torch.tensor(0.05, device=dev), torch.tensor(0.0, device=dev),
@@ -359,15 +498,328 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
             ("sweep_bwd", "slice_vjp.cu", 787, k5_ms, k5_plain_ms, k5_err),
         ):
             print(f"  [{tag}] {name}: kernel {k_ms:.3f} ms, plain "
-                  f"{p_ms:.3f} ms, max_abs_err {e:.3e}")
+                  f"{p_ms:.3f} ms, bound {bounds[name]['bound_ms']:.3f} ms "
+                  f"({bounds[name]['bound_by']}), max_abs_err {e:.3e}")
             records.append({
                 "name": f"{name}[{tag}]", "route": "cuda",
                 "source": f"vrdd_tpu_torch/csrc/{src}",
                 "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
                 "launches": launches[name], "max_abs_err": e, "ms": k_ms,
-                "plain_ms": p_ms,
+                "plain_ms": p_ms, **bounds[name],
             })
         torch.cuda.empty_cache()
+    return records
+
+
+def smooth_raw_histograms(n, B, dev, seed=0):
+    """``(n, n, n, B)`` float32 items-major raw histograms, made on ``dev``
+    a few z-layers at a time: per block a softmax over the bins around a
+    smooth mean field in [0, 1] (four Gaussian blobs drawn from ``seed``).
+    Away from the blobs the field is 0 and the mass sits in bin 0: the
+    decoded mean is about 0.02, below 1/18, where the default LUT's alpha is
+    still 0 — empty space for ESS to cull."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    blobs = [(rng.uniform(0.3, 0.7, 3), rng.uniform(0.06, 0.12),
+              rng.uniform(0.6, 1.0)) for _ in range(4)]
+    g = torch.linspace(0.0, 1.0, n, device=dev)
+    centers = (torch.arange(B, device=dev, dtype=torch.float32) + 0.5) / B
+    out = torch.empty((n, n, n, B), dtype=torch.float32, device=dev)
+    step = max(1, (1 << 24) // (n * n * B))
+    for z0 in range(0, n, step):
+        z = g[z0:z0 + step]
+        m = torch.zeros((z.shape[0], n, n), device=dev)
+        for c, sd, a in blobs:
+            r2 = ((z - c[0]) ** 2)[:, None, None] + ((g - c[1]) ** 2)[
+                None, :, None] + ((g - c[2]) ** 2)[None, None, :]
+            m += a * torch.exp(-r2 / (2 * sd * sd))
+        logits = -((centers - m.clamp(max=1.0)[..., None]) ** 2) / 1e-3
+        out[z0:z0 + step] = torch.softmax(logits, dim=-1)
+    return out
+
+
+def phase_7(dev, card, smi, tf, work):
+    """The render path: RenderPipeline at the reference's benchmark geometry
+    (7a), at full size through 'auto' (7b, the main-path run), the
+    differentiable sweep with ESS (7b) and the render CLI (7c). Returns the
+    kernel records."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    import torch
+
+    from vrdd_tpu_torch import cli
+    from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march.slice import preblend_planes
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, MarchConfig, QueryMethod, RenderConfig,
+        TransferFunctionConfig,
+    )
+
+    k1 = sk.sweep_preblended_planes
+    iv = default_benchmark_inv_view()
+    march = MarchConfig()
+
+    def config(q, size, var_scale):
+        """The render of query ``q``; the variance goes through the TF
+        scaled by ``var_scale`` so that it lands on the LUT's ramp."""
+        return RenderConfig(
+            camera=CameraConfig(width=size, height=size),
+            query_method=QueryMethod(q),
+            tf=TransferFunctionConfig(scale=var_scale if q == 2 else 1.0))
+
+    def check_image(img, what, size):
+        if tuple(img.shape) != (size, size, 4) or not torch.isfinite(img).all():
+            fail(f"{what}: bad output")
+        if float(img[..., 3].max()) <= 0.0:
+            fail(f"{what}: empty image")
+
+    # ---- 7a: the reference's benchmark geometry
+    S = 512
+    print(f"[7a] RenderPipeline, 50 x 50 x 10 blocks x 32 bins -> {S}^2, "
+          f"on {card} ({smi})")
+    hist = torch.from_numpy(random_histogram_volume((10, 50, 50), 32,
+                                                    seed=0)).to(dev)
+    pipe = RenderPipeline(raw=RawHistogramVolume(hist))
+    for q in (1, 2, 3, 7):
+        cfg = config(q, S, 0.25)  # Dirichlet histograms: wide
+        imgs, line = {}, []
+        for name, renderer, ess in (("scan", "scan", True),
+                                    ("slice", "slice", True),
+                                    ("pallas+ess", "pallas", True),
+                                    ("pallas", "pallas", False)):
+            pipe.empty_space_skip = ess
+
+            def frame(renderer=renderer, cfg=cfg):
+                return pipe.render(iv, cfg, renderer)
+
+            imgs[name] = frame()
+            check_image(imgs[name], f"7a q{q} {name}", S)
+            ms = host_ms(frame, 3 if renderer == "scan" else 5)
+            line.append(f"{name} {ms:.3f} ms ({S * S / ms / 1e3:.2f} "
+                        "MTexels/s)")
+        pipe.empty_space_skip = True
+        if not torch.equal(imgs["pallas+ess"], imgs["pallas"]):
+            fail(f"7a q{q}: K1 with ESS is not bitwise K1 without")
+        compare(imgs["pallas+ess"], imgs["slice"], f"[7a q{q}] pallas vs slice")
+        print(f"  [7a q{q}] " + ", ".join(line))
+    del pipe, hist, imgs
+
+    # ---- 7b: full size through 'auto', the main-path run
+    n, B, W = 256, 32, 1024
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hist = smooth_raw_histograms(n, B, dev)
+    print(f"[7b] RenderPipeline, {n}^3 blocks x {B} bins float32 "
+          f"({hist.numel() * 4 / 1e9:.2f} GB) -> {W}^2, renderer auto")
+    pipe = RenderPipeline(raw=RawHistogramVolume(hist))
+    print(f"  compute_stats_volume "
+          f"{1e3 * pipe.timings['basic_data_processing/raw']:.3f} ms (host "
+          "clock, synchronized)")
+    for q in (1, 2, 3, 7):
+        if pipe.resolve_renderer("auto", iv, config(q, W, 6.0)) != "pallas":
+            fail(f"7b q{q}: 'auto' did not resolve to the fused kernel")
+    k1.launches = k1.ess_launches = 0
+    images, launches = {}, {}
+    for q in (1, 2, 3, 7):
+        before = (k1.launches, k1.ess_launches)
+        images[q] = pipe.render(iv, config(q, W, 6.0), "auto")
+        launches[q] = (k1.launches - before[0], k1.ess_launches - before[1])
+    torch.cuda.synchronize()
+    print(f"  launches in the main-path run: K1 {k1.launches}, with ESS "
+          f"{k1.ess_launches} (per query {launches})")
+    if k1.launches == 0 or k1.ess_launches != k1.launches:
+        fail("7b: the render path did not run K1 with ESS")
+
+    records = []
+    for q in (1, 2, 3, 7):
+        cfg = config(q, W, 6.0)  # peaked histograms: narrow
+        check_image(images[q], f"7b q{q}", W)
+        vol = pipe._stats_channel(q)
+        toff = pipe._tex_offset(q)
+        P = max(64, 2 * n)
+        ess_ms, stats = timed_once(lambda vol=vol, toff=toff:
+                                   sk.precompute_ess_stats(
+                                       vol, n_planes=P, march=march,
+                                       tex_offset=toff))
+        frame_ms = host_ms(lambda cfg=cfg: pipe.render(iv, cfg, "auto"), 5)
+        blend_ms = time_ms(lambda vol=vol, toff=toff: preblend_planes(
+            vol, P, march.box_min, march.box_max, -1, toff), TIMED_RUNS)
+        planes, zs = preblend_planes(vol, P, march.box_min, march.box_max,
+                                     -1, toff)
+        mx, my = sk._pixel_slopes(W, W, 2.0)
+        slopes = (*sk._uniform_grid_params(mx, "mx"),
+                  *sk._uniform_grid_params(my, "my"))
+        tscl = cfg.tf.scale
+
+        def bitmap(stats=stats, zs=zs, tscl=tscl, toff=toff):
+            return sk.ess_bitmap(stats, zs, ORIGIN, slopes, tf, 0.0, tscl,
+                                 width=W, height=W, ny=n, nx=n,
+                                 plane_chunk=8, march=march,
+                                 tex_offset=toff)
+
+        bitmap_ms = time_ms(bitmap, TIMED_RUNS)
+        ess = bitmap()
+        params = sk._sweep_params(
+            ORIGIN, slopes, 0.05, 1.0, 0.0, tscl, 2.0 / P, march, width=W,
+            height=W, ny=n, nx=n, n_planes=P, n_layers=P, dz_sign=-1,
+            reverse=False, length_correction=True, tex_offset=toff,
+            axis_scale=(1.0, 1.0), filter_linear=True)
+
+        def k1_run(ess_map, planes=planes, zs=zs, params=params):
+            return sk._launch(planes, "none", zs, tf, None, params,
+                              ess=ess_map, ess_chunk=8)
+
+        k1_ess_ms = time_ms(lambda: k1_run(ess), TIMED_RUNS)
+        k1_ms = time_ms(lambda: k1_run(None), TIMED_RUNS)
+        img_ess, img_plain_k1 = k1_run(ess), k1_run(None)
+        pipe.empty_space_skip = False
+        no_ess = pipe.render(iv, cfg, "pallas")
+        pipe.empty_space_skip = True
+        if not (torch.equal(img_ess, img_plain_k1)
+                and torch.equal(no_ess, images[q])):
+            fail(f"7b q{q}: K1 with ESS is not bitwise K1 without")
+        slice_ms, ref = timed_once(lambda cfg=cfg: pipe.render(iv, cfg,
+                                                               "slice"))
+        compare(images[q], ref, f"[7b q{q}] auto (pallas+ESS) vs slice")
+        ref_ess_ms, ref_ess = timed_once(
+            lambda: sk.sweep_preblended_planes_reference(
+                planes, zs, ORIGIN, slopes, tf, 0.05, 1.0, 0.0, tscl,
+                width=W, height=W, tex_offset=toff, ess=ess))
+        err = compare(img_ess, ref_ess, f"[7b q{q}] K1+ESS vs plain+bitmap")
+        culled = float((ess == 0).float().mean())
+        n_live = live_samples(planes, zs, slopes, tf, 0.05, 0.0, tscl, W, W,
+                              ess=ess)
+        n_all = live_samples(planes, zs, slopes, tf, 0.05, 0.0, tscl, W, W)
+        plane_bytes = planes.numel() * 4 + W * W * 16
+        bd = bound(plane_bytes + ess.numel(), n_live * SAMPLE_OPS)
+        bd_all = bound(plane_bytes, n_all * SAMPLE_OPS)
+        print(f"  [7b q{q}] frame {frame_ms:.3f} ms "
+              f"({W * W / frame_ms / 1e3:.2f} MTexels/s); ESS plane stats "
+              f"{ess_ms:.3f} ms (once per volume); per frame: pre-blend "
+              f"{blend_ms:.3f} ms, bitmap {bitmap_ms:.3f} ms, K1+ESS "
+              f"{k1_ess_ms:.3f} ms (bound {bd['bound_ms']:.3f}), K1 "
+              f"{k1_ms:.3f} ms (bound {bd_all['bound_ms']:.3f}); culled "
+              f"{culled:.4f} of (tile, chunk) pairs, evaluated samples "
+              f"{n_live} with ESS / {n_all} without; plain slice "
+              f"{slice_ms:.3f} ms, plain K1+bitmap {ref_ess_ms:.3f} ms")
+        records.append({
+            "name": f"sweep_preblended_planes[ess,q{q}]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
+            "launches": launches[q][1], "max_abs_err": err, "ms": k1_ess_ms,
+            "plain_ms": ref_ess_ms, **bd,
+        })
+        del planes, ref, ref_ess, no_ess
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+
+    # the differentiable sweep with ESS on the same volume (K3/K4 ESS)
+    vol = pipe._stats_channel(1)
+    P, ck = 2 * n, 4
+    counters = diff_counters()
+    for c in counters:
+        c.launches = 0
+    sv.sweep_fwd.ess_launches = sv.sweep_fwd_ckpt.ess_launches = 0
+    kw = dict(width=W, height=W, n_planes=P, wrt=("volume",),
+              plane_chunk=ck)
+    out = {}
+    for ess in (True, False):
+        with torch.no_grad():
+            img3 = sv.pallas_slice_render_diff(vol, ORIGIN, tf,
+                                               empty_space_skip=ess, **kw)
+        v = vol.clone().requires_grad_()
+        img4 = sv.pallas_slice_render_diff(v, ORIGIN, tf,
+                                           empty_space_skip=ess, **kw)
+        (g,) = torch.autograd.grad(torch.mean((img4 - 0.25) ** 2), [v])
+        out[ess] = (img3, img4.detach(), g)
+        if ess:
+            torch.cuda.synchronize()
+            diff_launches = {c.__name__: c.launches for c in counters}
+            ess_launches = {c.__name__: c.ess_launches for c in counters[:2]}
+    print(f"  [7b diff, wrt volume] launches with ESS: {diff_launches}, of "
+          f"them culling: {ess_launches}")
+    if min(diff_launches.values()) == 0 or min(ess_launches.values()) == 0:
+        fail("7b diff: K3/K4 with ESS or K5 was not launched")
+    if not (torch.equal(out[True][0], out[False][0])
+            and torch.equal(out[True][1], out[False][1])):
+        fail("7b diff: the image with ESS is not bitwise the one without")
+    rel = rel_l2(out[True][2], out[False][2], "[7b diff] d_volume ESS vs no ESS")
+    if rel > 1e-6:
+        fail(f"7b diff: d_volume with ESS {rel:.3e} from without (limit 1e-6)")
+    del out, img3, img4, g, v
+    planes, zs = preblend_planes(vol, P, march.box_min, march.box_max, -1)
+    mx, my = sk._pixel_slopes(W, W, 2.0)
+    slopes = (*sk._uniform_grid_params(mx, "mx"),
+              *sk._uniform_grid_params(my, "my"))
+    cfg = sv._planes_sweep(
+        zs, ORIGIN, slopes, dz_sign=-1, width=W, height=W, march=march,
+        plane_spacing=None, n_planes=P, length_correction=True,
+        plane_chunk=ck, tex_offset=0.5, axis_scale=(1.0, 1.0),
+        reverse_planes=False)
+    ess = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, ORIGIN, slopes, tf,
+                        0.0, 1.0, width=W, height=W, ny=n, nx=n,
+                        plane_chunk=ck)
+    ess_cfg = dataclasses.replace(cfg, ess=ess)
+    args = (planes, None, torch.as_tensor(tf, device=dev),
+            torch.tensor(0.05, device=dev), torch.tensor(0.0, device=dev),
+            torch.tensor(1.0, device=dev))
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
+    img_e, tck_e = sv.sweep_fwd_ckpt(ess_cfg, *args)
+    if not (torch.equal(img_e, img) and torch.equal(tck_e, tck)
+            and torch.equal(sv.sweep_fwd(ess_cfg, *args), img)):
+        fail("7b diff: K3/K4 with ESS (image, checkpoints) not bitwise "
+             "without")
+    n_live = live_samples(planes, zs, slopes, tf, 0.05, 0.0, 1.0, W, W,
+                          ess=ess, chunk=ck)
+    img_bytes = planes.numel() * 4 + W * W * 16 + ess.numel()
+    for name, fn, ref_fn, extra in (
+            ("sweep_fwd", sv.sweep_fwd, sv.sweep_fwd_reference, 0),
+            ("sweep_fwd_ckpt", sv.sweep_fwd_ckpt,
+             sv.sweep_fwd_ckpt_reference, cfg.n_chunks * W * W * 4)):
+        k_ms = time_ms(lambda fn=fn: fn(ess_cfg, *args), TIMED_RUNS)
+        p_ms, ref = timed_once(lambda ref_fn=ref_fn: ref_fn(ess_cfg, *args))
+        got = fn(ess_cfg, *args)
+        if name == "sweep_fwd_ckpt":
+            compare(got[1][..., None], ref[1][..., None],
+                    f"[7b diff] {name}+ESS checkpoints vs plain")
+            got, ref = got[0], ref[0]
+        e = compare(got, ref, f"[7b diff] {name}+ESS vs plain+bitmap")
+        bd = bound(img_bytes + extra, n_live * SAMPLE_OPS)
+        print(f"  [7b diff] {name}+ESS: kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms")
+        records.append({
+            "name": f"{name}[ess]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_vjp.py:"
+                        f"{698 if name == 'sweep_fwd' else 714}",
+            "launches": ess_launches[name], "max_abs_err": e, "ms": k_ms,
+            "plain_ms": p_ms, **bd,
+        })
+    del pipe, hist, vol, planes, img, tck, img_e, tck_e
+    torch.cuda.empty_cache()
+
+    # ---- 7c: the render CLI at its defaults
+    for extra in ([], ["--renderer", "auto"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["render", "--file", "none", "-o",
+                           str(work / "render.ppm"), *extra])
+        text = buf.getvalue()
+        print(f"[7c] render --file none {' '.join(extra)}: rc {rc}")
+        for line in text.splitlines():
+            print(f"  {line}")
+        if rc != 0 or not re.search(r"Throughput = \S+ MTexels/s", text):
+            fail(f"render --file none {extra}: rc {rc}")
     return records
 
 
@@ -557,15 +1009,23 @@ def main() -> int:
         del ref
         ms = time_ms(lambda r=renderer: r(hist, origin), TIMED_RUNS)
         plain_ms = time_ms(plain, 1)
+        zs, slopes, _ = sk._hist_geometry(n, W, W, 2.0, renderer.march)
+        n_live = live_samples(sk.decode_with_rows(hist, renderer.rows, mode),
+                              zs, slopes, tf, 0.05, 0.0,
+                              renderer.transfer_scale, W, W, reverse=True)
+        bd = bound(hist.numel() * hist.element_size() + W * W * 16,
+                   n_live * (SAMPLE_OPS + decode_ops(mode, B)))
         print(f"  K2 {mode}: kernel {ms:.3f} ms ({W * W / ms / 1e3:.2f} "
               f"Mrays/s), plain {plain_ms:.3f} ms "
-              f"({W * W / plain_ms / 1e3:.2f} Mrays/s)")
+              f"({W * W / plain_ms / 1e3:.2f} Mrays/s), bound "
+              f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}; {n_live} "
+              f"evaluated samples)")
         records.append({
             "name": f"pallas_hist_render[{mode}]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
             "replaces": "vrdd_tpu/pallas/slice_kernel.py:1595",
             "launches": launches[mode], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, **bd,
         })
 
     def plain_k1():
@@ -577,22 +1037,35 @@ def main() -> int:
     ms = time_ms(lambda: sk.pallas_slice_render(
         mean_vol, origin, tf, width=W, height=W, n_planes=n), TIMED_RUNS)
     plain_ms = time_ms(plain_k1, 1)
+    zs, slopes, _ = sk._hist_geometry(n, W, W, 2.0, renderers["linear"].march)
+    n_live = live_samples(mean_vol, zs, slopes, tf, 0.05, 0.0, 1.0, W, W,
+                          reverse=True)
+    bd = bound(mean_vol.numel() * 4 + W * W * 16, n_live * SAMPLE_OPS)
     print(f"  K1: kernel {ms:.3f} ms ({W * W / ms / 1e3:.2f} Mrays/s), plain "
-          f"{plain_ms:.3f} ms ({W * W / plain_ms / 1e3:.2f} Mrays/s)")
+          f"{plain_ms:.3f} ms ({W * W / plain_ms / 1e3:.2f} Mrays/s), bound "
+          f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}; {n_live} evaluated "
+          f"samples)")
     records.insert(0, {
         "name": "sweep_preblended_planes", "route": "cuda",
         "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
         "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
         "launches": launches["k1"], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms,
+        "plain_ms": plain_ms, **bd,
     })
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del mean_vol
 
     # ---- 6. the training main path at full size
     records += phase_6(dev, card, smi, hist, tf, origin, n, B, W)
+    del hist
+    torch.cuda.empty_cache()
 
-    # ---- 7. result
+    # ---- 7. the render path
+    work.mkdir(parents=True)
+    records += phase_7(dev, card, smi, tf, work)
+    shutil.rmtree(work)
+
+    # ---- result
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),

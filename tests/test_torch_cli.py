@@ -72,3 +72,92 @@ def test_render_hist_cuda_without_gpu_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(argv)  # --device defaults to cuda: no CPU fallback
     assert not (tmp_path / "o.ppm").exists()
+
+
+# ---- render: RenderPipeline through the CLI --------------------------------
+
+def _render_args(out, *extra):
+    return ["render", "--width", "32", "--height", "32", "-o", str(out),
+            *extra]
+
+
+@pytest.mark.parametrize("renderer", ["scan", "slice"])
+def test_render_matches_jax(tmp_path, renderer):
+    """``render`` on the seeded synthetic volume, port (CPU) vs JAX."""
+    ref_out, got_out = tmp_path / "jax.ppm", tmp_path / "torch.ppm"
+    args = ["--renderer", renderer, "--density", "0.5"]
+    assert jcli.main(_render_args(ref_out, *args)) == 0
+    assert tcli.main(_render_args(got_out, *args, "--device", "cpu")) == 0
+    ref = formats.read_ppm(str(ref_out)).astype(np.int32)
+    got = formats.read_ppm(str(got_out)).astype(np.int32)
+    assert got.shape == ref.shape == (32, 32, 3)
+    assert ref.max() > 0, "vacuous comparison: image is black"
+    level = np.abs(got - ref).max(axis=-1)
+    # the uint8 truncation flips a level on a few pixels; a sample at the
+    # opacity cutoff may flip on one (0.1% of the 32^2 pixels)
+    assert np.mean(level > 1) <= 1e-3 and np.mean(level > 0) <= 1e-2, (
+        np.mean(level > 1), np.mean(level > 0))
+
+
+def test_render_file_mode_passes_and_fails(tmp_path, capsys):
+    """``--file``: warm-up, timed renders and the MTexels/s line; exit 0
+    against the render's own PPM, 1 against a perturbed one."""
+    fixture = tmp_path / "fixture.ppm"
+    assert tcli.main(_render_args(fixture, "--device", "cpu", "--renderer",
+                                  "pallas", "--query", "3")) == 0
+    common = ("--device", "cpu", "--renderer", "pallas", "--query", "3",
+              "--iters", "2")
+    rc = tcli.main(_render_args(tmp_path / "a.ppm", "--file", str(fixture),
+                                *common))
+    out = capsys.readouterr().out
+    assert rc == 0 and "MTexels/s" in out and "PASS" in out
+    img = formats.read_ppm(str(fixture))
+    formats.write_ppm(str(tmp_path / "bad.ppm"),
+                      np.concatenate([255 - img, img[..., :1]], axis=-1))
+    rc = tcli.main(_render_args(tmp_path / "b.ppm", "--file",
+                                str(tmp_path / "bad.ppm"), *common))
+    assert rc == 1 and "FAIL" in capsys.readouterr().out
+    assert tcli.main(_render_args(tmp_path / "c.ppm", "--file", "none",
+                                  *common)) == 0
+
+
+def test_render_volume_file(tmp_path):
+    """``--volume <file>`` reads a raw block-histogram blob (X Y Z blocks)."""
+    from vrdd_tpu_torch.core.image import rgba_to_uint8
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig)
+
+    hist = random_histogram_volume((4, 6, 5), n_bins=32, seed=3)
+    path = tmp_path / "hist.bin"
+    formats.write_raw_histograms(str(path), hist.reshape(-1, 32))
+    out = tmp_path / "o.ppm"
+    assert tcli.main(_render_args(
+        out, "--volume", str(path), "--blocks", "5", "6", "4", "--query",
+        "7", "--renderer", "auto", "--device", "cpu")) == 0
+    p = RenderPipeline(raw=RawHistogramVolume(torch.from_numpy(hist)))
+    cfg = RenderConfig(camera=CameraConfig(width=32, height=32),
+                       query_method=QueryMethod.INTERP_MEAN)
+    ref = rgba_to_uint8(p.render(None, cfg, "slice")).numpy()[..., :3]
+    np.testing.assert_array_equal(formats.read_ppm(str(out)), ref)
+
+
+def test_render_unported_raise(tmp_path):
+    out = tmp_path / "o.ppm"
+    for extra, match in ((("--query", "4"), "fractal"),
+                         (("--query", "9"), "flexible"),
+                         (("--rot-x", "20", "--renderer", "auto"),
+                          "shear-warp"),
+                         (("--flex-normalize",), "flexible")):
+        with pytest.raises(NotImplementedError, match=match):
+            tcli.main(_render_args(out, "--device", "cpu", *extra))
+
+
+def test_render_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: --device cuda renders on it")
+    out = tmp_path / "o.ppm"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(_render_args(out))  # --device defaults to cuda
+    assert not out.exists()

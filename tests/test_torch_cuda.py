@@ -225,3 +225,141 @@ def test_k5_two_runs(dev, stat):
     (gh1, gl1, gd1), (gh2, gl2, gd2) = runs
     assert torch.equal(gl1, gl2) and torch.equal(gd1, gd2)
     assert _rel_l2(gh1, gh2) <= 1e-6
+
+
+# ---- empty-space skipping (K1/K3/K4) ----------------------------------------
+
+def _band_lut():
+    """Zero alpha below ~0.5, a ramp above (tests/test_pallas_slice.py:91-95)."""
+    lut = np.zeros((8, 4), dtype=np.float32)
+    lut[:, 0] = np.linspace(0, 1, 8)
+    lut[5:, 3] = [0.3, 0.7, 1.0]
+    return lut
+
+
+ESS_LUTS = {"rainbow": (TF, 0.0, 1.0), "band": (_band_lut(), 0.0, 1.0),
+            "negative_scale": (TF, 1.0, -1.0)}
+
+
+def _sparse_blob(dev, n=24):
+    """A 24^3 blob volume with its low values cut to 0: empty space."""
+    v = torch.from_numpy(gaussian_blob_volume((n, n, n), seed=3))
+    return torch.where(v > 0.35, v, 0.0).to(dev)
+
+
+@pytest.mark.parametrize("lut_name", sorted(ESS_LUTS))
+@pytest.mark.parametrize("size", [(100, 72), (136, 96)])
+@pytest.mark.parametrize("n_planes", [24, 48])
+def test_k1_ess_is_bitwise_k1(dev, lut_name, size, n_planes):
+    """K1 with ESS is bitwise K1 without it (culled samples have alpha
+    exactly 0), at images unaligned to the 32 x 8 tile; and it matches the
+    plain version given the same bitmap. n_planes == nz is the
+    pure-selection schedule (cached stats), 2 nz the pre-blend."""
+    lut, toff, tscl = ESS_LUTS[lut_name]
+    vol = _sparse_blob(dev)
+    W, H = size
+    kw = dict(width=W, height=H, n_planes=n_planes, transfer_offset=toff,
+              transfer_scale=tscl)
+    plain_k1 = sk.pallas_slice_render(vol, O, lut, 0.8, **kw)
+    before = sk.sweep_preblended_planes.launches
+    got = sk.pallas_slice_render(vol, O, lut, 0.8, empty_space_skip=True,
+                                 **kw)
+    stats = sk.precompute_ess_stats(vol, n_planes=n_planes)
+    cached = sk.pallas_slice_render(vol, O, lut, 0.8, empty_space_skip=True,
+                                    ess_stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert sk.sweep_preblended_planes.launches == before + 2
+    assert torch.equal(got, plain_k1) and torch.equal(cached, plain_k1)
+    assert float(got[..., 3].max()) > 0.05, "vacuous: empty render"
+    # the plain version with the same bitmap
+    planes, zs = sk.preblend_planes(vol, n_planes, (-1.0, -1.0, -1.0),
+                                    (1.0, 1.0, 1.0), -1)
+    mx, my = sk._pixel_slopes(W, H, 2.0)
+    slopes = (*sk._uniform_grid_params(mx, "mx"),
+              *sk._uniform_grid_params(my, "my"))
+    bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes, lut,
+                           toff, tscl, width=W, height=H, ny=24, nx=24,
+                           plane_chunk=8)
+    assert bool((bitmap == 0).any()), "vacuous: nothing culled"
+    ref = sk.sweep_preblended_planes_reference(
+        planes, zs, O, slopes, lut, 0.8, 1.0, toff, tscl, width=W, height=H,
+        ess=bitmap)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("lut_name", sorted(ESS_LUTS))
+@pytest.mark.parametrize("ck_stride", [4, 8])
+def test_k3_k4_ess_are_bitwise(dev, lut_name, ck_stride):
+    """K3's image and K4's image and every checkpoint row with the ESS
+    bitmap are bitwise those without it."""
+    import dataclasses
+
+    lut, toff, tscl = ESS_LUTS[lut_name]
+    vol = _sparse_blob(dev)
+    planes, zs = sk.preblend_planes(vol, 48, (-1.0, -1.0, -1.0),
+                                    (1.0, 1.0, 1.0), -1)
+    mx, my = sk._pixel_slopes(100, 72, 2.0)
+    slopes = (*sk._uniform_grid_params(mx, "mx"),
+              *sk._uniform_grid_params(my, "my"))
+    cfg = sv._planes_sweep(
+        zs, O, slopes, dz_sign=-1, width=100, height=72,
+        march=sk.MarchConfig(), plane_spacing=None, n_planes=48,
+        length_correction=True, plane_chunk=ck_stride, tex_offset=0.5,
+        axis_scale=(1.0, 1.0), reverse_planes=False)
+    bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes, lut,
+                           toff, tscl, width=100, height=72, ny=24, nx=24,
+                           plane_chunk=ck_stride)
+    ess_cfg = dataclasses.replace(cfg, ess=bitmap)
+    args = (planes, None, torch.tensor(lut, device=dev),
+            torch.tensor(0.8, device=dev), torch.tensor(toff, device=dev),
+            torch.tensor(tscl, device=dev))
+    assert torch.equal(sv.sweep_fwd(ess_cfg, *args), sv.sweep_fwd(cfg, *args))
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
+    img_e, tck_e = sv.sweep_fwd_ckpt(ess_cfg, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(img_e, img) and torch.equal(tck_e, tck)
+    assert bool((bitmap == 0).any()), "vacuous: nothing culled"
+
+
+def test_diff_ess_volume_gradient(dev):
+    """pallas_slice_render_diff(wrt=('volume',), empty_space_skip=True):
+    the image is bitwise the one without ESS, d_volume within 1e-6 relative
+    L2 (K5's atomics)."""
+    vol = _sparse_blob(dev)
+    out = []
+    for ess in (False, True):
+        v = vol.clone().requires_grad_()
+        img = sv.pallas_slice_render_diff(v, O, _band_lut(), 0.8, width=100,
+                                          height=72, wrt=("volume",),
+                                          empty_space_skip=ess)
+        (g,) = torch.autograd.grad((img * img).sum(), [v])
+        out.append((img.detach(), g))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][0], out[1][0])
+    assert float(out[0][1].abs().max()) > 0.0
+    assert _rel_l2(out[1][1], out[0][1]) <= 1e-6
+
+
+def test_pipeline_auto_is_pallas_with_ess_on_the_card(dev):
+    """RenderPipeline on the card: 'auto' resolves to the fused kernel,
+    which renders with ESS on; it matches the plain 'slice' renderer."""
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig)
+
+    hist = random_histogram_volume((10, 50, 50), n_bins=32, seed=0)
+    p = RenderPipeline(raw=RawHistogramVolume(torch.from_numpy(hist).to(dev)))
+    for q in (1, 2, 3, 7):
+        cfg = RenderConfig(camera=CameraConfig(width=96, height=80),
+                           density=0.5, query_method=QueryMethod(q))
+        assert p.resolve_renderer("auto", np.eye(3, 4, dtype=np.float32)
+                                  + np.array([[0, 0, 0, 0], [0, 0, 0, 0],
+                                              [0, 0, 0, 4]], np.float32),
+                                  cfg) == "pallas"
+        before = sk.sweep_preblended_planes.launches
+        got = p.render(None, cfg, "auto")
+        assert sk.sweep_preblended_planes.launches == before + 1
+        _close(got, p.render(None, cfg, "slice"))
+    assert p._ess_cache, "ESS stats were not computed"

@@ -264,7 +264,9 @@ def test_hist_renderer_trains_through_the_diff_path():
 
 def test_unported_modes_raise():
     vol = torch.zeros((4, 4, 4), requires_grad=True)
-    with pytest.raises(NotImplementedError):
+    # empty-space skipping is ported, and exact only for wrt=('volume',):
+    # other wrt raise ValueError, as in JAX
+    with pytest.raises(ValueError, match="wrt"):
         tv.pallas_slice_render_diff(vol, O, TF, width=8, height=8,
                                     empty_space_skip=True)
     with pytest.raises(NotImplementedError):

@@ -6,7 +6,10 @@ layout module for module (``vrdd_tpu_torch/march/slice.py`` <->
 bins-major ``(nz, B, ny, nx)`` histograms, ``(H, W, 4)`` premultiplied RGBA
 images, ``(n_lut, 4)`` LUTs. It imports ``torch`` and numpy, never JAX.
 
-Ported so far: the forward ``render-hist`` path (``cli.py``), with the two
-fused sweep kernels written in CUDA C++ for Hopper (``csrc/slice_sweep.cu``).
-Importing the package builds nothing; the kernels compile at first launch.
+Ported so far: the ``render`` path (``models/pipeline.py`` ``RenderPipeline``
+for queries 1/2/3/7 through the scan marcher, the plain sweep or the fused
+kernel with empty-space skipping), the ``render-hist`` path and the
+``fit-hist`` training path (``cli.py``), with the sweep kernels written in
+CUDA C++ for Hopper (``csrc/``). Importing the package builds nothing; the
+kernels compile at first launch.
 """

@@ -2,6 +2,14 @@
 
 Subcommands ported so far:
 
+- ``render``       render a raw block-histogram dataset (a file or the seeded
+                   synthetic one) through ``RenderPipeline`` for queries
+                   1/2/3/7 with the ``scan``, ``slice``, ``pallas`` or
+                   ``auto`` renderer, to PPM/NPY; ``--file ref.ppm`` is the
+                   benchmark + golden mode of the reference's ``-file`` flag
+                   (warm-up, ``--iters`` timed renders, the MTexels/s line,
+                   PPM compare with exit code 1 on a fail; ``--file none``
+                   skips the compare).
 - ``render-hist``  render straight from a block-histogram file: bins-major
                    load, the in-kernel decode sweep (``pallas_hist_render``
                    through ``HistRenderer``), PPM out.
@@ -12,6 +20,7 @@ Subcommands ported so far:
 
 ``--device cuda`` (the default) runs the CUDA kernels and raises when no GPU
 is present; ``--device cpu`` runs the plain torch versions. Run as
+``python -m vrdd_tpu_torch.cli render --file none``,
 ``python -m vrdd_tpu_torch.cli render-hist --hist-file F --dims NZ NY NX
 ...`` or ``python -m vrdd_tpu_torch.cli fit-hist --iters 50``. The other
 subcommands of ``vrdd_tpu.cli`` are later work (ROADMAP.md).
@@ -21,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
@@ -34,6 +44,128 @@ def _device(name: str) -> torch.device:
             "the plain torch version)"
         )
     return device
+
+
+def _add_render_params(p: argparse.ArgumentParser) -> None:
+    """The render flags of ``vrdd_tpu/cli.py`` (``_add_render_params``)."""
+    p.add_argument("--query", type=int, default=1,
+                   help="query method: 1/2/3 raw mean/variance/entropy, 7 "
+                   "interpolated mean (4-6, 8-0 not ported yet)")
+    p.add_argument("--density", type=float, default=0.05)
+    p.add_argument("--brightness", type=float, default=1.0)
+    p.add_argument("--tf-offset", type=float, default=0.0)
+    p.add_argument("--tf-scale", type=float, default=1.0)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--rot-x", type=float, default=0.0)
+    p.add_argument("--rot-y", type=float, default=0.0)
+    p.add_argument("--translate-z", type=float, default=-4.0)
+    p.add_argument("--tf-checkpoint", help="load fitted TF LUT from checkpoint")
+    p.add_argument(
+        "--flex-normalize", action="store_true",
+        help="min-max map flexible-block mean/variance onto [0,1] (the "
+        "flexible blocks are not ported yet: raises)",
+    )
+
+
+def _build_pipeline(args, device):
+    """The raw-histogram ``RenderPipeline`` of ``vrdd_tpu/cli.py``
+    (``_build_pipeline``) on ``device``: ``--volume <file>`` reads a raw
+    block-histogram blob, ``--volume synthetic`` makes
+    ``random_histogram_volume`` from ``--seed``, as JAX does. JAX's
+    synthetic pipeline also builds fractal and flexible volumes; those wait
+    (ROADMAP.md queue 1 items 5 and 8)."""
+    from vrdd_tpu_torch.io import formats
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+
+    if args.flex_normalize:
+        raise NotImplementedError(
+            "--flex-normalize: the flexible blocks are not ported yet "
+            "(ROADMAP.md queue 1 item 8)"
+        )
+    tf_lut = None
+    if args.tf_checkpoint:
+        from vrdd_tpu_torch.io.checkpoint import load_checkpoint
+
+        tf_lut = np.asarray(load_checkpoint(args.tf_checkpoint)["tf_lut"])
+    bx, by, bz = args.blocks
+    if args.volume and args.volume != "synthetic":
+        hist = formats.read_raw_histograms(
+            args.volume, bx * by * bz, args.bins
+        ).reshape(bz, by, bx, args.bins)
+    else:
+        hist = random_histogram_volume((bz, by, bx), n_bins=args.bins,
+                                       seed=args.seed)
+    raw = RawHistogramVolume(torch.from_numpy(np.ascontiguousarray(hist))
+                             .to(device))
+    return RenderPipeline(raw=raw, tf_lut=tf_lut)
+
+
+def cmd_render(args) -> int:
+    """Render a dataset through ``RenderPipeline`` (``vrdd_tpu/cli.py``
+    ``cmd_render``); ``--file`` is the benchmark + golden-test mode."""
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.core.image import rgba_to_uint8
+    from vrdd_tpu_torch.io import formats
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig,
+        QueryMethod,
+        RenderConfig,
+        TransferFunctionConfig,
+    )
+
+    device = _device(args.device)
+    pipeline = _build_pipeline(args, device)
+    config = RenderConfig(
+        camera=CameraConfig(width=args.width, height=args.height),
+        tf=TransferFunctionConfig(offset=args.tf_offset, scale=args.tf_scale),
+        density=args.density,
+        brightness=args.brightness,
+        query_method=QueryMethod(args.query),
+    )
+    inv_view = inv_view_from_rotation_translation(
+        args.rot_x, args.rot_y, (0.0, 0.0, args.translate_z)
+    )
+    renderer = pipeline.resolve_renderer(args.renderer, inv_view, config)
+
+    if args.file:
+        # benchmark + golden test (runSingleTest semantics)
+        img = pipeline.render(inv_view, config, renderer)  # warm-up
+        img.cpu()
+        n_iter = args.iters
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            img = pipeline.render(inv_view, config, renderer)
+        img.cpu()  # waits for the device
+        avg = (time.perf_counter() - t0) / n_iter
+        print(
+            f"vrdd_tpu_torch render ({renderer}, {device}), Throughput = "
+            f"{args.width * args.height / avg / 1e6:.4f} MTexels/s, Time = "
+            f"{avg:.5f} s, Size = {args.width * args.height} Texels"
+        )
+        out = rgba_to_uint8(img).cpu().numpy()
+        formats.write_ppm(args.output or "volume.ppm", out)
+        if args.file == "none":
+            return 0
+        ref = formats.read_ppm(args.file)
+        ok, frac = formats.compare_ppm(out[..., :3], ref, args.epsilon,
+                                       args.threshold)
+        print(f"golden compare: outlier fraction {frac:.4f} -> "
+              f"{'PASS' if ok else 'FAIL'}")
+        return 0 if ok else 1
+
+    img = pipeline.render(inv_view, config, renderer)
+    out_path = args.output or "volume.ppm"
+    if out_path.endswith(".npy"):
+        np.save(out_path, img.cpu().numpy())
+    else:
+        formats.write_ppm(out_path, rgba_to_uint8(img).cpu().numpy())
+    for k, v in pipeline.timings.items():
+        print(f"{k}: {v * 1e3:.3f} ms", file=sys.stderr)
+    print(f"wrote {out_path} ({renderer}, {device})")
+    return 0
 
 
 def fit_hist_problem(size: int, image: int, bins: int, stat: str, seed: int,
@@ -134,7 +266,7 @@ def cmd_render_hist(args) -> int:
     if args.rot_x != 0.0 or args.rot_y != 0.0:
         raise NotImplementedError(
             "rotated views need the shear-warp sweep, which is not ported yet "
-            "(ROADMAP.md queue 1: march/shearwarp.py)"
+            "(ROADMAP.md queue 1 item 7: march/shearwarp.py)"
         )
     device = _device(args.device)
     nz, ny, nx = args.dims
@@ -163,6 +295,37 @@ def cmd_render_hist(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="vrdd-torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pr = sub.add_parser("render", help="render a dataset to an image")
+    pr.add_argument("--volume", default="synthetic",
+                    help="'synthetic' or path to a raw block-histogram blob")
+    pr.add_argument("--blocks", type=int, nargs=3, default=[50, 50, 10],
+                    metavar=("X", "Y", "Z"))
+    pr.add_argument("--bins", type=int, default=32)
+    pr.add_argument("--flex-block", type=int, default=4,
+                    help="flexible-block size (the flexible blocks are not "
+                    "ported yet; unused)")
+    pr.add_argument("--seed", type=int, default=0)
+    pr.add_argument("--output", "-o", default=None)
+    pr.add_argument("--file", default=None,
+                    help="reference PPM for benchmark+golden mode ('none' to "
+                    "skip compare)")
+    pr.add_argument("--iters", type=int, default=10)
+    pr.add_argument("--epsilon", type=float, default=5.0)
+    pr.add_argument("--threshold", type=float, default=0.30)
+    pr.add_argument(
+        "--renderer",
+        choices=("scan", "slice", "pallas", "shearwarp", "auto"),
+        default="scan",
+        help="scan = general ray marcher (reference-faithful); slice = "
+        "object-order plain torch sweep (unrotated); pallas = the fused CUDA "
+        "sweep kernel (unrotated; its plain version on --device cpu); auto = "
+        "fastest applicable; shearwarp (rotated views) is not ported yet",
+    )
+    pr.add_argument("--device", default="cuda",
+                    help="'cuda' (the kernels) or 'cpu' (the plain versions)")
+    _add_render_params(pr)
+    pr.set_defaults(fn=cmd_render)
 
     prh = sub.add_parser(
         "render-hist",

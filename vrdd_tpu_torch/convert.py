@@ -4,7 +4,8 @@ The JAX package hands out numpy arrays (``np.asarray`` of a ``jax.Array``):
 float32, or ``ml_dtypes.bfloat16`` for bf16 histogram storage. This module
 turns them into tensors on a given device without importing either JAX or
 ``ml_dtypes``: a bf16 array is reinterpreted as int16, moved, and viewed back
-as ``torch.bfloat16``, so both packages compute on identical bits.
+as ``torch.bfloat16``, so both packages compute on identical bits. A JAX
+``RenderPipeline`` is read by its attributes, never by importing its class.
 """
 
 from __future__ import annotations
@@ -35,3 +36,19 @@ def state_from_jax(arrays: Mapping[str, object], device) -> Dict[str, torch.Tens
     rows of ``decode_weight_rows``). Each keeps its dtype; bf16 stays bf16.
     """
     return {k: tensor_from_jax(v, device) for k, v in arrays.items()}
+
+
+def pipeline_state_from_jax(pipeline, device) -> Dict[str, torch.Tensor]:
+    """A JAX ``RenderPipeline``'s raw-histogram state -> tensors on
+    ``device``: ``histograms`` (its raw ``(Z, Y, X, B)`` histograms),
+    ``tf_lut`` and ``raw_stats`` (its precomputed ``(Z, Y, X, 3)`` stats
+    volume, to compare the port's own decode against). Feed the first two
+    to ``vrdd_tpu_torch.models.pipeline.RenderPipeline`` and both packages
+    render the same bits."""
+    if getattr(pipeline, "raw", None) is None:
+        raise ValueError("the pipeline holds no raw histogram volume")
+    return state_from_jax({
+        "histograms": pipeline.raw.histograms,
+        "tf_lut": pipeline.tf_lut,
+        "raw_stats": pipeline.raw_stats,
+    }, device)

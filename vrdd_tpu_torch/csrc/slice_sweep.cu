@@ -44,10 +44,24 @@
 // T <- T - [T >= 1-thr] T a, not 1 - acc_a. The ray breaks only when both
 // the image (acc_a > thr) and T (T < 1-thr) are frozen, so T never stops
 // early; the rows past a break are filled with the frozen T, and a plane
-// that is skipped (behind the camera, outside the box) still gets its
-// chunk-start row, so K5 never reads an unwritten row. The image
-// arithmetic is the same code in the same order as with CKPT off: K4's
-// image is bitwise K3's.
+// that is skipped (behind the camera, outside the box, culled by ESS)
+// still gets its chunk-start row, so K5 never reads an unwritten row. The
+// image arithmetic is the same code in the same order as with CKPT off:
+// K4's image is bitwise K3's.
+//
+// Empty-space skipping (ESS, K1/K3/K4; the ess mode of _make_kernel,
+// slice_kernel.py:835-860). The block is the ESS tile: its shape
+// (tile_w, tile_h) comes from the wrapper (kernels/slice_kernel.py
+// ESS_TILE), and `ess` holds one byte per (chunk of ess_chunk planes, block
+// row, block column), 0 where the host's TF-interval bound shows that
+// every sample of the block in the chunk has alpha exactly 0. At each
+// chunk start a thread reads its block's byte (the same byte for every
+// thread of the block: a block-uniform branch) and skips the chunk's
+// planes when it is 0. Skipping is exact: with a == 0 the "over" step
+// fmaf(c * 0, t, acc) and t_step(T, 0) leave the state bitwise unchanged,
+// so the image (and K4's checkpoints) with ESS is bitwise the one without.
+// K5 takes no bitmap: it replays culled samples, whose alpha and slope are
+// zero.
 //
 // Bound on the H100: the histogram stream. At 512^3 x 16 bf16 -> 1024^2
 // every in-box sample reads 4 taps x B bins; neighbouring rays share taps, so
@@ -70,7 +84,8 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
                    const float* __restrict__ zs,
                    const float* __restrict__ lut,
                    const float* __restrict__ rows, float* __restrict__ out,
-                   int ck_stride, float* __restrict__ tck) {
+                   int ck_stride, float* __restrict__ tck,
+                   const unsigned char* __restrict__ ess, int ess_chunk) {
   extern __shared__ float smem[];
   float* s_lut = smem;                  // (n_lut, 4)
   float* s_rows = smem + 4 * p.n_lut;   // (n_rows, B)
@@ -90,6 +105,13 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
   const size_t pix = (size_t)i * p.width + j;
   const size_t hw = (size_t)p.height * p.width;
   const float thr1 = __fsub_rn(1.0f, p.threshold);
+  // ESS: this block's byte of the next chunk (chunk c is c * ess_stride
+  // bytes after chunk 0), read when the plane loop reaches ess_next
+  const unsigned char* ess_cur =
+      ess == nullptr ? nullptr
+                     : ess + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t ess_stride = (size_t)gridDim.x * gridDim.y;
+  int ess_next = ess == nullptr ? p.n_planes : 0;
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_a = 0.0f;
   float tr = 1.0f;  // CKPT: the backward's transmittance
@@ -97,6 +119,22 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
   for (; k < p.n_planes; ++k) {
     // frozen: nothing more can accumulate (and, with CKPT, T is frozen too)
     if (acc_a > p.threshold && (!CKPT || !(tr >= thr1))) break;
+    if (k == ess_next) {
+      ess_next += ess_chunk;
+      const bool culled = *ess_cur == 0;
+      ess_cur += ess_stride;
+      if (culled) {
+        // alpha is 0 at all the chunk's samples, the state stays as it is;
+        // only its checkpoint rows are due
+        const int k_end = min(ess_next, p.n_planes);
+        if (CKPT)
+          for (int kk = k; kk < k_end; ++kk)
+            if (kk % ck_stride == 0)
+              tck[(size_t)(kk / ck_stride) * hw + pix] = tr;
+        k = k_end - 1;
+        continue;
+      }
+    }
     if (CKPT && k % ck_stride == 0) tck[(size_t)(k / ck_stride) * hw + pix] = tr;
     Taps tp;
     if (!plane_taps(p, __ldg(zs + k), ray, tp)) continue;  // alpha exactly 0
@@ -129,8 +167,8 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
 template <int MODE, typename T>
 cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
                    const float* lut, const float* rows, float* out,
-                   int ck_stride, float* tck, cudaStream_t stream) {
-  const dim3 block(32, 8);
+                   int ck_stride, float* tck, const unsigned char* ess,
+                   int ess_chunk, dim3 block, cudaStream_t stream) {
   const dim3 grid((p.width + block.x - 1) / block.x,
                   (p.height + block.y - 1) / block.y);
   const size_t smem =
@@ -139,10 +177,10 @@ cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
   const T* v = static_cast<const T*>(vol);
   if (ck_stride > 0)
     slice_sweep_kernel<MODE, T, true><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, ck_stride, tck);
+        p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk);
   else
     slice_sweep_kernel<MODE, T, false><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, 0, nullptr);
+        p, v, zs, lut, rows, out, 0, nullptr, ess, ess_chunk);
   return cudaGetLastError();
 }
 
@@ -150,19 +188,28 @@ cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
 
 // mode: 0 none, 1 linear, 2 var, 3 entropy; bf16: volume element type;
 // ck_stride > 0 also writes the (ceil(n_planes / ck_stride), H, W)
-// transmittance checkpoints to tck (K4), 0 writes none (K1-K3).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// transmittance checkpoints to tck (K4), 0 writes none (K1-K3). ess: the
+// (ceil(n_planes / ess_chunk), ceil(H / tile_h), ceil(W / tile_w)) uint8
+// ESS bitmap, or null for no culling. tile_w x tile_h is the block shape
+// (at most 256 threads). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" __attribute__((visibility("default"))) int vrdd_slice_sweep(
     const SweepParams* p, int mode, int bf16, const void* vol,
     const float* zs, const float* lut, const float* rows, float* out,
-    int ck_stride, float* tck, void* stream) {
+    int ck_stride, float* tck, const unsigned char* ess, int ess_chunk,
+    int tile_w, int tile_h, void* stream) {
   if (p->height <= 0 || p->width <= 0) return (int)cudaSuccess;
   if (ck_stride < 0 || (ck_stride > 0 && tck == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (tile_w <= 0 || tile_h <= 0 || tile_w * tile_h > 256 ||
+      (ess != nullptr && ess_chunk <= 0))
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(tile_w, tile_h);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
-#define VRDD_LAUNCH(M, TYPE) \
-  launch<M, TYPE>(*p, vol, zs, lut, rows, out, ck_stride, tck, s)
+#define VRDD_LAUNCH(M, TYPE)                                                 \
+  launch<M, TYPE>(*p, vol, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, \
+                  block, s)
   switch (mode * 2 + (bf16 ? 1 : 0)) {
     case 0: return (int)VRDD_LAUNCH(kNone, float);
     case 1: return (int)VRDD_LAUNCH(kNone, bf);

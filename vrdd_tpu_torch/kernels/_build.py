@@ -127,9 +127,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fwd = lib.vrdd_slice_sweep
-    # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, stream
+    # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, ess,
+    # ess_chunk, tile_w, tile_h, stream
     fwd.argtypes = [ctypes.POINTER(SweepParams), i32, i32, ptr, ptr, ptr,
-                    ptr, ptr, i32, ptr, ptr]
+                    ptr, ptr, i32, ptr, ptr, i32, i32, i32, ptr]
     fwd.restype = i32
     bwd = lib.vrdd_slice_bwd
     # params, bwd params, mode, bf16, vol, zs, lut, rows, g, tck,

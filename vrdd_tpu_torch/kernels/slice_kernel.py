@@ -18,12 +18,21 @@ version (:func:`sweep_preblended_planes_reference`,
 :func:`hist_render_reference`). There is no fallback from the card to the
 plain version. Each wrapper counts its kernel launches in a plain int
 attribute, ``sweep_preblended_planes.launches`` and
-``pallas_hist_render.launches``.
+``pallas_hist_render.launches``; ``sweep_preblended_planes.ess_launches``
+counts those of them that culled by an ESS bitmap.
 
-Not ported yet (they raise ``NotImplementedError``): empty-space skipping
-(``empty_space_skip``/``ess_stats``), the seeded resume (``acc_init``) and
-``precision='bf16'``. The kernels take any image size, so the TPU's
-padding, banding and VMEM budgets have no counterpart here.
+**Empty-space skipping** (``empty_space_skip``, ``ess_stats``) is K1's
+exact TF-interval culling: :func:`ess_bitmap` marks each (tile, chunk) —
+the kernel's CUDA block of :data:`ESS_TILE` pixels by ``plane_chunk``
+planes — whose samples provably map to alpha 0, from the block min/max of
+:func:`ess_plane_stats` (cached per volume by the caller through
+:func:`precompute_ess_stats`). The kernel skips culled chunks; the plain
+version zeroes their alpha, so both give the image without ESS.
+
+Not ported yet (they raise ``NotImplementedError``): the seeded resume
+(``acc_init``, ROADMAP.md queue 2 item 1) and ``precision='bf16'`` (item
+2). The kernels take any image size, so the TPU's padding, banding and VMEM
+budgets have no counterpart here.
 """
 
 from __future__ import annotations
@@ -48,6 +57,20 @@ _N_ROWS = {"linear": 1, "var": 4, "entropy": 1}
 #: the LUT and the decode rows share the kernel's 48 KB of dynamic shared
 #: memory: (4 * n_lut + n_rows * B) floats
 _SMEM_FLOATS = 48 * 1024 // 4
+#: the forward kernel's CUDA block in pixels, (rows, columns), one thread per
+#: ray: also the pixel footprint of an ESS tile. Defined here once; every
+#: launch passes it to the kernel (csrc/slice_sweep.cu) as its block shape.
+ESS_TILE = (8, 32)
+#: block grid of the ESS plane statistics: 8 x 8 blocks per plane, as the
+#: JAX package's _ESS_YB / _ESS_XB
+_ESS_YB = _ESS_XB = 8
+#: margin on the culled LUT-coordinate interval: covers the f32 rounding of
+#: a sample's value (the resample's weights sum to 1 only up to an ulp) and
+#: of its LUT coordinate, which the interval argument in exact arithmetic
+#: does not see
+_ESS_Q_MARGIN = 1e-3
+#: LUT knots the bitmap tests at once (one broadcast per group)
+_ESS_KNOTS = 16
 
 
 def _smem_ok(n_lut: int, row_elems: int) -> bool:
@@ -311,29 +334,27 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}: use 'cuda' or 'cpu'")
 
 
-def _check_unported(precision, empty_space_skip=False, ess_stats=None,
-                    acc_init=None):
+def _check_unported(precision, acc_init=None):
     if precision != "f32":
         raise NotImplementedError(
-            f"precision={precision!r}: only 'f32' is ported (ROADMAP.md queue 2)"
-        )
-    if empty_space_skip or ess_stats is not None:
-        raise NotImplementedError(
-            "empty-space skipping is not ported yet (ROADMAP.md queue 2, K1/K2 "
-            "ess mode)"
+            f"precision={precision!r}: only 'f32' is ported (ROADMAP.md queue "
+            "2 item 2)"
         )
     if acc_init is not None:
         raise NotImplementedError(
-            "the seeded sweep (acc_init) is not ported yet (ROADMAP.md queue 2, "
-            "K1/K2 seed mode)"
+            "the seeded sweep (acc_init) is not ported yet (ROADMAP.md queue 2 "
+            "item 1, seed mode)"
         )
 
 
 def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
-            params: dict, ck_stride: int = 0):
+            params: dict, ck_stride: int = 0, ess=None, ess_chunk: int = 0):
     """Validate, allocate the (H, W, 4) output and launch the CUDA kernel on
-    the current stream of the volume's device. ``ck_stride > 0`` also writes
-    the transmittance checkpoints (K4) and returns ``(out, tck)``."""
+    the current stream of the volume's device, in blocks of
+    :data:`ESS_TILE` pixels. ``ck_stride > 0`` also writes the transmittance
+    checkpoints (K4) and returns ``(out, tck)``. ``ess``: the uint8
+    ``(n_chunks, n_tile_rows, n_tile_cols)`` bitmap of :func:`ess_bitmap`
+    over chunks of ``ess_chunk`` planes (None: no culling)."""
     from vrdd_tpu_torch.kernels import _build
 
     if vol.dtype not in (torch.float32, torch.bfloat16):
@@ -352,6 +373,14 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     if zs_t.numel() != params["n_planes"]:
         raise ValueError("zs must hold one depth per plane")
     H, W = params["height"], params["width"]
+    if ess is not None:
+        want = _ess_shape(params["n_planes"], ess_chunk, H, W)
+        if (ess.dtype != torch.uint8 or tuple(ess.shape) != want
+                or ess.device != dev or not ess.is_contiguous()):
+            raise ValueError(
+                f"ess bitmap {tuple(ess.shape)} {ess.dtype} on {ess.device}: "
+                f"want a contiguous uint8 {want} on {dev}"
+            )
     out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     tck = None
     if ck_stride:
@@ -365,7 +394,9 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             p, _MODES[mode], int(vol.dtype == torch.bfloat16),
             vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(),
             None if rows_t is None else rows_t.data_ptr(), out.data_ptr(),
-            ck_stride, None if tck is None else tck.data_ptr(), stream,
+            ck_stride, None if tck is None else tck.data_ptr(),
+            None if ess is None else ess.data_ptr(), int(ess_chunk),
+            ESS_TILE[1], ESS_TILE[0], stream,
         )
     if rc != 0:
         raise RuntimeError(f"vrdd_slice_sweep launch failed: CUDA error {rc}")
@@ -406,17 +437,200 @@ def _slope_grids(slopes, width: int, height: int):
     return mx, my
 
 
+# ---- empty-space skipping (ESS) -------------------------------------------
+
+@torch.no_grad()
+def ess_plane_stats(planes_all: torch.Tensor):
+    """Per-PLANE block min/max of a front-to-back plane stack: two
+    ``(n_planes, 8, 8)`` float32 tensors (JAX ``ess_plane_stats``,
+    slice_kernel.py:355; edge-padded to whole blocks).
+
+    The expensive part of the ESS bitmap (one pass over the stack). It
+    depends only on the pre-blended stack, not on the camera, the TF or the
+    chunking, so a caller rendering the same volume many times computes it
+    once (:func:`precompute_ess_stats`) and passes it as ``ess_stats``."""
+    n_planes, NY, NX = planes_all.shape
+    by = -(-NY // _ESS_YB)
+    bx = -(-NX // _ESS_XB)
+    dev = planes_all.device
+    ri = torch.arange(_ESS_YB * by, device=dev).clamp(max=NY - 1)
+    ci = torch.arange(_ESS_XB * bx, device=dev).clamp(max=NX - 1)
+    p = planes_all.to(torch.float32)[:, ri][:, :, ci]
+    p = p.reshape(n_planes, _ESS_YB, by, _ESS_XB, bx)
+    return p.amin(dim=(2, 4)), p.amax(dim=(2, 4))
+
+
+def precompute_ess_stats(volume, *, n_planes=0, march=MarchConfig(),
+                         dz_sign=-1, tex_offset=0.5, z_scale=1.0):
+    """Pre-blend ``volume`` exactly as the sweep will and return the ESS
+    plane statistics for it (JAX ``precompute_ess_stats``, :378). The stats
+    are camera- and TF-independent, but they ARE a function of everything the
+    pre-blend sees: key a cache on (volume identity, n_planes, dz_sign,
+    tex_offset, z_scale, march.box_min, march.box_max). Stats reused across
+    a change in ANY of those cull non-conservatively (wrong pixels) with no
+    shape mismatch to catch it."""
+    if n_planes <= 0:
+        n_planes = 2 * volume.shape[0]
+    planes_all, _ = preblend_planes(
+        volume, n_planes, march.box_min, march.box_max, dz_sign, tex_offset,
+        z_scale=z_scale,
+    )
+    return ess_plane_stats(planes_all)
+
+
+def _ess_shape(n_planes: int, plane_chunk: int, height: int, width: int):
+    """Shape of the ESS bitmap: (chunks, tile rows, tile columns)."""
+    th, tw = ESS_TILE
+    return (-(-n_planes // plane_chunk), -(-height // th), -(-width // tw))
+
+
+@torch.no_grad()
+def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
+               width: int, height: int, ny: int, nx: int, plane_chunk: int,
+               march: MarchConfig = MarchConfig(), tex_offset: float = 0.5,
+               axis_scale=(1.0, 1.0)) -> torch.Tensor:
+    """The ESS bitmap: uint8 ``(n_chunks, ceil(H / 8), ceil(W / 32))``, 1
+    where the tile of :data:`ESS_TILE` pixels can contribute during the
+    chunk of ``plane_chunk`` planes, 0 where it provably cannot. On the
+    device of ``plane_stats``.
+
+    The conservative interval argument of JAX's ``_ess_bitmap`` (:397-506)
+    over this port's own tiles: a ray's world (x, y) on a plane is affine in
+    its depth and its slope, so over a (tile, chunk) it ranges between the
+    four corners' values; the resample is a convex combination of taps in
+    the 1-voxel-dilated texel footprint, so the sample lies in [min, max] of
+    the blocks that footprint touches; the LUT's alpha is piecewise linear
+    in the LUT coordinate, so its largest magnitude over that value interval
+    is at the interval's ends or at a knot inside. A culled tile's samples
+    have alpha exactly 0: they change neither the image nor the
+    transmittance, so skipping them is exact for the image and for volume
+    cotangents (not for LUT / density / TF cotangents). ``tf_scale`` may be
+    negative. The interval is widened by :data:`_ESS_Q_MARGIN` in LUT
+    coordinates against float rounding."""
+    pmin, pmax = plane_stats
+    dev = pmin.device
+    n_planes = pmin.shape[0]
+    n_chunks, n_ty, n_tx = _ess_shape(n_planes, plane_chunk, height, width)
+    pad = n_chunks * plane_chunk - n_planes  # a ragged last chunk: repeat
+    if pad:
+        pmin = torch.cat([pmin, pmin[-1:].expand(pad, -1, -1)])
+        pmax = torch.cat([pmax, pmax[-1:].expand(pad, -1, -1)])
+    bmin = pmin.reshape(n_chunks, plane_chunk, _ESS_YB, _ESS_XB).amin(1)
+    bmax = pmax.reshape(n_chunks, plane_chunk, _ESS_YB, _ESS_XB).amax(1)
+
+    # host geometry (float64): world-coordinate ranges per (tile, chunk)
+    z = np.asarray(zs, np.float64).reshape(-1)
+    z = np.concatenate([z, np.repeat(z[-1:], pad)]).reshape(n_chunks, -1)
+    z_lo, z_hi = z.min(1)[None, :], z.max(1)[None, :]  # (1, C)
+    ox, oy, oz = _host_floats(origin, 3)
+    mx0, dmx, my0, dmy = _host_floats(slopes, 4)
+    th, tw = ESS_TILE
+
+    def corner_range(o, m0, dm, size, n_tiles, extent):
+        first = np.arange(n_tiles, dtype=np.float64)[:, None] * size
+        last = np.minimum(first + size, extent) - 1
+        m_a, m_b = m0 + dm * first, m0 + dm * last
+        c = np.stack([o + (z_lo - oz) * m_a, o + (z_lo - oz) * m_b,
+                      o + (z_hi - oz) * m_a, o + (z_hi - oz) * m_b])
+        return c.min(0), c.max(0)  # (n_tiles, C)
+
+    def block_range(lo_w, hi_w, axis, N, nb, scale):
+        # coordinate range -> 1-voxel-dilated texel range -> block range
+        lo_box, hi_box = march.box_min[axis], march.box_max[axis]
+        bsz = -(-N // nb)
+        u_lo = (lo_w - lo_box) / (hi_box - lo_box)
+        u_hi = (hi_w - lo_box) / (hi_box - lo_box)
+        v_lo = np.floor(u_lo * (N * scale) - tex_offset) - 1.0
+        v_hi = np.ceil(u_hi * (N * scale) - tex_offset) + 2.0
+        return (np.clip(np.floor(v_lo / bsz), 0, nb - 1),
+                np.clip(np.floor(v_hi / bsz), 0, nb - 1))
+
+    sx, sy = axis_scale
+    y_rng = corner_range(oy, my0, dmy, th, n_ty, height)
+    x_rng = corner_range(ox, mx0, dmx, tw, n_tx, width)
+    yb = block_range(*y_rng, 1, ny, _ESS_YB, sy)
+    xb = block_range(*x_rng, 0, nx, _ESS_XB, sx)
+    ranges = torch.as_tensor(  # one upload: (2, n_ty + n_tx, C)
+        np.stack([np.concatenate([yb[0], xb[0]]),
+                  np.concatenate([yb[1], xb[1]])]).astype(np.int64),
+        device=dev)
+    yb_lo, yb_hi = ranges[0, :n_ty, :, None], ranges[1, :n_ty, :, None]
+    xb_lo, xb_hi = ranges[0, n_ty:, :, None], ranges[1, n_ty:, :, None]
+
+    # min / max over the selected blocks, rows first then columns
+    ybi = torch.arange(_ESS_YB, device=dev)
+    xbi = torch.arange(_ESS_XB, device=dev)
+    ym = ((ybi >= yb_lo) & (ybi <= yb_hi))[..., None]  # (n_ty, C, YB, 1)
+    vmin_y = torch.where(ym, bmin[None], np.inf).amin(2)  # (n_ty, C, XB)
+    vmax_y = torch.where(ym, bmax[None], -np.inf).amax(2)
+    xm = ((xbi >= xb_lo) & (xbi <= xb_hi))[None]  # (1, n_tx, C, XB)
+    vmin = torch.where(xm, vmin_y[:, None], np.inf).amin(-1)  # (ty, tx, C)
+    vmax = torch.where(xm, vmax_y[:, None], -np.inf).amax(-1)
+
+    # max |alpha| of the clamped piecewise-linear LUT over [vmin, vmax]
+    lut = torch.as_tensor(tf_lut, dtype=torch.float32, device=dev)
+    n_lut = lut.shape[0]
+    la = lut[:, 3].abs()
+    toff, tscl = float(tf_off), float(tf_scale)
+    q_a = (vmin - toff) * tscl * n_lut - 0.5
+    q_b = (vmax - toff) * tscl * n_lut - 0.5
+    q_lo = torch.clamp(torch.minimum(q_a, q_b) - _ESS_Q_MARGIN, 0.0, n_lut - 1.0)
+    q_hi = torch.clamp(torch.maximum(q_a, q_b) + _ESS_Q_MARGIN, 0.0, n_lut - 1.0)
+
+    def alpha_at(q):
+        i0 = torch.floor(q)
+        i0i = i0.to(torch.int64).clamp(0, n_lut - 1)
+        i1i = (i0i + 1).clamp(max=n_lut - 1)
+        f = q - i0
+        return la[i0i] * (1.0 - f) + la[i1i] * f
+
+    amax = torch.maximum(alpha_at(q_lo), alpha_at(q_hi))
+    knots = torch.arange(n_lut, dtype=torch.float32, device=dev)
+    for k0 in range(0, n_lut, _ESS_KNOTS):  # knots inside [q_lo, q_hi]
+        kn, lk = knots[k0:k0 + _ESS_KNOTS], la[k0:k0 + _ESS_KNOTS]
+        inside = (q_lo[..., None] <= kn) & (q_hi[..., None] >= kn)
+        amax = torch.maximum(amax, torch.where(inside, lk, 0.0).amax(-1))
+    return (amax > 0.0).permute(2, 0, 1).contiguous().to(torch.uint8)
+
+
+def _resolve_ess(empty_space_skip, ess_stats, planes_all, zs, origin, slopes,
+                 tf_lut, transfer_offset, transfer_scale, *, width, height,
+                 plane_chunk, march, tex_offset, axis_scale, reverse_planes):
+    """The ESS bitmap of a sweep over ``planes_all``, or None without ESS.
+    ``ess_stats`` describe the logical (front-to-back) plane order; without
+    them the stats come from the stack, flipped when it is walked back to
+    front."""
+    if not empty_space_skip:
+        return None
+    n_planes, ny, nx = planes_all.shape
+    if ess_stats is None:
+        pmin, pmax = ess_plane_stats(planes_all)
+        ess_stats = (pmin.flip(0), pmax.flip(0)) if reverse_planes else (pmin,
+                                                                         pmax)
+    want = (n_planes, _ESS_YB, _ESS_XB)
+    if any(tuple(t.shape) != want for t in ess_stats):
+        raise ValueError(f"ess_stats must be two {want} tensors")
+    return ess_bitmap(
+        ess_stats, zs, origin, slopes, tf_lut, transfer_offset,
+        transfer_scale, width=width, height=height, ny=ny, nx=nx,
+        plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
+        axis_scale=axis_scale,
+    )
+
+
 def sweep_preblended_planes_reference(
     planes_all, zs, origin, slopes, tf_lut, density=0.05, brightness=1.0,
     transfer_offset=0.0, transfer_scale=1.0, *, dz_sign=-1, width, height,
     march: MarchConfig = MarchConfig(), length_correction=True,
     plane_chunk=8, tex_offset=0.5, plane_spacing=None, axis_scale=(1.0, 1.0),
-    filter_linear=True, reverse_planes=False,
+    filter_linear=True, reverse_planes=False, ess=None,
 ):
     """Plain torch version of K1, on the device of ``planes_all``: the slope
     grid ``mx0 + dmx * j`` is built in float32 exactly as the kernel builds
     it, then :func:`sweep_preblended_planes_xla` sweeps (a flipped copy of
-    the stack when ``reverse_planes``)."""
+    the stack when ``reverse_planes``). ``ess``: the bitmap of
+    :func:`ess_bitmap` over chunks of ``plane_chunk`` planes; culled samples
+    get alpha exactly 0, as the kernel skips them."""
     mx, my = _slope_grids(slopes, width, height)
     if reverse_planes:
         planes_all = planes_all.flip(0)
@@ -426,6 +640,7 @@ def sweep_preblended_planes_reference(
         plane_spacing=plane_spacing, length_correction=length_correction,
         plane_chunk=plane_chunk, tex_offset=tex_offset,
         axis_scale=axis_scale, filter_linear=filter_linear,
+        ess=None if ess is None else (ess, plane_chunk, ESS_TILE),
     )
 
 
@@ -446,12 +661,21 @@ def sweep_preblended_planes(
     front (plane p reads layer P-1-p), so a pure-selection schedule streams
     the volume itself. ``plane_spacing`` defaults to the box z-extent over P
     (only right for a full stack). ``plane_chunk`` sizes the plain version's
-    batches; the kernel ignores it. Returns ``(height, width, 4)``.
+    batches and the ESS chunks. ``empty_space_skip`` culls (tile, chunk)
+    pairs by :func:`ess_bitmap`, from ``ess_stats`` (cached
+    :func:`ess_plane_stats` of the logical plane order) or from the stack;
+    the image is the one without ESS. Returns ``(height, width, 4)``.
     """
-    _check_unported(precision, empty_space_skip, ess_stats, acc_init)
+    _check_unported(precision, acc_init)
     n_planes, ny, nx = planes_all.shape
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
+    ess = _resolve_ess(
+        empty_space_skip, ess_stats, planes_all, zs, origin, slopes, tf_lut,
+        transfer_offset, transfer_scale, width=width, height=height,
+        plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
+        axis_scale=axis_scale, reverse_planes=reverse_planes,
+    )
     if not _on_card(planes_all):
         return sweep_preblended_planes_reference(
             planes_all, zs, origin, slopes, tf_lut, density, brightness,
@@ -460,6 +684,7 @@ def sweep_preblended_planes(
             plane_chunk=plane_chunk, tex_offset=tex_offset,
             plane_spacing=plane_spacing, axis_scale=axis_scale,
             filter_linear=filter_linear, reverse_planes=reverse_planes,
+            ess=ess,
         )
     if not pallas_supported(planes_all.shape, width, height, n_planes,
                             n_lut=len(tf_lut)):
@@ -475,12 +700,16 @@ def sweep_preblended_planes(
         tex_offset=tex_offset, axis_scale=axis_scale,
         filter_linear=filter_linear,
     )
-    out = _launch(planes_all, "none", zs, tf_lut, None, params)
+    out = _launch(planes_all, "none", zs, tf_lut, None, params, ess=ess,
+                  ess_chunk=plane_chunk)
     sweep_preblended_planes.launches += 1
+    sweep_preblended_planes.ess_launches += ess is not None
     return out
 
 
 sweep_preblended_planes.launches = 0
+#: the launches among ``launches`` that culled by an ESS bitmap
+sweep_preblended_planes.ess_launches = 0
 
 
 def _sweep_call(
@@ -494,8 +723,12 @@ def _sweep_call(
     # PURE-SELECTION fast path: with n_planes == nz (and the default z
     # filter grid) every plane IS a volume layer, zf = (p+0.5)*nz/n_planes
     # - 0.5 = p exactly — so stream the volume itself and let the kernel
-    # walk it back to front instead of materializing a flipped copy
-    pure_sel = n_planes == nz and tex_offset == 0.5 and axis_scale[2] == 1.0
+    # walk it back to front instead of materializing a flipped copy. With
+    # ESS it needs cached stats, as in JAX (slice_kernel.py:1244-1247)
+    pure_sel = (
+        n_planes == nz and tex_offset == 0.5 and axis_scale[2] == 1.0
+        and (not empty_space_skip or ess_stats is not None)
+    )
     if pure_sel:
         zlo, zhi = march.box_min[2], march.box_max[2]
         spacing = (zhi - zlo) / n_planes

@@ -20,7 +20,8 @@ the kernel or the wrapper raises; a CPU tensor takes the plain torch version
 (:func:`sweep_fwd_reference`, :func:`sweep_fwd_ckpt_reference`,
 :func:`sweep_bwd_reference`: the plain sweep, its transmittance recursion,
 and the analytic VJP of ``march/slice.py``). Each counts its kernel
-launches in ``.launches``.
+launches in ``.launches``; K3's and K4's ``.ess_launches`` count those of
+them that culled by an ESS bitmap.
 
 Brightness is folded outside the kernels (they run at brightness 1 and the
 image is scaled in torch), so it stays differentiable. In the histogram
@@ -29,25 +30,31 @@ histograms is plain torch (``slice_kernel.decode_chain``), as JAX runs it in
 XLA outside the kernel.
 
 ``wrt`` prunes cotangents as in JAX: an input that needs a gradient but is
-not listed gets exact zeros. Not ported yet (they raise
-``NotImplementedError``): the seeded sweep (``acc_init``), empty-space
-skipping, ``precision='bf16'`` and :func:`live_fractions`.
+not listed gets exact zeros. Empty-space skipping (``empty_space_skip`` of
+:func:`pallas_slice_render_diff`) culls in K3/K4 with the bitmap of
+``slice_kernel.ess_bitmap``; it is exact only for ``wrt=('volume',)`` and
+raises otherwise, as in JAX. K5 takes no bitmap: it replays the culled
+samples, whose alpha and slope are zero. Not ported yet (they raise
+``NotImplementedError``): the seeded sweep (``acc_init``, ROADMAP.md queue
+2 item 1), ``precision='bf16'`` (item 2) and :func:`live_fractions` (item
+3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from vrdd_tpu_torch.march.slice import preblend_planes, transmittance_checkpoints
 from vrdd_tpu_torch.kernels.slice_kernel import (
-    _MODES, _SMEM_FLOATS, _check_unported, _decode_plain, _decode_rows,
-    _decode_rows_grad, _hist_geometry, _host_floats, _launch, _on_card,
-    _pixel_slopes, _slope_grids, _sweep_params, _uniform_grid_params,
-    decode_chain, decode_with_rows, hist_render_supported, pallas_supported,
+    ESS_TILE, _MODES, _SMEM_FLOATS, _check_unported, _decode_plain,
+    _decode_rows, _decode_rows_grad, _hist_geometry, _host_floats, _launch,
+    _on_card, _pixel_slopes, _resolve_ess, _slope_grids, _sweep_params,
+    _uniform_grid_params, decode_chain, decode_with_rows,
+    hist_render_supported, pallas_supported,
     sweep_preblended_planes_reference,
 )
 from vrdd_tpu_torch.utils.config import MarchConfig
@@ -120,7 +127,9 @@ def _ck_stride(plane_chunk: int) -> int:
 @dataclasses.dataclass(frozen=True, eq=False)
 class _Sweep:
     """Host-side configuration of one differentiable sweep: the plane
-    schedule, the camera and the decode mode ('none' for a plane stack)."""
+    schedule, the camera and the decode mode ('none' for a plane stack).
+    ``ess``: the ESS bitmap K3/K4 cull by, over chunks of ``ck_stride``
+    planes (None: no culling)."""
 
     zs: np.ndarray
     origin: Tuple[float, float, float]
@@ -137,6 +146,7 @@ class _Sweep:
     tex_offset: float = 0.5
     axis_scale: Tuple[float, float] = (1.0, 1.0)
     filter_linear: bool = True
+    ess: Optional[torch.Tensor] = None
 
     @property
     def n_chunks(self) -> int:
@@ -183,7 +193,9 @@ class _Sweep:
         return vol if self.mode == "none" else _decode_plain(vol, rows,
                                                              self.mode)
 
-    def reference_image(self, planes, lut, density, toff, tscl):
+    def reference_image(self, planes, lut, density, toff, tscl, ess=True):
+        """The plain image; ``ess=False`` ignores the bitmap (the plain
+        version of K5 replays culled samples, as K5 does)."""
         return sweep_preblended_planes_reference(
             planes, self.zs, self.origin, self.slopes, lut, density, 1.0,
             toff, tscl, dz_sign=self.dz_sign, width=self.width,
@@ -192,6 +204,7 @@ class _Sweep:
             plane_chunk=self.ck_stride, tex_offset=self.tex_offset,
             plane_spacing=self.plane_spacing, axis_scale=self.axis_scale,
             filter_linear=self.filter_linear, reverse_planes=self.reverse,
+            ess=self.ess if ess else None,
         )
 
 
@@ -216,12 +229,15 @@ def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl):
         return sweep_fwd_reference(cfg, vol, rows, lut, density, toff, tscl)
     cfg.check(vol, lut)
     out = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
-                  cfg.params(vol, rows, density, toff, tscl))
+                  cfg.params(vol, rows, density, toff, tscl), ess=cfg.ess,
+                  ess_chunk=cfg.ck_stride)
     sweep_fwd.launches += 1
+    sweep_fwd.ess_launches += cfg.ess is not None
     return out
 
 
 sweep_fwd.launches = 0
+sweep_fwd.ess_launches = 0
 
 
 # ---- K4 ----------------------------------------------------------------
@@ -242,6 +258,8 @@ def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
             length_correction=cfg.length_correction,
             tex_offset=cfg.tex_offset, axis_scale=cfg.axis_scale,
             filter_linear=cfg.filter_linear,
+            ess=None if cfg.ess is None else (cfg.ess, cfg.ck_stride,
+                                              ESS_TILE),
         )
     return img, tck
 
@@ -257,12 +275,15 @@ def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl):
     cfg.check(vol, lut)
     out = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
                   cfg.params(vol, rows, density, toff, tscl),
-                  ck_stride=cfg.ck_stride)
+                  ck_stride=cfg.ck_stride, ess=cfg.ess,
+                  ess_chunk=cfg.ck_stride)
     sweep_fwd_ckpt.launches += 1
+    sweep_fwd_ckpt.ess_launches += cfg.ess is not None
     return out
 
 
 sweep_fwd_ckpt.launches = 0
+sweep_fwd_ckpt.ess_launches = 0
 
 
 # ---- K5 ----------------------------------------------------------------
@@ -290,7 +311,7 @@ def sweep_bwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g,
                   lut.detach().requires_grad_(g_lut)] + [
             t.detach().requires_grad_(g_params) for t in (density, toff, tscl)
         ]
-        img = cfg.reference_image(*leaves)
+        img = cfg.reference_image(*leaves, ess=False)
         wanted = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad(img, wanted, g))
     d = [next(got) if t.requires_grad else None for t in leaves]
@@ -457,6 +478,22 @@ def _diff_sweep(cfg: _Sweep, wrt, vol, rows, tf_lut, density, toff, tscl):
 
 # ---- public API -----------------------------------------------------------
 
+def _planes_sweep(zs, origin, slopes, *, dz_sign, width, height, march,
+                  plane_spacing, n_planes, length_correction, plane_chunk,
+                  tex_offset, axis_scale, reverse_planes, ess=None) -> _Sweep:
+    """The :class:`_Sweep` of a scalar plane stack."""
+    if plane_spacing is None:
+        plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
+    return _Sweep(
+        zs=np.asarray(zs, np.float32), origin=tuple(_host_floats(origin, 3)),
+        slopes=tuple(_host_floats(slopes, 4)), width=int(width),
+        height=int(height), march=march, plane_spacing=float(plane_spacing),
+        ck_stride=_ck_stride(plane_chunk), dz_sign=int(dz_sign),
+        reverse=bool(reverse_planes), length_correction=length_correction,
+        tex_offset=float(tex_offset), axis_scale=tuple(axis_scale), ess=ess,
+    )
+
+
 def sweep_preblended_planes_diff(
     planes_all,
     zs,
@@ -489,16 +526,12 @@ def sweep_preblended_planes_diff(
     autograd the forward is K4 and the backward K5; otherwise K3.
     ``plane_chunk`` (4 or 8) is the backward's chunk."""
     _check_unported(precision, acc_init=acc_init)
-    n_planes = planes_all.shape[0]
-    if plane_spacing is None:
-        plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
-    cfg = _Sweep(
-        zs=np.asarray(zs, np.float32), origin=tuple(_host_floats(origin, 3)),
-        slopes=tuple(_host_floats(slopes, 4)), width=int(width),
-        height=int(height), march=march, plane_spacing=float(plane_spacing),
-        ck_stride=_ck_stride(plane_chunk), dz_sign=int(dz_sign),
-        reverse=bool(reverse_planes), length_correction=length_correction,
-        tex_offset=float(tex_offset), axis_scale=tuple(axis_scale),
+    cfg = _planes_sweep(
+        zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
+        march=march, plane_spacing=plane_spacing,
+        n_planes=planes_all.shape[0], length_correction=length_correction,
+        plane_chunk=plane_chunk, tex_offset=tex_offset,
+        axis_scale=axis_scale, reverse_planes=reverse_planes,
     )
     out = _diff_sweep(cfg, _norm_wrt(wrt), planes_all, None, tf_lut, density,
                       transfer_offset, transfer_scale)
@@ -559,15 +592,23 @@ def _diff_call(
     wrt=("volume", "lut", "params"), empty_space_skip=False,
     axis_scale=(1.0, 1.0, 1.0),
 ):
-    _check_unported(precision, empty_space_skip)
+    _check_unported(precision)
     nz = volume.shape[0]
     if n_planes <= 0:
         n_planes = 2 * nz
+    if empty_space_skip and tuple(wrt) != ("volume",):
+        raise ValueError(
+            "empty_space_skip is exact only for wrt=('volume',): alpha-LUT / "
+            "density / TF-offset / TF-scale cotangents are nonzero in empty "
+            "space (raising a LUT alpha entry would make it visible)"
+        )
     # pure selection (slice_vjp.py:1076-1086): every plane IS a layer, so
     # the kernels stream the volume walked back to front and K5 writes the
     # cotangent in layer order; otherwise the torch pre-blend (autograd
-    # takes its transpose)
-    pure_sel = n_planes == nz and tex_offset == 0.5 and axis_scale[2] == 1.0
+    # takes its transpose). ESS keeps the pre-blend, as in JAX: its plane
+    # stats come from the stack
+    pure_sel = (n_planes == nz and tex_offset == 0.5 and axis_scale[2] == 1.0
+                and not empty_space_skip)
     if pure_sel:
         zlo, zhi = march.box_min[2], march.box_max[2]
         spacing = (zhi - zlo) / n_planes
@@ -581,14 +622,23 @@ def _diff_call(
             volume, n_planes, march.box_min, march.box_max, dz_sign,
             tex_offset, z_scale=axis_scale[2],
         )
-    return sweep_preblended_planes_diff(
-        planes_all, zs, origin, slopes, tf_lut, density, brightness,
-        transfer_offset, transfer_scale, dz_sign=dz_sign, width=width,
-        height=height, march=march, length_correction=length_correction,
-        precision=precision, plane_chunk=plane_chunk, tex_offset=tex_offset,
-        wrt=wrt, axis_scale=tuple(axis_scale[:2]),
-        reverse_planes=pure_sel and dz_sign < 0,
+    ess = _resolve_ess(
+        empty_space_skip, None, planes_all, zs, origin, slopes, tf_lut,
+        transfer_offset, transfer_scale, width=width, height=height,
+        plane_chunk=_ck_stride(plane_chunk), march=march,
+        tex_offset=tex_offset, axis_scale=axis_scale[:2],
+        reverse_planes=False,
     )
+    cfg = _planes_sweep(
+        zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
+        march=march, plane_spacing=None, n_planes=n_planes,
+        length_correction=length_correction, plane_chunk=plane_chunk,
+        tex_offset=tex_offset, axis_scale=axis_scale[:2],
+        reverse_planes=pure_sel and dz_sign < 0, ess=ess,
+    )
+    out = _diff_sweep(cfg, wrt, planes_all, None, tf_lut, density,
+                      transfer_offset, transfer_scale)
+    return out * brightness
 
 
 def pallas_sweep_slope_space_diff(
@@ -670,7 +720,7 @@ def auto_route(hist_shape, hist_dtype, stat: str) -> str:
     """JAX's ``route='auto'`` rule verbatim (slice_vjp.py:1392-1397):
     'inkernel' for entropy and whenever the materialized route's extra
     residency would crowd the TPU's 13 GiB budget, else 'materialized'. Not
-    yet re-measured for the H100 (ROADMAP.md queue 2)."""
+    yet re-measured for the H100 (ROADMAP.md queue 2 item 4)."""
     hist_bytes = int(np.prod(hist_shape)) * torch.empty(
         (), dtype=hist_dtype).element_size()
     voxels = hist_shape[0] * hist_shape[2] * hist_shape[3]
@@ -761,7 +811,7 @@ def render_config(shape, origin, *, stat: str = "none", width: int,
 def live_fractions(*args, **kwargs) -> dict:
     """Not ported: the TPU kernel's live-tile bitmap is a (strip, chunk,
     x-tile) quantity of its tiling; what it means per warp or block on the
-    card is still to decide (ROADMAP.md queue 2)."""
+    card is still to decide (ROADMAP.md queue 2 item 3)."""
     raise NotImplementedError(
-        "live_fractions is not ported yet (ROADMAP.md queue 2)"
+        "live_fractions is not ported yet (ROADMAP.md queue 2 item 3)"
     )

@@ -155,13 +155,17 @@ def sweep_slope_space(
 
 def _chunk_rgba_fn(n_planes, ny, nx, zs, origin, mx, my, march, dz_sign,
                    plane_spacing, length_correction, tex_offset, axis_scale,
-                   filter_linear, dev):
+                   filter_linear, dev, ess=None):
     """The per-chunk plane decode of the sweep (``chunk_rgba`` of
     ``vrdd_tpu/march/slice.py:297``): ``f(c0, planes, lut, density, toff,
     tscl)`` -> premultiplied RGBA ``(C, H, W, 4)`` of planes ``c0 ..
     c0 + C``: separable resample (batched matmuls), TF lookup, opacity
     scaling and coverage masking; everything except compositing. The
-    camera geometry is fixed (the origin gets no cotangent, as in JAX)."""
+    camera geometry is fixed (the origin gets no cotangent, as in JAX).
+
+    ``ess = (bitmap, chunk, (tile_h, tile_w))``: the empty-space-skipping
+    bitmap of ``kernels.slice_kernel.ess_bitmap``; samples of a culled
+    (tile, chunk) get alpha exactly 0, as the kernel skips them."""
     (xlo, ylo, zlo) = march.box_min
     (xhi, yhi, zhi) = march.box_max
     mx = np.asarray(mx, dtype=np.float32)
@@ -182,6 +186,10 @@ def _chunk_rgba_fn(n_planes, ny, nx, zs, origin, mx, my, march, dz_sign,
     )
     mx_t = torch.as_tensor(mx, device=dev)
     my_t = torch.as_tensor(my, device=dev)
+    if ess is not None:
+        bitmap, ess_chunk, (tile_h, tile_w) = ess
+        tile_i = torch.arange(height, device=dev) // tile_h
+        tile_j = torch.arange(width, device=dev) // tile_w
 
     def chunk_rgba(c0, planes, lut, density, toff, tscl):
         chunk = planes.shape[0]
@@ -203,6 +211,9 @@ def _chunk_rgba_fn(n_planes, ny, nx, zs, origin, mx, my, march, dz_sign,
             & (torch.sum(torch.abs(wx), dim=2) > 0.0)[:, None, :]
             & in_front[:, None, None]
         )
+        if ess is not None:
+            ks = torch.arange(c0, c0 + chunk, device=dev) // ess_chunk
+            covered = covered & (bitmap[ks][:, tile_i][:, :, tile_j] != 0)
         # opacity is a probability: clamp to 1 (the slab length correction
         # can overshoot), keeping alpha monotone for the cutoff
         a = torch.where(
@@ -327,6 +338,7 @@ def sweep_preblended_planes_xla(
     tex_offset: float = 0.5,
     axis_scale=(1.0, 1.0),
     filter_linear: bool = True,
+    ess=None,
 ) -> torch.Tensor:
     """Masked "over" sweep over an ALREADY pre-blended plane stack.
 
@@ -341,6 +353,7 @@ def sweep_preblended_planes_xla(
     ``use_custom_vjp`` (the default) the backward is the analytic two-pass
     VJP (:class:`_AnalyticSweep`, O(chunk) memory); ``False`` is plain
     autograd through the forward, the oracle the tests hold it against.
+    ``ess``: see :func:`_chunk_rgba_fn`.
     """
     dev = planes_all.device
     planes_all = planes_all.to(torch.float32)
@@ -348,7 +361,7 @@ def sweep_preblended_planes_xla(
     width, height = np.asarray(mx).shape[0], np.asarray(my).shape[0]
     chunk_rgba = _chunk_rgba_fn(
         n_planes, ny, nx, zs, origin, mx, my, march, dz_sign, plane_spacing,
-        length_correction, tex_offset, axis_scale, filter_linear, dev,
+        length_correction, tex_offset, axis_scale, filter_linear, dev, ess,
     )
 
     def f32(x):
@@ -372,18 +385,19 @@ def transmittance_checkpoints(
     march: MarchConfig = MarchConfig(), *, ck_stride: int, dz_sign: int = -1,
     plane_spacing=None, length_correction: bool = True,
     tex_offset: float = 0.5, axis_scale=(1.0, 1.0),
-    filter_linear: bool = True,
+    filter_linear: bool = True, ess=None,
 ) -> torch.Tensor:
     """The backward's transmittance ``T`` at the start of every block of
     ``ck_stride`` planes: ``(ceil(P / ck_stride), H, W)``, with the
     recursion ``T <- T - [T >= 1 - thr] T a`` (vrdd_tpu/pallas/slice_kernel.py
-    :1046-1051). The plain version of the checkpoints K4 writes."""
+    :1046-1051). The plain version of the checkpoints K4 writes; ``ess``:
+    see :func:`_chunk_rgba_fn`."""
     dev = planes_all.device
     planes_all = planes_all.to(torch.float32)
     n_planes, ny, nx = planes_all.shape
     chunk_rgba = _chunk_rgba_fn(
         n_planes, ny, nx, zs, origin, mx, my, march, dz_sign, plane_spacing,
-        length_correction, tex_offset, axis_scale, filter_linear, dev,
+        length_correction, tex_offset, axis_scale, filter_linear, dev, ess,
     )
     lut = torch.as_tensor(tf_lut, dtype=torch.float32, device=dev)
     thr = march.opacity_threshold

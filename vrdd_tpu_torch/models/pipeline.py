@@ -1,0 +1,316 @@
+"""Full render pipeline (counterpart of ``vrdd_tpu/models/pipeline.py``).
+
+The analogue of the reference's startup sequence (initCuda ->
+dataProcessing -> basicDataProcessing, volumeRender.cpp:1200-1221): given
+the raw histograms, precompute the stats volume once, then render with a
+query method (volumeRender.cpp:129 legend):
+
+    1/2/3  raw mean / variance / entropy          (originalQueryTex)
+    7      on-the-fly interpolated mean           (in-march decode)
+
+through one of the renderers of the JAX package: ``scan`` (the ray marcher,
+``march/scan.py``), ``slice`` (the plain torch plane sweep,
+``march/slice.py``), ``pallas`` (the fused sweep kernel K1,
+``kernels/slice_kernel.py``, with empty-space skipping on by default) or
+``auto``. Everything runs on the device of the raw histograms.
+
+Not ported yet (each raises ``NotImplementedError``): the fractal queries
+4/5/6 (ROADMAP.md queue 1 item 5), the flexible-block queries 8/9/0 (item
+8) and rotated views under ``auto`` or ``shearwarp`` (the shear-warp sweep,
+item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
+from vrdd_tpu_torch.core.image import rgba_to_uint8
+from vrdd_tpu_torch.core.transfer import default_transfer_function
+from vrdd_tpu_torch.kernels.slice_kernel import (
+    pallas_slice_render,
+    pallas_supported,
+    precompute_ess_stats,
+)
+from vrdd_tpu_torch.march.scan import render_image
+from vrdd_tpu_torch.march.slice import slice_render_image
+from vrdd_tpu_torch.models.renderer import (
+    interp_mean_sample_fn,
+    interp_mean_volume,
+    stats_sample_fn,
+)
+from vrdd_tpu_torch.models.volumes import RawHistogramVolume, compute_stats_volume
+from vrdd_tpu_torch.utils.config import QueryMethod, RenderConfig, query_channel
+from vrdd_tpu_torch.utils.timing import StageTimer
+
+_RAW = (QueryMethod.RAW_MEAN, QueryMethod.RAW_VARIANCE, QueryMethod.RAW_ENTROPY)
+_FRACTAL = (QueryMethod.FRACTAL_MEAN, QueryMethod.FRACTAL_VARIANCE,
+            QueryMethod.FRACTAL_ENTROPY)
+
+
+def _check_method(method: QueryMethod) -> QueryMethod:
+    method = QueryMethod(method)
+    if method in _FRACTAL:
+        raise NotImplementedError(
+            f"query {int(method)} needs the fractal codebook volume, not "
+            "ported yet (ROADMAP.md queue 1 item 5: ops/fractal.py)"
+        )
+    if method not in (*_RAW, QueryMethod.INTERP_MEAN):
+        raise NotImplementedError(
+            f"query {int(method)} needs the flexible-block volume, not ported "
+            "yet (ROADMAP.md queue 1 item 8: models/flexible.py)"
+        )
+    return method
+
+
+def _shearwarp_missing() -> NotImplementedError:
+    return NotImplementedError(
+        "rotated views render through the shear-warp sweep, not ported yet "
+        "(ROADMAP.md queue 1 item 7: march/shearwarp.py)"
+    )
+
+
+class RenderPipeline:
+    """Holds precomputed query volumes and renders by query method."""
+
+    def __init__(
+        self,
+        raw: Optional[RawHistogramVolume] = None,
+        fractal=None,
+        flexible=None,
+        tf_lut: Optional[np.ndarray] = None,
+    ):
+        if fractal is not None:
+            raise NotImplementedError(
+                "fractal= is not ported yet (ROADMAP.md queue 1 item 5)")
+        if flexible is not None:
+            raise NotImplementedError(
+                "flexible= is not ported yet (ROADMAP.md queue 1 item 8)")
+        timer = StageTimer()
+        self.raw = raw
+        self.raw_stats = (
+            timer.time("basic_data_processing/raw",
+                       lambda: compute_stats_volume(raw))
+            if raw is not None
+            else None
+        )
+        self.timings: Dict[str, float] = timer.as_dict()
+        device = raw.histograms.device if raw is not None else None
+        self.tf_lut = torch.as_tensor(
+            default_transfer_function() if tf_lut is None else tf_lut,
+            dtype=torch.float32, device=device,
+        )
+        self._interp_mean_vol = None  # query-7 field, built on first use
+        # ESS TF-interval culling on the fused-kernel path: exact for the
+        # image, so ON by default wherever it applies; the plane stats are
+        # camera/TF-independent and cached here per (volume, schedule) —
+        # precompute_ess_stats's cache-key contract
+        self.empty_space_skip = True
+        self._ess_cache: Dict[tuple, tuple] = {}
+        self._channel_cache: Dict[QueryMethod, torch.Tensor] = {}
+
+    def sample_source(self, method: QueryMethod, linear: bool = True):
+        """(source tensor, tensor -> SampleFn builder) for a query method.
+
+        ``linear=False`` selects point filtering for the stats-volume fetch
+        (the reference's 'f' key, volumeRender.cpp:311-314); query 7 stays
+        linear like the reference's textures."""
+        method = _check_method(method)
+        if self.raw is None:
+            raise ValueError("no raw histogram volume loaded")
+        if method in _RAW:
+            ch = query_channel(method)
+            return self.raw_stats, lambda a: stats_sample_fn(a, ch, linear)
+        return self.raw.histograms, interp_mean_sample_fn
+
+    def sample_fn(self, method: QueryMethod):
+        src, build = self.sample_source(method)
+        return build(src)
+
+    def _stats_channel(self, method: QueryMethod) -> torch.Tensor:
+        """(Z, Y, X) contiguous scalar field for the object-order paths.
+
+        Memoized per method: the ESS plane-stats cache keys on the IDENTITY
+        of the returned tensor — a fresh slice per call would defeat it."""
+        method = _check_method(method)
+        cached = self._channel_cache.get(method)
+        if cached is not None:
+            return cached
+        if self.raw is None:
+            raise ValueError("no raw histogram volume loaded")
+        if method in _RAW:
+            out = self.raw_stats[..., query_channel(method)].contiguous()
+        else:
+            if self._interp_mean_vol is None:
+                self._interp_mean_vol = interp_mean_volume(self.raw.histograms)
+            out = self._interp_mean_vol
+        self._channel_cache[method] = out
+        return out
+
+    @staticmethod
+    def _tex_offset(method) -> float:
+        """Filtering convention per query: 7 interpolates on the block-
+        boundary grid (volumeRender_kernel.cu:395-478, no -0.5 texel offset);
+        everything else uses the CUDA texture model."""
+        return 0.0 if QueryMethod(method) == QueryMethod.INTERP_MEAN else 0.5
+
+    def resolve_renderer(
+        self, renderer: str, inv_view, config: RenderConfig
+    ) -> str:
+        """'auto' -> the fastest applicable path for this view/method.
+
+        Unrotated views of queries 1-3 and 7 go object-order: the fused
+        kernel ('pallas') when the stats channel is on the card and the
+        kernel takes the configuration, else the plain torch sweep
+        ('slice'), as JAX picks 'slice' off the TPU. Point filtering at a
+        rotated view goes to the scan marcher, as in JAX; other rotated
+        views raise (JAX takes the shear-warp sweep, not ported yet)."""
+        if renderer != "auto":
+            return renderer
+        _check_method(config.query_method)
+        unrotated = np.allclose(
+            np.asarray(inv_view)[:, :3], np.eye(3), atol=1e-6
+        )
+        if not config.filter_linear and not unrotated:
+            return "scan"
+        if not unrotated:
+            raise _shearwarp_missing()
+        vol = self._stats_channel(config.query_method)
+        if vol.device.type == "cuda" and pallas_supported(
+            tuple(vol.shape), config.camera.width, config.camera.height,
+            max(64, 2 * vol.shape[0]), n_lut=int(self.tf_lut.shape[0]),
+        ):
+            return "pallas"
+        return "slice"
+
+    def render(
+        self,
+        inv_view: Optional[np.ndarray] = None,
+        config: RenderConfig = RenderConfig(),
+        renderer: str = "scan",
+        as_uint8: bool = False,
+        channels: int = 4,
+    ) -> torch.Tensor:
+        """Render ``(H, W, 4)`` float RGBA on the histograms' device.
+
+        ``renderer``: 'scan' (general ray marcher, bit-faithful to d_render),
+        'slice' (object-order plain torch sweep), 'pallas' (the fused CUDA
+        kernel on the card; its plain version on the CPU), or 'auto'
+        (fastest applicable). The object-order paths require an unrotated
+        view. ``as_uint8=True`` packs to RGBA8; ``channels=3`` also drops
+        alpha (uint8 only)."""
+        if inv_view is None:
+            inv_view = default_benchmark_inv_view()
+        if channels not in (3, 4):
+            raise ValueError(f"channels must be 3 or 4, got {channels}")
+        if channels == 3 and not as_uint8:
+            raise ValueError("channels=3 requires as_uint8=True (the RGB "
+                             "drop is part of the uint8 pack)")
+        pack_u8 = (channels if channels != 4 else True) if as_uint8 else False
+        method = _check_method(config.query_method)
+        renderer = self.resolve_renderer(renderer, inv_view, config)
+        if renderer == "shearwarp":
+            raise _shearwarp_missing()
+        params = (
+            self.tf_lut, config.density, config.brightness, config.tf.offset,
+            config.tf.scale,
+        )
+        # ESS applies to the fused forward with linear filtering (the cached
+        # plane stats describe the LINEAR pre-blend; point sampling snaps
+        # the z taps, which would make them non-conservative)
+        ess = (
+            renderer == "pallas"
+            and self.empty_space_skip
+            and config.filter_linear
+        )
+        fn = self._compiled(
+            method, config.camera.width, config.camera.height, config.march,
+            renderer, linear=config.filter_linear, pack_u8=pack_u8, ess=ess,
+        )
+        if renderer in ("slice", "pallas"):
+            src = self._stats_channel(method)
+        else:
+            src, _ = self.sample_source(method)
+        if ess:
+            stats = self._ess_stats(src, config)
+            return fn(src, inv_view, *params, stats)
+        return fn(src, inv_view, *params)
+
+    def _ess_stats(self, vol, config):
+        """Cached ESS plane stats for a stats-channel volume; keyed on the
+        full pre-blend signature (volume identity, plane schedule,
+        tex_offset, box) per precompute_ess_stats's contract."""
+        toff = self._tex_offset(config.query_method)
+        n_planes = max(64, 2 * vol.shape[0])
+        key = (
+            id(vol), n_planes, toff, 1.0,
+            config.march.box_min, config.march.box_max,
+        )
+        # the entry holds a STRONG reference to the keyed volume and the
+        # hit path verifies identity: id() alone could be reused by another
+        # tensor after the original is freed, silently serving another
+        # volume's plane stats (non-conservative culling = wrong pixels)
+        entry = self._ess_cache.get(key)
+        if entry is not None and entry[0] is vol:
+            return entry[1]
+        stats = precompute_ess_stats(
+            vol, n_planes=n_planes, march=config.march, dz_sign=-1,
+            tex_offset=toff, z_scale=1.0,
+        )
+        self._ess_cache[key] = (vol, stats)
+        return stats
+
+    def _compiled(self, method, width, height, march, renderer="scan",
+                  linear=True, pack_u8=False, ess=False):
+        """The render function of one configuration (JAX jits and caches
+        it; here it runs eagerly): ``fn(src, inv_view, tf_lut, density,
+        brightness, offset, scale[, ess_stats])``."""
+        # pack_u8: False = float RGBA, True/4 = uint8 RGBA, 3 = uint8 RGB
+        if pack_u8 == 3:
+            def pack(x):
+                return rgba_to_uint8(x)[..., :3]
+        elif pack_u8:
+            pack = rgba_to_uint8
+        else:
+            def pack(x):
+                return x
+        if renderer in ("slice", "pallas"):
+            toff = self._tex_offset(method)
+            # point filtering ('f' key) applies to the stats-volume fetch of
+            # queries 1-3 only — query 7 interpolates manually
+            flin = linear or QueryMethod(method) == QueryMethod.INTERP_MEAN
+
+            def run_obj(volume, inv_view, tf_lut, density, brightness,
+                        offset, scale, ess_stats=None):
+                origin = torch.as_tensor(np.asarray(inv_view, np.float32)[:, 3])
+                n_planes = max(64, 2 * volume.shape[0])
+                if renderer == "pallas":
+                    return pack(pallas_slice_render(
+                        volume, origin, tf_lut, density, brightness,
+                        offset, scale, width=width, height=height, march=march,
+                        n_planes=n_planes, tex_offset=toff,
+                        filter_linear=flin, empty_space_skip=ess,
+                        ess_stats=ess_stats,
+                    ))
+                return pack(slice_render_image(
+                    volume, origin, width, height, tf_lut, density,
+                    brightness, offset, scale, march=march, n_planes=n_planes,
+                    tex_offset=toff, filter_linear=flin,
+                ))
+
+            return run_obj
+        if renderer != "scan":
+            raise ValueError(f"unknown renderer {renderer!r}")
+        _, build = self.sample_source(method, linear)
+
+        def run(src, inv_view, tf_lut, density, brightness, offset, scale):
+            return pack(render_image(
+                build(src), inv_view, width, height, tf_lut,
+                density, brightness, offset, scale, march,
+                device=src.device,
+            ))
+
+        return run
