@@ -42,11 +42,13 @@ Phases (each prints its lines; any failure exits non-zero):
    7b. full size, a smooth 256^3-block x 32-bin float32 raw volume (2.1 GB,
        made on the card from a seed, with empty space around its blobs) to
        1024^2 through ``renderer='auto'``, which must resolve to the fused
-       kernel K1 with ESS on: launch counters reset before and read after;
-       the stats decode, the ESS plane stats, the per-frame bitmap and
-       pre-blend, K1 with and without ESS and the whole frame timed; the
-       culled share and peak memory printed; ESS bitwise no-ESS, ``pallas``
-       against the plain ``slice`` renderer. Then the differentiable sweep
+       kernel K1 with ESS on: launch counters (K1, its ESS launches, the
+       ESS bitmap kernel) reset before and read after; the stats decode,
+       the ESS plane stats, the per-frame bitmap kernel (byte for byte its
+       plain version) and pre-blend, the K1 wrapper with ESS (bitmap and
+       K1) and without, and the whole frame timed; the culled share and
+       peak memory printed; ESS bitwise no-ESS, ``pallas`` against the
+       plain ``slice`` renderer. Then the differentiable sweep
        with ESS (``wrt=('volume',)``) on the same volume: K3/K4 with ESS
        bitwise without (image and every checkpoint row), ``d_volume`` within
        1e-6 relative L2 of the gradient without ESS;
@@ -57,12 +59,13 @@ The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Each kernel's record holds its launches
 in the main-path run, its error against the plain version, its ms (median
 of warm runs, CUDA events), the plain version's ms, and ``bound_ms``: the
-larger of the bytes the call must move (each input read once, each output
-written once) over the H100's 3.35 TB/s and the FP32 operations of the
-samples this run's data needs (in front of the camera and in the box,
-before the ray's cutoff, not ESS-culled; counted with the plain version)
-over its 67 TFLOP/s, with ``bound_by`` naming the larger. No single
-PyTorch call computes a sweep, so ``library_ms`` is null. Without a GPU it
+larger of the bytes the call must move over the H100's 3.35 TB/s and its
+FP32 operations over its 67 TFLOP/s, with ``bound_by`` naming the larger.
+Both count what this run's data needs: the samples evaluated (in front of
+the camera and in the box, before the ray's cutoff, not ESS-culled;
+counted with the plain version), the volume texels those samples read,
+each once, and every output written once. No single PyTorch call computes
+a sweep or the bitmap, so ``library_ms`` is null. Without a GPU it
 exits with an error and prints no result. Needs nothing but the
 repository, torch, numpy, nvcc.
 """
@@ -100,6 +103,14 @@ def decode_ops(mode, B):
     per_voxel = {"none": 0, "linear": 2 * B, "var": 8 * B + 6,
                  "entropy": 4 * B + 1}[mode]
     return 4 * per_voxel
+
+
+def ess_pair_ops(plane_chunk, n_lut):
+    """Operations of the ESS bitmap kernel for one (tile, chunk), counted
+    from csrc/ess_bitmap.cu (a float64 operation counts as one): the depth
+    range and the corner and block geometry 60, the block min and max over
+    the chunk's planes at 2 x 2 blocks, the LUT interval 20 and its knots."""
+    return 60 + 2 * 4 * plane_chunk + 20 + 2 * n_lut
 
 
 def fail(msg: str):
@@ -204,12 +215,14 @@ def bound(n_bytes, n_ops):
 
 
 def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
-                 reverse=False, ess=None, chunk=8):
-    """The samples the sweep kernels evaluate on these inputs: the plane in
-    front of the camera and the ray inside the box there, the ray not yet
-    past the opacity cutoff, the (tile, chunk) not culled by the ESS bitmap
-    ``ess``. Counted with the plain version's per-plane alpha, front to
-    back (``reverse``: the stack is stored z-ascending)."""
+                 reverse=False, ess=None, chunk=8, tex_offset=0.5):
+    """``(samples, texels)``: the samples the sweep kernels evaluate on
+    these inputs, and the distinct plane texels those samples read. A sample
+    is evaluated where the plane is in front of the camera, the ray inside
+    the box there and not yet past the opacity cutoff, and the (tile,
+    chunk) not culled by the ESS bitmap ``ess``; it reads the two x by two y
+    taps of its resample. Counted with the plain version's per-plane alpha,
+    front to back (``reverse``: the stack is stored z-ascending)."""
     import torch
 
     from vrdd_tpu_torch.kernels import slice_kernel as sk
@@ -221,7 +234,7 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     P, ny, nx = planes.shape
     mx, my = sk._slope_grids(slopes, W, H)
     rgba = _chunk_rgba_fn(P, ny, nx, zs, torch.tensor(ORIGIN), mx, my, march,
-                          -1, None, True, 0.5, (1.0, 1.0), True, dev)
+                          -1, None, True, tex_offset, (1.0, 1.0), True, dev)
     mx_t, my_t = torch.as_tensor(mx, device=dev), torch.as_tensor(my, device=dev)
     th, tw = sk.ESS_TILE
     ti = torch.arange(H, device=dev) // th
@@ -230,8 +243,20 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     ox, oy, oz = ORIGIN
     (xlo, ylo, _), (xhi, yhi, _) = march.box_min, march.box_max
     thr = march.opacity_threshold
+
+    def taps(w, lo, hi, n):
+        """(rays, n) 0/1 matrix of the texels each ray's resample reads."""
+        q = ((w - lo) / (hi - lo) * n - tex_offset).clamp(0.0, n - 1.0)
+        i0 = torch.floor(q).long()
+        m = torch.zeros((w.shape[0], n), device=dev)
+        rows = torch.arange(w.shape[0], device=dev)
+        m[rows, i0] = 1.0
+        m[rows, (i0 + 1).clamp(max=n - 1)] = 1.0
+        return m
+
     acc = torch.zeros((H, W), device=dev)
     count = torch.zeros((), dtype=torch.int64, device=dev)
+    texels = torch.zeros((), dtype=torch.int64, device=dev)
     with torch.no_grad():
         for c0 in range(0, P, chunk):
             idx = torch.arange(c0, min(c0 + chunk, P), device=dev)
@@ -246,8 +271,11 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
                     if ess is not None:
                         live &= ess[(c0 + k) // chunk][ti][:, tj] != 0
                     count += live.sum()
+                    read = (taps(yw, ylo, yhi, ny).T @ live.float()
+                            @ taps(xw, xlo, xhi, nx))
+                    texels += (read > 0).sum()
                 acc = torch.where(acc > thr, acc, acc + a[k] * (1.0 - acc))
-    return int(count)
+    return int(count), int(texels)
 
 
 def host_ms(fn, runs):
@@ -450,12 +478,13 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
                                else "none", width=W, height=W)
         decoded = vol if not inkernel else sk.decode_with_rows(hist, rows,
                                                                mode)
-        n_live = live_samples(decoded, cfg.zs, cfg.slopes, tf, 0.05, 0.0,
-                              tscl, W, W, reverse=True)
+        n_live, n_texels = live_samples(decoded, cfg.zs, cfg.slopes, tf, 0.05,
+                                        0.0, tscl, W, W, reverse=True)
         del decoded
         fwd_ops = n_live * (SAMPLE_OPS
                             + decode_ops(mode if inkernel else "none", B))
-        vol_bytes = vol.numel() * vol.element_size()
+        # the volume bytes the live samples' taps read, each once
+        vol_bytes = n_texels * (vol.numel() // (n * n * n)) * vol.element_size()
         img_bytes, tck_bytes = W * W * 16, cfg.n_chunks * W * W * 4
         d_bytes = n * n * n * 4 * (3 if (inkernel and mode == "var") else 1)
         bounds = {
@@ -466,7 +495,8 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
                                K5_SAMPLE_FACTOR * fwd_ops),
         }
         print(f"  [{tag}] evaluated samples {n_live} "
-              f"({n_live / (W * W * n):.4f} of rays x planes)")
+              f"({n_live / (W * W * n):.4f} of rays x planes), texels read "
+              f"{n_texels} ({n_texels / (n * n * n):.4f} of the volume)")
         rows_t = torch.as_tensor(rows, device=dev) if inkernel else None
         args = (cfg, vol, rows_t, lut0,
                 torch.tensor(0.05, device=dev), torch.tensor(0.0, device=dev),
@@ -559,13 +589,14 @@ def phase_7(dev, card, smi, tf, work):
     from vrdd_tpu_torch.kernels import slice_vjp as sv
     from vrdd_tpu_torch.march.slice import preblend_planes
     from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.renderer import interp_mean_volume
     from vrdd_tpu_torch.models.volumes import RawHistogramVolume
     from vrdd_tpu_torch.utils.config import (
         CameraConfig, MarchConfig, QueryMethod, RenderConfig,
-        TransferFunctionConfig,
+        TransferFunctionConfig, query_channel,
     )
 
-    k1 = sk.sweep_preblended_planes
+    k1, bm = sk.sweep_preblended_planes, sk.ess_bitmap
     iv = default_benchmark_inv_view()
     march = MarchConfig()
 
@@ -604,7 +635,7 @@ def phase_7(dev, card, smi, tf, work):
 
             imgs[name] = frame()
             check_image(imgs[name], f"7a q{q} {name}", S)
-            ms = host_ms(frame, 3 if renderer == "scan" else 5)
+            ms = host_ms(frame, {"scan": 3, "slice": 5}.get(renderer, 20))
             line.append(f"{name} {ms:.3f} ms ({S * S / ms / 1e3:.2f} "
                         "MTexels/s)")
         pipe.empty_space_skip = True
@@ -628,25 +659,37 @@ def phase_7(dev, card, smi, tf, work):
     for q in (1, 2, 3, 7):
         if pipe.resolve_renderer("auto", iv, config(q, W, 6.0)) != "pallas":
             fail(f"7b q{q}: 'auto' did not resolve to the fused kernel")
-    k1.launches = k1.ess_launches = 0
+    k1.launches = k1.ess_launches = bm.launches = 0
     images, launches = {}, {}
     for q in (1, 2, 3, 7):
-        before = (k1.launches, k1.ess_launches)
+        before = (k1.launches, k1.ess_launches, bm.launches)
         images[q] = pipe.render(iv, config(q, W, 6.0), "auto")
-        launches[q] = (k1.launches - before[0], k1.ess_launches - before[1])
+        launches[q] = tuple(c - b for c, b in zip(
+            (k1.launches, k1.ess_launches, bm.launches), before))
     torch.cuda.synchronize()
     print(f"  launches in the main-path run: K1 {k1.launches}, with ESS "
-          f"{k1.ess_launches} (per query {launches})")
-    if k1.launches == 0 or k1.ess_launches != k1.launches:
-        fail("7b: the render path did not run K1 with ESS")
+          f"{k1.ess_launches}, ESS bitmap {bm.launches} (per query, K1 / "
+          f"with ESS / bitmap: {launches})")
+    if (k1.launches == 0 or k1.ess_launches != k1.launches
+            or bm.launches != k1.launches):
+        fail("7b: the render path did not run the ESS bitmap and K1 with ESS")
+
+    def channel(q):
+        """The pipeline's scalar field of query q, from its public parts."""
+        if q == 7:
+            return interp_mean_volume(pipe.raw.histograms)
+        return pipe.raw_stats[..., query_channel(QueryMethod(q))].contiguous()
 
     records = []
+    P = max(64, 2 * n)
+    slopes = sk.pixel_slope_params(W, W)
+    img_bytes, lut_bytes = W * W * 16, tf.size * 4
     for q in (1, 2, 3, 7):
         cfg = config(q, W, 6.0)  # peaked histograms: narrow
         check_image(images[q], f"7b q{q}", W)
-        vol = pipe._stats_channel(q)
-        toff = pipe._tex_offset(q)
-        P = max(64, 2 * n)
+        vol = channel(q)
+        toff = 0.0 if q == 7 else 0.5  # query 7: the block-boundary grid
+        tscl = cfg.tf.scale
         ess_ms, stats = timed_once(lambda vol=vol, toff=toff:
                                    sk.precompute_ess_stats(
                                        vol, n_planes=P, march=march,
@@ -656,32 +699,32 @@ def phase_7(dev, card, smi, tf, work):
             vol, P, march.box_min, march.box_max, -1, toff), TIMED_RUNS)
         planes, zs = preblend_planes(vol, P, march.box_min, march.box_max,
                                      -1, toff)
-        mx, my = sk._pixel_slopes(W, W, 2.0)
-        slopes = (*sk._uniform_grid_params(mx, "mx"),
-                  *sk._uniform_grid_params(my, "my"))
-        tscl = cfg.tf.scale
+        bargs = (stats, zs, ORIGIN, slopes, tf, 0.0, tscl)
+        bkw = dict(width=W, height=W, ny=n, nx=n, plane_chunk=8, march=march,
+                   tex_offset=toff)
+        bitmap_ms = time_ms(lambda: bm(*bargs, **bkw), TIMED_RUNS)
+        ess = bm(*bargs, **bkw)
+        bitmap_plain_ms, ess_ref = timed_once(
+            lambda: sk.ess_bitmap_reference(*bargs, **bkw))
+        n_diff = int((ess != ess_ref).sum())
+        print(f"  [7b q{q}] ESS bitmap kernel vs plain: {n_diff} of "
+              f"{ess.numel()} (tile, chunk) bytes differ")
+        if n_diff:
+            fail(f"7b q{q}: the ESS bitmap kernel differs from its plain "
+                 "version")
 
-        def bitmap(stats=stats, zs=zs, tscl=tscl, toff=toff):
-            return sk.ess_bitmap(stats, zs, ORIGIN, slopes, tf, 0.0, tscl,
-                                 width=W, height=W, ny=n, nx=n,
-                                 plane_chunk=8, march=march,
-                                 tex_offset=toff)
+        def k1_run(culled, planes=planes, zs=zs, stats=stats, tscl=tscl,
+                   toff=toff):
+            """The public K1 wrapper; with ESS it launches the bitmap
+            kernel from the cached plane stats, then K1."""
+            return k1(planes, zs, ORIGIN, slopes, tf, 0.05, 1.0, 0.0, tscl,
+                      width=W, height=W, tex_offset=toff,
+                      empty_space_skip=culled,
+                      ess_stats=stats if culled else None)
 
-        bitmap_ms = time_ms(bitmap, TIMED_RUNS)
-        ess = bitmap()
-        params = sk._sweep_params(
-            ORIGIN, slopes, 0.05, 1.0, 0.0, tscl, 2.0 / P, march, width=W,
-            height=W, ny=n, nx=n, n_planes=P, n_layers=P, dz_sign=-1,
-            reverse=False, length_correction=True, tex_offset=toff,
-            axis_scale=(1.0, 1.0), filter_linear=True)
-
-        def k1_run(ess_map, planes=planes, zs=zs, params=params):
-            return sk._launch(planes, "none", zs, tf, None, params,
-                              ess=ess_map, ess_chunk=8)
-
-        k1_ess_ms = time_ms(lambda: k1_run(ess), TIMED_RUNS)
-        k1_ms = time_ms(lambda: k1_run(None), TIMED_RUNS)
-        img_ess, img_plain_k1 = k1_run(ess), k1_run(None)
+        k1_ess_ms = time_ms(lambda: k1_run(True), TIMED_RUNS)
+        k1_ms = time_ms(lambda: k1_run(False), TIMED_RUNS)
+        img_ess, img_plain_k1 = k1_run(True), k1_run(False)
         pipe.empty_space_skip = False
         no_ess = pipe.render(iv, cfg, "pallas")
         pipe.empty_space_skip = True
@@ -694,42 +737,60 @@ def phase_7(dev, card, smi, tf, work):
         ref_ess_ms, ref_ess = timed_once(
             lambda: sk.sweep_preblended_planes_reference(
                 planes, zs, ORIGIN, slopes, tf, 0.05, 1.0, 0.0, tscl,
-                width=W, height=W, tex_offset=toff, ess=ess))
+                width=W, height=W, tex_offset=toff, ess=ess_ref))
         err = compare(img_ess, ref_ess, f"[7b q{q}] K1+ESS vs plain+bitmap")
         culled = float((ess == 0).float().mean())
-        n_live = live_samples(planes, zs, slopes, tf, 0.05, 0.0, tscl, W, W,
-                              ess=ess)
-        n_all = live_samples(planes, zs, slopes, tf, 0.05, 0.0, tscl, W, W)
-        plane_bytes = planes.numel() * 4 + W * W * 16
-        bd = bound(plane_bytes + ess.numel(), n_live * SAMPLE_OPS)
-        bd_all = bound(plane_bytes, n_all * SAMPLE_OPS)
+        n_live, tex_live = live_samples(planes, zs, slopes, tf, 0.05, 0.0,
+                                        tscl, W, W, ess=ess, tex_offset=toff)
+        n_all, tex_all = live_samples(planes, zs, slopes, tf, 0.05, 0.0,
+                                      tscl, W, W, tex_offset=toff)
+        stats_bytes = 2 * stats[0].numel() * 4
+        bitmap_ops = ess.numel() * ess_pair_ops(8, len(tf))
+        bd_bm = bound(stats_bytes + P * 4 + lut_bytes + ess.numel(),
+                      bitmap_ops)
+        # K1 with ESS: the plane texels its live samples read, the stats,
+        # the image; the bitmap in between need not reach memory
+        bd = bound(tex_live * 4 + stats_bytes + img_bytes,
+                   n_live * SAMPLE_OPS + bitmap_ops)
+        bd_all = bound(tex_all * 4 + img_bytes, n_all * SAMPLE_OPS)
         print(f"  [7b q{q}] frame {frame_ms:.3f} ms "
               f"({W * W / frame_ms / 1e3:.2f} MTexels/s); ESS plane stats "
               f"{ess_ms:.3f} ms (once per volume); per frame: pre-blend "
-              f"{blend_ms:.3f} ms, bitmap {bitmap_ms:.3f} ms, K1+ESS "
-              f"{k1_ess_ms:.3f} ms (bound {bd['bound_ms']:.3f}), K1 "
-              f"{k1_ms:.3f} ms (bound {bd_all['bound_ms']:.3f}); culled "
-              f"{culled:.4f} of (tile, chunk) pairs, evaluated samples "
-              f"{n_live} with ESS / {n_all} without; plain slice "
-              f"{slice_ms:.3f} ms, plain K1+bitmap {ref_ess_ms:.3f} ms")
+              f"{blend_ms:.3f} ms, bitmap {bitmap_ms:.3f} ms (bound "
+              f"{bd_bm['bound_ms']:.4f}, plain {bitmap_plain_ms:.3f}), K1+ESS "
+              f"with its bitmap {k1_ess_ms:.3f} ms (bound "
+              f"{bd['bound_ms']:.4f}, {bd['bound_by']}), K1 {k1_ms:.3f} ms "
+              f"(bound {bd_all['bound_ms']:.4f}, {bd_all['bound_by']}); "
+              f"culled {culled:.4f} of (tile, chunk) pairs, evaluated samples "
+              f"{n_live} with ESS / {n_all} without, texels read {tex_live} / "
+              f"{tex_all} of {planes.numel()}; plain slice {slice_ms:.3f} ms, "
+              f"plain bitmap + K1 {bitmap_plain_ms + ref_ess_ms:.3f} ms")
+        records.append({
+            "name": f"ess_bitmap[q{q}]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/ess_bitmap.cu",
+            "replaces": "vrdd_tpu/pallas/slice_kernel.py:397",
+            "launches": launches[q][2], "max_abs_err": float(n_diff),
+            "ms": bitmap_ms, "plain_ms": bitmap_plain_ms, **bd_bm,
+        })
         records.append({
             "name": f"sweep_preblended_planes[ess,q{q}]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
             "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
             "launches": launches[q][1], "max_abs_err": err, "ms": k1_ess_ms,
-            "plain_ms": ref_ess_ms, **bd,
+            "plain_ms": bitmap_plain_ms + ref_ess_ms, **bd,
         })
-        del planes, ref, ref_ess, no_ess
+        del planes, ref, ref_ess, no_ess, vol
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
 
     # the differentiable sweep with ESS on the same volume (K3/K4 ESS)
-    vol = pipe._stats_channel(1)
+    vol = channel(1)
     P, ck = 2 * n, 4
     counters = diff_counters()
     for c in counters:
         c.launches = 0
     sv.sweep_fwd.ess_launches = sv.sweep_fwd_ckpt.ess_launches = 0
+    bm.launches = 0
     kw = dict(width=W, height=W, n_planes=P, wrt=("volume",),
               plane_chunk=ck)
     out = {}
@@ -746,10 +807,11 @@ def phase_7(dev, card, smi, tf, work):
             torch.cuda.synchronize()
             diff_launches = {c.__name__: c.launches for c in counters}
             ess_launches = {c.__name__: c.ess_launches for c in counters[:2]}
+            diff_launches["ess_bitmap"] = bm.launches
     print(f"  [7b diff, wrt volume] launches with ESS: {diff_launches}, of "
           f"them culling: {ess_launches}")
     if min(diff_launches.values()) == 0 or min(ess_launches.values()) == 0:
-        fail("7b diff: K3/K4 with ESS or K5 was not launched")
+        fail("7b diff: the ESS bitmap, K3/K4 with ESS or K5 was not launched")
     if not (torch.equal(out[True][0], out[False][0])
             and torch.equal(out[True][1], out[False][1])):
         fail("7b diff: the image with ESS is not bitwise the one without")
@@ -758,17 +820,10 @@ def phase_7(dev, card, smi, tf, work):
         fail(f"7b diff: d_volume with ESS {rel:.3e} from without (limit 1e-6)")
     del out, img3, img4, g, v
     planes, zs = preblend_planes(vol, P, march.box_min, march.box_max, -1)
-    mx, my = sk._pixel_slopes(W, W, 2.0)
-    slopes = (*sk._uniform_grid_params(mx, "mx"),
-              *sk._uniform_grid_params(my, "my"))
-    cfg = sv._planes_sweep(
-        zs, ORIGIN, slopes, dz_sign=-1, width=W, height=W, march=march,
-        plane_spacing=None, n_planes=P, length_correction=True,
-        plane_chunk=ck, tex_offset=0.5, axis_scale=(1.0, 1.0),
-        reverse_planes=False)
-    ess = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, ORIGIN, slopes, tf,
-                        0.0, 1.0, width=W, height=W, ny=n, nx=n,
-                        plane_chunk=ck)
+    cfg = sv.planes_config(zs, ORIGIN, slopes, width=W, height=W, n_planes=P,
+                           plane_chunk=ck)
+    ess = bm(sk.ess_plane_stats(planes), zs, ORIGIN, slopes, tf, 0.0, 1.0,
+             width=W, height=W, ny=n, nx=n, plane_chunk=ck)
     ess_cfg = dataclasses.replace(cfg, ess=ess)
     args = (planes, None, torch.as_tensor(tf, device=dev),
             torch.tensor(0.05, device=dev), torch.tensor(0.0, device=dev),
@@ -779,9 +834,8 @@ def phase_7(dev, card, smi, tf, work):
             and torch.equal(sv.sweep_fwd(ess_cfg, *args), img)):
         fail("7b diff: K3/K4 with ESS (image, checkpoints) not bitwise "
              "without")
-    n_live = live_samples(planes, zs, slopes, tf, 0.05, 0.0, 1.0, W, W,
-                          ess=ess, chunk=ck)
-    img_bytes = planes.numel() * 4 + W * W * 16 + ess.numel()
+    n_live, tex_live = live_samples(planes, zs, slopes, tf, 0.05, 0.0, 1.0,
+                                    W, W, ess=ess, chunk=ck)
     for name, fn, ref_fn, extra in (
             ("sweep_fwd", sv.sweep_fwd, sv.sweep_fwd_reference, 0),
             ("sweep_fwd_ckpt", sv.sweep_fwd_ckpt,
@@ -794,9 +848,14 @@ def phase_7(dev, card, smi, tf, work):
                     f"[7b diff] {name}+ESS checkpoints vs plain")
             got, ref = got[0], ref[0]
         e = compare(got, ref, f"[7b diff] {name}+ESS vs plain+bitmap")
-        bd = bound(img_bytes + extra, n_live * SAMPLE_OPS)
+        # the kernel alone, given the bitmap: its live texels, the bitmap,
+        # the image (and K4's checkpoint rows, every one written)
+        bd = bound(tex_live * 4 + ess.numel() + img_bytes + extra,
+                   n_live * SAMPLE_OPS)
         print(f"  [7b diff] {name}+ESS: kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms")
+              f"{p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}; {n_live} evaluated samples, {tex_live} "
+              f"texels read)")
         records.append({
             "name": f"{name}[ess]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
@@ -1010,16 +1069,16 @@ def main() -> int:
         ms = time_ms(lambda r=renderer: r(hist, origin), TIMED_RUNS)
         plain_ms = time_ms(plain, 1)
         zs, slopes, _ = sk._hist_geometry(n, W, W, 2.0, renderer.march)
-        n_live = live_samples(sk.decode_with_rows(hist, renderer.rows, mode),
-                              zs, slopes, tf, 0.05, 0.0,
-                              renderer.transfer_scale, W, W, reverse=True)
-        bd = bound(hist.numel() * hist.element_size() + W * W * 16,
+        n_live, n_texels = live_samples(
+            sk.decode_with_rows(hist, renderer.rows, mode), zs, slopes, tf,
+            0.05, 0.0, renderer.transfer_scale, W, W, reverse=True)
+        bd = bound(n_texels * B * hist.element_size() + W * W * 16,
                    n_live * (SAMPLE_OPS + decode_ops(mode, B)))
         print(f"  K2 {mode}: kernel {ms:.3f} ms ({W * W / ms / 1e3:.2f} "
               f"Mrays/s), plain {plain_ms:.3f} ms "
               f"({W * W / plain_ms / 1e3:.2f} Mrays/s), bound "
               f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}; {n_live} "
-              f"evaluated samples)")
+              f"evaluated samples, {n_texels} voxels read)")
         records.append({
             "name": f"pallas_hist_render[{mode}]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
@@ -1038,13 +1097,13 @@ def main() -> int:
         mean_vol, origin, tf, width=W, height=W, n_planes=n), TIMED_RUNS)
     plain_ms = time_ms(plain_k1, 1)
     zs, slopes, _ = sk._hist_geometry(n, W, W, 2.0, renderers["linear"].march)
-    n_live = live_samples(mean_vol, zs, slopes, tf, 0.05, 0.0, 1.0, W, W,
-                          reverse=True)
-    bd = bound(mean_vol.numel() * 4 + W * W * 16, n_live * SAMPLE_OPS)
+    n_live, n_texels = live_samples(mean_vol, zs, slopes, tf, 0.05, 0.0, 1.0,
+                                    W, W, reverse=True)
+    bd = bound(n_texels * 4 + W * W * 16, n_live * SAMPLE_OPS)
     print(f"  K1: kernel {ms:.3f} ms ({W * W / ms / 1e3:.2f} Mrays/s), plain "
           f"{plain_ms:.3f} ms ({W * W / plain_ms / 1e3:.2f} Mrays/s), bound "
           f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}; {n_live} evaluated "
-          f"samples)")
+          f"samples, {n_texels} texels read)")
     records.insert(0, {
         "name": "sweep_preblended_planes", "route": "cuda",
         "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",

@@ -154,6 +154,17 @@ def test_render_unported_raise(tmp_path):
             tcli.main(_render_args(out, "--device", "cpu", *extra))
 
 
+def test_render_flex_block_raises_unless_default(tmp_path):
+    """--flex-block sizes the flexible blocks, not ported yet: a value other
+    than the default raises instead of being ignored."""
+    out = tmp_path / "o.ppm"
+    with pytest.raises(NotImplementedError, match="--flex-block"):
+        tcli.main(_render_args(out, "--device", "cpu", "--flex-block", "8"))
+    assert not out.exists()
+    assert tcli.main(_render_args(out, "--device", "cpu", "--flex-block",
+                                  "4")) == 0
+
+
 def test_render_cuda_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: --device cuda renders on it")

@@ -274,9 +274,7 @@ def test_k1_ess_is_bitwise_k1(dev, lut_name, size, n_planes):
     # the plain version with the same bitmap
     planes, zs = sk.preblend_planes(vol, n_planes, (-1.0, -1.0, -1.0),
                                     (1.0, 1.0, 1.0), -1)
-    mx, my = sk._pixel_slopes(W, H, 2.0)
-    slopes = (*sk._uniform_grid_params(mx, "mx"),
-              *sk._uniform_grid_params(my, "my"))
+    slopes = sk.pixel_slope_params(W, H)
     bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes, lut,
                            toff, tscl, width=W, height=H, ny=24, nx=24,
                            plane_chunk=8)
@@ -285,6 +283,56 @@ def test_k1_ess_is_bitwise_k1(dev, lut_name, size, n_planes):
         planes, zs, O, slopes, lut, 0.8, 1.0, toff, tscl, width=W, height=H,
         ess=bitmap)
     _close(got, ref)
+
+
+def _long_band_lut():
+    """40 entries: zero alpha on [0, 0.5), then a ramp with a zero gap."""
+    lut = np.zeros((40, 4), dtype=np.float32)
+    lut[:, 1] = np.linspace(0, 1, 40)
+    lut[20:, 3] = np.linspace(0.2, 1.0, 20)
+    lut[30:33, 3] = 0.0
+    return lut
+
+
+BITMAP_CASES = {
+    # name: (lut, transfer_offset, transfer_scale, width, height,
+    #        tex_offset, axis_scale, n_planes, chunk)
+    "rainbow": (TF, 0.0, 1.0, 64, 48, 0.5, (1.0, 1.0, 1.0), 48, 8),
+    "band": (_band_lut(), 0.0, 1.0, 64, 48, 0.5, (1.0, 1.0, 1.0), 48, 8),
+    "negative_scale": (TF, 1.0, -1.0, 64, 48, 0.5, (1.0, 1.0, 1.0), 48, 8),
+    "axis_scale": (_band_lut(), 0.0, 1.0, 64, 48, 0.5,
+                   (12 / 13, 12 / 13, 10 / 11), 48, 8),
+    "tex_offset_0": (TF, 0.0, 1.0, 64, 48, 0.0, (1.0, 1.0, 1.0), 48, 8),
+    "unaligned": (_band_lut(), 0.0, 1.0, 100, 37, 0.5, (1.0, 1.0, 1.0), 45,
+                  4),
+    "long_lut": (_long_band_lut(), 0.0, 1.0, 136, 96, 0.5, (1.0, 1.0, 1.0),
+                 48, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BITMAP_CASES))
+def test_ess_bitmap_kernel_equals_plain(dev, case):
+    """The bitmap kernel's bytes are the plain version's, for the LUT /
+    scale / offset / grid cases whose conservativeness the CPU brute-force
+    test (tests/test_torch_ess.py) checks on the plain version."""
+    lut, toff, tscl, W, H, tex_offset, axis_scale, n_planes, chunk = (
+        BITMAP_CASES[case])
+    march = sk.MarchConfig()
+    planes, zs = sk.preblend_planes(_sparse_blob(dev), n_planes,
+                                    march.box_min, march.box_max, -1,
+                                    tex_offset, z_scale=axis_scale[2])
+    stats = sk.ess_plane_stats(planes)
+    kw = dict(width=W, height=H, ny=24, nx=24, plane_chunk=chunk,
+              march=march, tex_offset=tex_offset, axis_scale=axis_scale[:2])
+    args = (zs, O, sk.pixel_slope_params(W, H), lut, toff, tscl)
+    before = sk.ess_bitmap.launches
+    got = sk.ess_bitmap(stats, *args, **kw)
+    torch.cuda.synchronize()
+    assert sk.ess_bitmap.launches == before + 1
+    ref = sk.ess_bitmap_reference(tuple(t.cpu() for t in stats), *args, **kw)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), ref), int((got.cpu() != ref).sum())
+    assert bool((ref == 0).any()) and bool((ref != 0).any()), "vacuous"
 
 
 @pytest.mark.parametrize("lut_name", sorted(ESS_LUTS))
@@ -298,14 +346,9 @@ def test_k3_k4_ess_are_bitwise(dev, lut_name, ck_stride):
     vol = _sparse_blob(dev)
     planes, zs = sk.preblend_planes(vol, 48, (-1.0, -1.0, -1.0),
                                     (1.0, 1.0, 1.0), -1)
-    mx, my = sk._pixel_slopes(100, 72, 2.0)
-    slopes = (*sk._uniform_grid_params(mx, "mx"),
-              *sk._uniform_grid_params(my, "my"))
-    cfg = sv._planes_sweep(
-        zs, O, slopes, dz_sign=-1, width=100, height=72,
-        march=sk.MarchConfig(), plane_spacing=None, n_planes=48,
-        length_correction=True, plane_chunk=ck_stride, tex_offset=0.5,
-        axis_scale=(1.0, 1.0), reverse_planes=False)
+    slopes = sk.pixel_slope_params(100, 72)
+    cfg = sv.planes_config(zs, O, slopes, width=100, height=72, n_planes=48,
+                           plane_chunk=ck_stride)
     bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes, lut,
                            toff, tscl, width=100, height=72, ny=24, nx=24,
                            plane_chunk=ck_stride)

@@ -80,11 +80,13 @@ def _build_pipeline(args, device):
     from vrdd_tpu_torch.models.pipeline import RenderPipeline
     from vrdd_tpu_torch.models.volumes import RawHistogramVolume
 
-    if args.flex_normalize:
-        raise NotImplementedError(
-            "--flex-normalize: the flexible blocks are not ported yet "
-            "(ROADMAP.md queue 1 item 8)"
-        )
+    for flag, unset in (("--flex-normalize", not args.flex_normalize),
+                        ("--flex-block", args.flex_block == 4)):
+        if not unset:
+            raise NotImplementedError(
+                f"{flag}: the flexible blocks are not ported yet (ROADMAP.md "
+                "queue 1 item 8)"
+            )
     tf_lut = None
     if args.tf_checkpoint:
         from vrdd_tpu_torch.io.checkpoint import load_checkpoint
@@ -304,7 +306,7 @@ def main(argv=None) -> int:
     pr.add_argument("--bins", type=int, default=32)
     pr.add_argument("--flex-block", type=int, default=4,
                     help="flexible-block size (the flexible blocks are not "
-                    "ported yet; unused)")
+                    "ported yet: any value but 4 raises)")
     pr.add_argument("--seed", type=int, default=0)
     pr.add_argument("--output", "-o", default=None)
     pr.add_argument("--file", default=None,

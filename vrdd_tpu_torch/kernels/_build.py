@@ -22,7 +22,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "slice_sweep.cu", CSRC / "slice_vjp.cu")
+SOURCES = (CSRC / "slice_sweep.cu", CSRC / "slice_vjp.cu",
+           CSRC / "ess_bitmap.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +58,20 @@ class BwdParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "ck_stride", "n_chunks", "g_planes", "g_lut", "g_params",
     )]
+
+
+class EssParams(ctypes.Structure):
+    """Mirror of ``struct EssParams`` in ``csrc/ess_bitmap.cu``."""
+
+    _fields_ = [(n, ctypes.c_double) for n in (
+        "ox", "oy", "oz", "mx0", "dmx", "my0", "dmy", "xlo", "xhi", "ylo",
+        "yhi", "tex_offset", "sx", "sy",
+    )] + [(n, ctypes.c_float) for n in ("tf_off", "tf_scale", "q_margin")] + [
+        (n, ctypes.c_int) for n in (
+            "n_planes", "plane_chunk", "height", "width", "tile_h", "tile_w",
+            "ny", "nx", "n_lut", "n_by", "n_bx",
+        )
+    ]
 
 
 def _nvcc() -> str:
@@ -139,4 +154,8 @@ def library() -> ctypes.CDLL:
                     i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                     ptr]
     bwd.restype = i32
+    ess = lib.vrdd_ess_bitmap
+    # params, pmin, pmax, zs, lut, out, stream
+    ess.argtypes = [ctypes.POINTER(EssParams), ptr, ptr, ptr, ptr, ptr, ptr]
+    ess.restype = i32
     return lib

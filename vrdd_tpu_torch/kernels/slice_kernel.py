@@ -1,7 +1,8 @@
 """Fused slice-sweep render kernels: wrappers, host pieces and plain versions.
 
-The counterpart of ``vrdd_tpu/pallas/slice_kernel.py``. Two kernels, one
-CUDA C++ source (``csrc/slice_sweep.cu``, built by ``kernels/_build.py``):
+The counterpart of ``vrdd_tpu/pallas/slice_kernel.py``. Two sweep kernels
+in one CUDA C++ source (``csrc/slice_sweep.cu``, built by
+``kernels/_build.py``), and the ESS bitmap kernel (``csrc/ess_bitmap.cu``):
 
 - **K1**, the scalar sweep over a front-to-back plane stack, launched by
   :func:`sweep_preblended_planes` (TPU: ``pallas_call`` at
@@ -26,8 +27,11 @@ exact TF-interval culling: :func:`ess_bitmap` marks each (tile, chunk) —
 the kernel's CUDA block of :data:`ESS_TILE` pixels by ``plane_chunk``
 planes — whose samples provably map to alpha 0, from the block min/max of
 :func:`ess_plane_stats` (cached per volume by the caller through
-:func:`precompute_ess_stats`). The kernel skips culled chunks; the plain
-version zeroes their alpha, so both give the image without ESS.
+:func:`precompute_ess_stats`). On the card the bitmap is one launch
+(``ess_bitmap.launches``), whose plain version is
+:func:`ess_bitmap_reference` (JAX: the XLA code ``_ess_bitmap``, :397).
+The sweep kernel skips culled chunks; its plain version zeroes their alpha,
+so both give the image without ESS.
 
 Not ported yet (they raise ``NotImplementedError``): the seeded resume
 (``acc_init``, ROADMAP.md queue 2 item 1) and ``precision='bf16'`` (item
@@ -120,6 +124,15 @@ def _pixel_slopes(width: int, height: int, focal: float):
     u = ((np.arange(width, dtype=np.float32) / width) * 2.0 - 1.0)
     v = ((np.arange(height, dtype=np.float32) / height) * 2.0 - 1.0)
     return (u / (-focal)).astype(np.float32), (v / (-focal)).astype(np.float32)
+
+
+def pixel_slope_params(width: int, height: int, focal: float = 2.0):
+    """``(mx0, dmx, my0, dmy)`` of the unrotated camera's pixel grid (ray
+    ``(i, j)`` has slope ``(mx0 + dmx j, my0 + dmy i)``), the ``slopes`` of
+    :func:`sweep_preblended_planes` and :func:`ess_bitmap` for the render
+    of :func:`pallas_slice_render`."""
+    mx, my = _pixel_slopes(width, height, focal)
+    return (*_uniform_grid_params(mx, "mx"), *_uniform_grid_params(my, "my"))
 
 
 def decode_weight_rows(stat: str, n_bins: int, *, family: str = "raw"):
@@ -334,6 +347,19 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}: use 'cuda' or 'cpu'")
 
 
+def _device_f32(x, dev: torch.device) -> torch.Tensor:
+    """``x`` (sequence, numpy array or tensor) as a contiguous float32
+    tensor on the card ``dev``. A host array goes up through pinned memory
+    without blocking: a pageable upload would wait for all the work queued
+    on the stream before it."""
+    if isinstance(x, torch.Tensor):
+        if x.device == dev:
+            return x.to(torch.float32).contiguous()
+        x = x.detach().cpu()
+    host = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
 def _check_unported(precision, acc_init=None):
     if precision != "f32":
         raise NotImplementedError(
@@ -363,11 +389,9 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
         raise ValueError("the volume must be contiguous")
     dev = vol.device
 
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
-
-    zs_t, lut_t = f32(zs), f32(tf_lut)
-    rows_t = None if rows is None else f32(rows)  # K1 reads no decode rows
+    zs_t, lut_t = _device_f32(zs, dev), _device_f32(tf_lut, dev)
+    # K1 reads no decode rows
+    rows_t = None if rows is None else _device_f32(rows, dev)
     if lut_t.ndim != 2 or lut_t.shape[1] != 4:
         raise ValueError(f"tf_lut must be (n_lut, 4), got {tuple(lut_t.shape)}")
     if zs_t.numel() != params["n_planes"]:
@@ -492,7 +516,73 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
     """The ESS bitmap: uint8 ``(n_chunks, ceil(H / 8), ceil(W / 32))``, 1
     where the tile of :data:`ESS_TILE` pixels can contribute during the
     chunk of ``plane_chunk`` planes, 0 where it provably cannot. On the
-    device of ``plane_stats``.
+    device of ``plane_stats`` (``(n_planes, 8, 8)`` block min and max of
+    :func:`ess_plane_stats`): on the card one launch of the bitmap kernel
+    (``csrc/ess_bitmap.cu``), which computes the bytes of
+    :func:`ess_bitmap_reference`; on the CPU that plain version. Counts its
+    launches in ``ess_bitmap.launches``."""
+    pmin, pmax = plane_stats
+    if not _on_card(pmin):
+        return ess_bitmap_reference(
+            plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale,
+            width=width, height=height, ny=ny, nx=nx,
+            plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
+            axis_scale=axis_scale,
+        )
+    from vrdd_tpu_torch.kernels import _build
+
+    dev = pmin.device
+    n_planes = pmin.shape[0]
+    want = (n_planes, _ESS_YB, _ESS_XB)
+    pmin, pmax = (t.to(torch.float32).contiguous() for t in (pmin, pmax))
+    if tuple(pmax.shape) != want or pmax.device != dev:
+        raise ValueError(f"plane_stats must be two {want} tensors on {dev}")
+    zs_t, lut_t = _device_f32(zs, dev), _device_f32(tf_lut, dev)
+    if zs_t.numel() != n_planes:
+        raise ValueError("zs must hold one depth per plane")
+    if lut_t.ndim != 2 or lut_t.shape[1] != 4:
+        raise ValueError(f"tf_lut must be (n_lut, 4), got {tuple(lut_t.shape)}")
+    out = torch.empty(_ess_shape(n_planes, plane_chunk, height, width),
+                      dtype=torch.uint8, device=dev)
+    ox, oy, oz = _host_floats(origin, 3)
+    mx0, dmx, my0, dmy = _host_floats(slopes, 4)
+    th, tw = ESS_TILE
+    p = _build.EssParams(
+        ox=ox, oy=oy, oz=oz, mx0=mx0, dmx=dmx, my0=my0, dmy=dmy,
+        xlo=march.box_min[0], xhi=march.box_max[0], ylo=march.box_min[1],
+        yhi=march.box_max[1], tex_offset=float(tex_offset),
+        sx=float(axis_scale[0]), sy=float(axis_scale[1]),
+        tf_off=float(tf_off), tf_scale=float(tf_scale),
+        q_margin=_ESS_Q_MARGIN, n_planes=n_planes,
+        plane_chunk=int(plane_chunk), height=int(height), width=int(width),
+        tile_h=th, tile_w=tw, ny=int(ny), nx=int(nx), n_lut=lut_t.shape[0],
+        n_by=_ESS_YB, n_bx=_ESS_XB,
+    )
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vrdd_ess_bitmap(p, pmin.data_ptr(), pmax.data_ptr(),
+                                 zs_t.data_ptr(), lut_t.data_ptr(),
+                                 out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"vrdd_ess_bitmap launch failed: CUDA error {rc}")
+    ess_bitmap.launches += 1
+    return out
+
+
+ess_bitmap.launches = 0
+
+
+@torch.no_grad()
+def ess_bitmap_reference(plane_stats, zs, origin, slopes, tf_lut, tf_off,
+                         tf_scale, *, width: int, height: int, ny: int,
+                         nx: int, plane_chunk: int,
+                         march: MarchConfig = MarchConfig(),
+                         tex_offset: float = 0.5,
+                         axis_scale=(1.0, 1.0)) -> torch.Tensor:
+    """Plain version of :func:`ess_bitmap`, on the device of
+    ``plane_stats``: host geometry in float64, the block and LUT tests in
+    torch.
 
     The conservative interval argument of JAX's ``_ess_bitmap`` (:397-506)
     over this port's own tiles: a ray's world (x, y) on a plane is affine in
@@ -519,7 +609,7 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
     bmax = pmax.reshape(n_chunks, plane_chunk, _ESS_YB, _ESS_XB).amax(1)
 
     # host geometry (float64): world-coordinate ranges per (tile, chunk)
-    z = np.asarray(zs, np.float64).reshape(-1)
+    z = np.asarray(_host_floats(zs, n_planes), np.float64)
     z = np.concatenate([z, np.repeat(z[-1:], pad)]).reshape(n_chunks, -1)
     z_lo, z_hi = z.min(1)[None, :], z.max(1)[None, :]  # (1, C)
     ox, oy, oz = _host_floats(origin, 3)
@@ -670,6 +760,9 @@ def sweep_preblended_planes(
     n_planes, ny, nx = planes_all.shape
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
+    if _on_card(planes_all):  # one upload each for the bitmap and K1
+        zs = _device_f32(zs, planes_all.device)
+        tf_lut = _device_f32(tf_lut, planes_all.device)
     ess = _resolve_ess(
         empty_space_skip, ess_stats, planes_all, zs, origin, slopes, tf_lut,
         transfer_offset, transfer_scale, width=width, height=height,

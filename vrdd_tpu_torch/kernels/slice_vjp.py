@@ -51,9 +51,10 @@ import torch
 from vrdd_tpu_torch.march.slice import preblend_planes, transmittance_checkpoints
 from vrdd_tpu_torch.kernels.slice_kernel import (
     ESS_TILE, _MODES, _SMEM_FLOATS, _check_unported, _decode_plain,
-    _decode_rows, _decode_rows_grad, _hist_geometry, _host_floats, _launch,
-    _on_card, _pixel_slopes, _resolve_ess, _slope_grids, _sweep_params,
-    _uniform_grid_params, decode_chain, decode_with_rows,
+    _decode_rows, _decode_rows_grad, _device_f32, _hist_geometry,
+    _host_floats, _launch, _on_card, _pixel_slopes, _resolve_ess,
+    _slope_grids, _sweep_params, _uniform_grid_params, decode_chain,
+    decode_with_rows,
     hist_render_supported, pallas_supported,
     sweep_preblended_planes_reference,
 )
@@ -341,10 +342,10 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
                          f"fit a {W}x{H} image with {cfg.n_chunks} checkpoints")
     params = cfg.params(vol, rows, density, toff, tscl)
     ny, nx, n_layers = params["ny"], params["nx"], params["n_layers"]
-    lut_t = _f32(lut.detach(), dev).contiguous()
+    lut_t = _device_f32(lut.detach(), dev)
     n_lut = lut_t.shape[0]
     g = g.to(torch.float32).contiguous()
-    zs_t = _f32(cfg.zs, dev).contiguous()
+    zs_t = _device_f32(cfg.zs, dev)
     rows_t = None if rows is None else rows.detach().contiguous()
     d_planes = (torch.zeros((n_layers, ny, nx), dtype=torch.float32,
                             device=dev) if g_planes else None)
@@ -478,10 +479,18 @@ def _diff_sweep(cfg: _Sweep, wrt, vol, rows, tf_lut, density, toff, tscl):
 
 # ---- public API -----------------------------------------------------------
 
-def _planes_sweep(zs, origin, slopes, *, dz_sign, width, height, march,
-                  plane_spacing, n_planes, length_correction, plane_chunk,
-                  tex_offset, axis_scale, reverse_planes, ess=None) -> _Sweep:
-    """The :class:`_Sweep` of a scalar plane stack."""
+def planes_config(zs, origin, slopes, *, dz_sign=-1, width, height,
+                  march=MarchConfig(), plane_spacing=None, n_planes,
+                  length_correction=True, plane_chunk=4, tex_offset=0.5,
+                  axis_scale=(1.0, 1.0), reverse_planes=False,
+                  ess=None) -> _Sweep:
+    """The sweep of a scalar ``(n_planes, NY, NX)`` plane stack with depths
+    ``zs`` and ``slopes = [mx0, dmx, my0, dmy]``, culled by the ESS bitmap
+    ``ess`` (of :func:`~vrdd_tpu_torch.kernels.slice_kernel.ess_bitmap` over
+    chunks of ``plane_chunk`` planes) when given: the handle to call
+    :func:`sweep_fwd`, :func:`sweep_fwd_ckpt` and :func:`sweep_bwd` (or
+    their plain versions) on a stack directly, as :func:`render_config` is
+    for one plane per layer."""
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
     return _Sweep(
@@ -526,7 +535,7 @@ def sweep_preblended_planes_diff(
     autograd the forward is K4 and the backward K5; otherwise K3.
     ``plane_chunk`` (4 or 8) is the backward's chunk."""
     _check_unported(precision, acc_init=acc_init)
-    cfg = _planes_sweep(
+    cfg = planes_config(
         zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
         march=march, plane_spacing=plane_spacing,
         n_planes=planes_all.shape[0], length_correction=length_correction,
@@ -629,7 +638,7 @@ def _diff_call(
         tex_offset=tex_offset, axis_scale=axis_scale[:2],
         reverse_planes=False,
     )
-    cfg = _planes_sweep(
+    cfg = planes_config(
         zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
         march=march, plane_spacing=None, n_planes=n_planes,
         length_correction=length_correction, plane_chunk=plane_chunk,
