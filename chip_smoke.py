@@ -53,11 +53,41 @@ Phases (each prints its lines; any failure exits non-zero):
        bitwise without (image and every checkpoint row), ``d_volume`` within
        1e-6 relative L2 of the gradient without ESS;
    7c. ``python -m vrdd_tpu_torch.cli render --file none`` at its defaults
-       (and with ``--renderer auto``), printing its MTexels/s line.
+       (and with ``--renderer auto``), printing its MTexels/s line;
+8. BASELINE config 3 (per-voxel Gaussian mu/sigma, 256^3 -> 512^2) and
+   rotated views:
+   8a. the seeded kernels at full size on fit-voxels' mean channel (made on
+       the card, checked against numpy's at 32^3), 512 planes -> 512^2: the
+       back half seeded with the front half's K3 image through K1 and K3
+       equals the one-pass sweep at the image tolerance; frozen seeds
+       (alpha 0.99 and 1) come back as themselves with checkpoint rows T0
+       and ``S`` 0; seeded K4 + K5 (``d_planes``, ``S``, ``d_acc0``)
+       within 1e-3 relative L2 of the plain versions; K1 seeded timed.
+       Then the seeded K3/K4/K5 at the shapes the streamed fit-voxels gives
+       them: chunk 4 of 8 (64 planes at the full stack's spacing, 512^2,
+       streaming's slopes) seeded with the chain of chunks 0-3, each held
+       against its plain version (image tolerance; ``d_planes``, ``S`` and
+       ``d_acc0`` within 1e-3 relative L2) and timed;
+   8b. ``fit-voxels --size 256 --image 512 --views 3 --view-angle 25`` for
+       5 steps, unstreamed and ``--streamed`` (8 chunks of 64 planes), with
+       the launch counters (and the seeded ones) reset before and read
+       after each run: the loss must be finite and fall, the streamed first
+       loss equal the unstreamed one within 1e-5 relative, and the seeded
+       K3/K4/K5 run in the streamed run; then a rotated view's K4 and K5
+       on its 1024^2 m-grid timed against their plain versions;
+   8c. 7b's volume at 1024^2 through ``renderer='auto'`` at three rotations
+       (principal axes z, x and y; d_z of both signs), which must resolve
+       to shear-warp and launch K3 once a frame; each frame against the
+       ``'xla'`` shear-warp at the image tolerance, frame ms and MTexels/s,
+       K3 on the 2048^2 m-grid timed against its plain version.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Each kernel's record holds its launches
-in the main-path run, its error against the plain version, its ms (median
+in the main-path run (a seeded kernel's: its seeded launches in the
+streamed fit-voxels run; K1's seeded launches are those of 8a, its split
+stack, as no fit-voxels path resumes K1; the rotated views' K4/K5: their
+launches on the m-grid in the unstreamed run), its error against the plain
+version, its ms (median
 of warm runs, CUDA events), the plain version's ms, and ``bound_ms``: the
 larger of the bytes the call must move over the H100's 3.35 TB/s and its
 FP32 operations over its 67 TFLOP/s, with ``bound_by`` naming the larger.
@@ -73,6 +103,7 @@ repository, torch, numpy, nvcc.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -215,14 +246,18 @@ def bound(n_bytes, n_ops):
 
 
 def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
-                 reverse=False, ess=None, chunk=8, tex_offset=0.5):
+                 reverse=False, ess=None, chunk=8, tex_offset=0.5,
+                 origin=ORIGIN, dz_sign=-1, seed_alpha=None):
     """``(samples, texels)``: the samples the sweep kernels evaluate on
     these inputs, and the distinct plane texels those samples read. A sample
     is evaluated where the plane is in front of the camera, the ray inside
     the box there and not yet past the opacity cutoff, and the (tile,
     chunk) not culled by the ESS bitmap ``ess``; it reads the two x by two y
     taps of its resample. Counted with the plain version's per-plane alpha,
-    front to back (``reverse``: the stack is stored z-ascending)."""
+    front to back (``reverse``: the stack is stored z-ascending), from the
+    camera at ``origin`` whose rays have d_z of sign ``dz_sign``, the
+    accumulated alpha starting at ``seed_alpha`` (H, W) for a seeded
+    sweep."""
     import torch
 
     from vrdd_tpu_torch.kernels import slice_kernel as sk
@@ -233,14 +268,15 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     dev = planes.device
     P, ny, nx = planes.shape
     mx, my = sk._slope_grids(slopes, W, H)
-    rgba = _chunk_rgba_fn(P, ny, nx, zs, torch.tensor(ORIGIN), mx, my, march,
-                          -1, None, True, tex_offset, (1.0, 1.0), True, dev)
+    rgba = _chunk_rgba_fn(P, ny, nx, zs, torch.tensor(origin), mx, my, march,
+                          dz_sign, None, True, tex_offset, (1.0, 1.0), True,
+                          dev)
     mx_t, my_t = torch.as_tensor(mx, device=dev), torch.as_tensor(my, device=dev)
     th, tw = sk.ESS_TILE
     ti = torch.arange(H, device=dev) // th
     tj = torch.arange(W, device=dev) // tw
     lut_t = torch.as_tensor(lut, dtype=torch.float32, device=dev)
-    ox, oy, oz = ORIGIN
+    ox, oy, oz = origin
     (xlo, ylo, _), (xhi, yhi, _) = march.box_min, march.box_max
     thr = march.opacity_threshold
 
@@ -254,7 +290,8 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
         m[rows, (i0 + 1).clamp(max=n - 1)] = 1.0
         return m
 
-    acc = torch.zeros((H, W), device=dev)
+    acc = (torch.zeros((H, W), device=dev) if seed_alpha is None
+           else seed_alpha.to(dev, torch.float32).clone())
     count = torch.zeros((), dtype=torch.int64, device=dev)
     texels = torch.zeros((), dtype=torch.int64, device=dev)
     with torch.no_grad():
@@ -264,7 +301,7 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
                      lut_t, density, toff, tscl)[..., 3]
             for k in range(a.shape[0]):
                 z = float(zs[c0 + k])
-                if z < oz:
+                if (z - oz) * dz_sign > 0:
                     xw, yw = ox + (z - oz) * mx_t, oy + (z - oz) * my_t
                     live = ((acc <= thr) & ((yw >= ylo) & (yw <= yhi))[:, None]
                             & ((xw >= xlo) & (xw <= xhi))[None, :])
@@ -514,8 +551,8 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         flags = (True, True, False)
         k5_ms = time_ms(lambda: sv.sweep_bwd(*args, g, tck, *flags),
                         TIMED_RUNS)
-        d_k, small_k, _ = sv.sweep_bwd(*args, g, tck, *flags)
-        k5_plain_ms, (d_r, small_r, _) = timed_once(
+        d_k, small_k, *_ = sv.sweep_bwd(*args, g, tck, *flags)
+        k5_plain_ms, (d_r, small_r, *_) = timed_once(
             lambda: sv.sweep_bwd_reference(*args, g, *flags))
         rel_l2(d_k, d_r, f"[{tag}] K5 d_planes")
         rel_l2(small_k, small_r, f"[{tag}] K5 d_lut")
@@ -882,6 +919,503 @@ def phase_7(dev, card, smi, tf, work):
     return records
 
 
+def seed_records(dev, tf, n, W, density):
+    """8a: the seeded kernels at full size on fit-voxels' mean channel (a
+    ``2n``-plane stack of the ``n``^3 Gaussian-blob mu, made on the card) at
+    ``W``^2. The split stack: the back half seeded with the front half's
+    image (K3) through K1 and K3 equals the one-pass sweep; a frozen seed
+    comes back as itself; seeded K4 + K5 (``S``, ``d_acc0``) against the
+    plain versions; K1 seeded timed. The streamed chunk: K3/K4/K5 on chunk
+    4 of 8 as ``streaming_decode_render`` launches them, seeded with the
+    chain of the chunks before it, each held against its plain version and
+    timed, and ``d_acc0`` through the public wrapper. Returns ``(records,
+    K1 seeded launches)``: the kernels' records and the seeded launches of
+    K1's public wrapper in this run (no fit-voxels path resumes K1: its
+    seeded callers are the split stack here and the multi-device sweep)."""
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march.slice import preblend_planes
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    k1 = sk.sweep_preblended_planes
+    march = MarchConfig()
+    small = gaussian_blob_volume((32, 32, 32), seed=0)
+    err = float(np.abs(gaussian_blob_volume((32, 32, 32), seed=0, device=dev)
+                       .cpu().numpy() - small).max())
+    print(f"[8a] the device-made Gaussian blob vs numpy's at 32^3: max abs "
+          f"err {err:.3e}")
+    if err > 1e-6:
+        fail(f"8a: the device-made blob differs from numpy's by {err:.3e}")
+    P, half = 2 * n, n
+    mu = gaussian_blob_volume((n, n, n), seed=0, device=dev)
+    planes, zs = preblend_planes(mu, P, march.box_min, march.box_max, -1)
+    del mu
+    front_p, back_p = planes[:half].contiguous(), planes[half:].contiguous()
+    slopes = sk.pixel_slope_params(W, W)
+    sp = (march.box_max[2] - march.box_min[2]) / P
+    print(f"[8a] seeded kernels: fit-voxels' {n}^3 mean channel, {P} planes "
+          f"-> {W}^2, split after plane {half}, density {density}")
+    lut = torch.as_tensor(tf, device=dev)
+    scal = [torch.tensor(v, device=dev) for v in (density, 0.0, 1.0)]
+
+    def cfg(lo, hi):
+        return sv.planes_config(zs[lo:hi], ORIGIN, slopes, width=W, height=W,
+                                n_planes=hi - lo, plane_spacing=sp,
+                                plane_chunk=4)
+
+    cfg_all, cfg_f, cfg_b = cfg(0, P), cfg(0, half), cfg(half, P)
+    kw = dict(width=W, height=W, plane_spacing=sp)
+    k1.seed_launches = 0
+    one = sv.sweep_fwd(cfg_all, planes, None, lut, *scal)
+    front = sv.sweep_fwd(cfg_f, front_p, None, lut, *scal)
+    back_k1 = k1(back_p, zs[half:], ORIGIN, slopes, tf, density, acc_init=front,
+                 **kw)
+    back_k3 = sv.sweep_fwd(cfg_b, back_p, None, lut, *scal, front)
+    torch.cuda.synchronize()
+    k1_seeded = k1.seed_launches
+    compare(back_k1, one, "[8a] K1 seeded back half vs one pass (K3)")
+    compare(back_k3, one, "[8a] K3 seeded back half vs one pass (K3)")
+    # frozen seeds: 8 rows at alpha 0.99, 8 at exactly 1
+    seed = front.clone()
+    seed[:8, :, 3] = 0.99
+    seed[8:16, :, 3] = 1.0
+    got = k1(back_p, zs[half:], ORIGIN, slopes, tf, density, acc_init=seed,
+             **kw)
+    img4, tck = sv.sweep_fwd_ckpt(cfg_b, back_p, None, lut, *scal, seed)
+    img3 = sv.sweep_fwd(cfg_b, back_p, None, lut, *scal, seed)
+    torch.cuda.synchronize()
+    t0 = 1.0 - seed[:16, :, 3]
+    if not (torch.equal(got[:16], seed[:16]) and torch.equal(img4[:16],
+                                                            seed[:16])):
+        fail("8a: a frozen seed did not come back as itself (K1, K4)")
+    if not torch.equal(tck[:, :16], t0.expand(tck.shape[0], 16, W)):
+        fail("8a: K4's checkpoint rows of a frozen seed are not all T0")
+    if not torch.equal(img4, img3):
+        fail("8a: seeded K4's image is not bitwise seeded K3's")
+    print("  frozen seeds (alpha 0.99 and 1): K1 and K4 return the seed, "
+          "K4's checkpoint rows are T0, K4's image is bitwise K3's")
+    # K5 seeded against the plain version; d_acc0 through the public wrapper
+    g = (2.0 / img4.numel()) * (img4 - 0.25)
+    d5, _, _, s5 = sv.sweep_bwd(cfg_b, back_p, None, lut, *scal, g, tck,
+                                True, False, False, acc0=seed)
+    d5r, _, _, s5r = sv.sweep_bwd_reference(cfg_b, back_p, None, lut, *scal,
+                                            g, True, False, False, seed)
+    rel_l2(d5, d5r, "[8a] K5 seeded d_planes")
+    rel_l2(s5, s5r, "[8a] K5 S (P_total per ray)")
+    if not torch.equal(s5[:16], torch.zeros_like(s5[:16])):
+        fail("8a: K5's S of a frozen seed is not 0")
+    grads = []
+    for fn in (sv.sweep_preblended_planes_diff,
+               sk.sweep_preblended_planes_reference):
+        leaves = [back_p.clone().requires_grad_(),
+                  seed.clone().requires_grad_()]
+        img = fn(leaves[0], zs[half:], ORIGIN, slopes, tf, density,
+                 acc_init=leaves[1], **kw)
+        grads.append(torch.autograd.grad(torch.mean((img - 0.25) ** 2),
+                                         leaves))
+    rel_l2(grads[0][0], grads[1][0], "[8a] seeded d_planes (K4/K5 vs plain)")
+    rel_l2(grads[0][1], grads[1][1], "[8a] d_acc0 (K4/K5 vs plain)")
+    del grads, leaves, img
+
+    # K1 seeded alone, timed against its plain version on the split stack
+    n_live, tex = live_samples(back_p, zs[half:], slopes, tf, density, 0.0,
+                               1.0, W, W, chunk=4, seed_alpha=front[..., 3])
+    img_b = W * W * 16
+    bd = bound(tex * 4 + 2 * img_b, n_live * SAMPLE_OPS)
+    ms = time_ms(lambda: k1(back_p, zs[half:], ORIGIN, slopes, tf, density,
+                            acc_init=front, **kw), TIMED_RUNS)
+    p_ms, ref = timed_once(lambda: sk.sweep_preblended_planes_reference(
+        back_p, zs[half:], ORIGIN, slopes, tf, density, acc_init=front, **kw))
+    e = compare(back_k1, ref, "[8a] sweep_preblended_planes seeded vs plain")
+    del ref
+    print(f"  [8a] sweep_preblended_planes seeded ({half} planes): kernel "
+          f"{ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}; {n_live} evaluated samples, {tex} texels "
+          f"read)")
+    records = [{
+        "name": "sweep_preblended_planes[seed]", "route": "cuda",
+        "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+        "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
+        "launches": k1_seeded, "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
+        **bd,
+    }]
+
+    # the seeded K3/K4/K5 as the streamed fit-voxels launches them: chunk
+    # c of 8 (64 planes of the same stack at its full-stack spacing) at W^2
+    # with streaming_decode_render's slopes, seeded with the image of the
+    # chunks before it (the chain of seeded K3 its no-grad render runs)
+    cp, c = P // 8, 4
+    mxs, mys = sk._pixel_slopes(W, W, 2.0)
+    s_slopes = (float(mxs[0]), float(mxs[1] - mxs[0]), float(mys[0]),
+                float(mys[1] - mys[0]))
+
+    def chunk(k):
+        sl = slice(k * cp, (k + 1) * cp)
+        return (sv.planes_config(zs[sl], ORIGIN, s_slopes, width=W, height=W,
+                                 n_planes=cp, plane_spacing=sp, plane_chunk=4),
+                planes[sl].contiguous(), zs[sl])
+
+    acc = torch.zeros((W, W, 4), device=dev)
+    for k in range(c):
+        cfg_k, p_k, _ = chunk(k)
+        acc = sv.sweep_fwd(cfg_k, p_k, None, lut, *scal, acc)
+    cfg_c, p_c, zs_c = chunk(c)
+    print(f"[8a] streamed chunk {c} of 8: planes {c * cp}-{(c + 1) * cp - 1}, "
+          f"{W}^2, seeded with the chain of chunks 0-{c - 1} (seed alpha mean "
+          f"{float(acc[..., 3].mean()):.4f}, frozen pixels "
+          f"{int((acc[..., 3] > march.opacity_threshold).sum())})")
+    args = (cfg_c, p_c, None, lut, *scal)
+    img4, tck = sv.sweep_fwd_ckpt(*args, acc)
+    g = (2.0 / img4.numel()) * (img4 - 0.25)
+    n_live, tex = live_samples(p_c, zs_c, s_slopes, tf, density, 0.0, 1.0, W,
+                               W, chunk=4, seed_alpha=acc[..., 3])
+    ops = n_live * SAMPLE_OPS
+    tck_b = cfg_c.n_chunks * W * W * 4
+    cases = (
+        ("sweep_fwd", lambda: sv.sweep_fwd(*args, acc),
+         lambda: sv.sweep_fwd_reference(*args, acc),
+         bound(tex * 4 + 2 * img_b, ops), 698, "slice_sweep.cu"),
+        ("sweep_fwd_ckpt", lambda: sv.sweep_fwd_ckpt(*args, acc),
+         lambda: sv.sweep_fwd_ckpt_reference(*args, acc),
+         bound(tex * 4 + 2 * img_b + tck_b, ops), 714, "slice_sweep.cu"),
+        ("sweep_bwd",
+         lambda: sv.sweep_bwd(*args, g, tck, True, False, False, acc0=acc),
+         lambda: sv.sweep_bwd_reference(*args, g, True, False, False, acc),
+         bound(tex * 4 + tck_b + 2 * img_b + p_c.numel() * 4 + W * W * 4,
+               K5_SAMPLE_FACTOR * ops), 787, "slice_vjp.cu"),
+    )
+    for name, fn, ref_fn, bd, line, src in cases:
+        ms = time_ms(fn, TIMED_RUNS)
+        p_ms, ref = timed_once(ref_fn)
+        got = fn()
+        what = f"[8a chunk {c}] {name} seeded"
+        if name == "sweep_bwd":
+            rel_l2(got[0], ref[0], f"{what} d_planes")
+            rel_l2(got[3], ref[3], f"{what} S (P_total per ray)")
+            e = float((got[0] - ref[0]).abs().max())
+        elif name == "sweep_fwd_ckpt":
+            e = compare(got[0], ref[0], f"{what} image vs plain")
+            compare(got[1][..., None], ref[1][..., None],
+                    f"{what} checkpoints vs plain")
+        else:
+            e = compare(got, ref, f"{what} vs plain")
+        del got, ref
+        print(f"  {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_live} evaluated "
+              f"samples, {tex} texels read)")
+        records.append({
+            "name": f"{name}[seed]", "route": "cuda",
+            "source": f"vrdd_tpu_torch/csrc/{src}",
+            "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
+            "launches": None, "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
+            **bd,
+        })
+    # d_acc0 of the chunk through the public wrapper (K4/K5, the main path's
+    # wrt) against the plain analytic VJP
+    grads = []
+    for fn, extra in ((sv.sweep_preblended_planes_diff, {"wrt": ("volume",)}),
+                      (sk.sweep_preblended_planes_reference, {})):
+        leaves = [p_c.clone().requires_grad_(), acc.clone().requires_grad_()]
+        img = fn(leaves[0], zs_c, ORIGIN, s_slopes, tf, density,
+                 acc_init=leaves[1], width=W, height=W, plane_spacing=sp,
+                 plane_chunk=4, **extra)
+        grads.append(torch.autograd.grad(torch.mean((img - 0.25) ** 2),
+                                         leaves))
+    rel_l2(grads[0][0], grads[1][0], f"[8a chunk {c}] seeded d_planes "
+           "(K4/K5 vs plain)")
+    rel_l2(grads[0][1], grads[1][1], f"[8a chunk {c}] d_acc0 (K4/K5 vs plain)")
+    return records, k1_seeded
+
+
+def fit_voxels_cli(work, n, W, steps, streamed):
+    """8b: one ``fit-voxels`` run through the CLI: returns ``(losses, step
+    ms, launches, seeded launches, launches per image size)``."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from vrdd_tpu_torch import cli
+
+    counters = diff_counters()
+    for c in counters:
+        c.launches = c.seed_launches = 0
+        c.size_launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = work / f"fit_voxels_{int(streamed)}.npz"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fit-voxels", "--size", str(n), "--image", str(W),
+                       "--views", "3", "--view-angle", "25", "--iters",
+                       str(steps), "--checkpoint", str(ckpt)]
+                      + (["--streamed"] if streamed else []))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    losses = [float(v) for v in re.findall(r"step \d+: loss (\S+)", text)]
+    ms = [float(v) for v in re.findall(r"step \d+: loss \S+ \((\S+) ms\)",
+                                       text)]
+    launches = {c.__name__: c.launches for c in counters}
+    seeded = {c.__name__: c.seed_launches for c in counters}
+    sizes = {c.__name__: dict(c.size_launches) for c in counters}
+    tag = "streamed" if streamed else "unstreamed"
+    for line in text.splitlines():
+        print(f"  [{tag}] {line}")
+    print(f"  [{tag}] {wall:.2f} s in all; launches {launches}, seeded "
+          f"{seeded}, per image size {sizes}")
+    if rc != 0 or not ckpt.exists() or len(losses) != steps:
+        fail(f"fit-voxels {tag}: rc {rc}, checkpoint {ckpt.exists()}, "
+             f"{losses}")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"fit-voxels {tag}: loss not finite and falling: {losses}")
+    if "renderer: pallas" not in text or min(launches.values()) == 0:
+        fail(f"fit-voxels {tag} did not train through K3/K4/K5: {launches}")
+    if streamed and min(seeded.values()) == 0:
+        fail(f"fit-voxels streamed did not run the seeded K3/K4/K5: {seeded}")
+    return losses, ms, launches, seeded, sizes
+
+
+def profile_step(step, what, top=8):
+    """One warm call of ``step`` under torch.profiler: the ``top`` costliest
+    CUDA kernels by device time, and the device's busy share of the step's
+    host-clock time (idle share = 1 - busy; kernels run on one stream, so
+    their times add). Counts kernel events only: the op that launched a
+    kernel carries the same device time. Prints "not measured" where the
+    profiler sees no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = sorted((e for e in prof.key_averages()
+                     if getattr(e, "device_type", None) == DeviceType.CUDA),
+                    key=dev_us, reverse=True)
+    busy = 1e-3 * sum(dev_us(e) for e in events)
+    if busy <= 0.0:
+        print(f"  [{what}] profile: device time not measured (wall "
+              f"{wall:.3f} ms)")
+        return
+    print(f"  [{what}] profiled step: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {1.0 - busy / wall:.3f}); costliest:")
+    for e in events[:top]:
+        print(f"    {1e-3 * dev_us(e):8.3f} ms {dev_us(e) / 1e3 / busy:6.1%} "
+              f"x{e.count:<4d} {e.key[:70]}")
+
+
+def shearwarp_setup(vol, view, W, n_planes):
+    """The fused sweep of one rotated shear-warp frame, as
+    ``shearwarp_render_image(backend='pallas')`` builds it: ``(cfg, planes,
+    wi, origin, dz_sign)`` for K3/K4/K5 and their plain versions."""
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march import shearwarp as sw
+    from vrdd_tpu_torch.march.slice import preblend_planes
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    march = MarchConfig()  # the box is a cube centred on 0: permutes to itself
+    iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
+    axis, (px, py, pz), dz_sign, ok, b = sw.slope_corner_bounds(iv, W, W)
+    wi = -(-2 * W // 128) * 128
+    mgrid = (*sw.mgrid_params(b[0], b[1], wi), *sw.mgrid_params(b[2], b[3], wi))
+    vol_p = vol.permute(2 - pz, 2 - py, 2 - px).contiguous()
+    planes, zs = preblend_planes(vol_p, n_planes, march.box_min,
+                                 march.box_max, dz_sign)
+    origin = tuple(float(iv[i, 3]) for i in (px, py, pz))
+    cfg = sv.planes_config(zs, origin, mgrid, dz_sign=dz_sign, width=wi,
+                           height=wi, n_planes=n_planes, plane_chunk=4)
+    return cfg, planes, wi, origin, dz_sign, axis
+
+
+def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
+            W_render=1024):
+    """BASELINE config 3 and rotated views (8a seeded kernels, 8b fit-voxels
+    unstreamed and streamed, 8c rotated RenderPipeline frames); returns the
+    kernel records."""
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch import cli
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.core.transfer import grayscale_ramp
+    from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march import shearwarp as sw
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig)
+
+    gray = grayscale_ramp(9)  # fit-voxels' LUT
+    torch.cuda.empty_cache()
+    records, k1_seeded = seed_records(dev, gray, n, W, 0.05)
+    torch.cuda.empty_cache()
+
+    # ---- 8b: BASELINE config 3 through the CLI, the main-path run
+    print(f"[8b] fit-voxels --size {n} --image {W} --views 3 --view-angle 25 "
+          f"--iters {steps}, on {card} ({smi})")
+    runs = {s: fit_voxels_cli(work, n, W, steps, s) for s in (False, True)}
+    first = [runs[s][0][0] for s in (False, True)]
+    rel = abs(first[1] - first[0]) / abs(first[0])
+    print(f"  first loss unstreamed {first[0]:.9g}, streamed {first[1]:.9g}: "
+          f"rel {rel:.3e}")
+    if rel > 1e-5:
+        fail(f"8b: the streamed first loss is {rel:.3e} from the unstreamed")
+    for streamed in (False, True):  # where a step's time goes
+        loss_fn, _, _ = cli.fit_voxels_problem(n, W, 3, 25.0, 0, "auto",
+                                               streamed, dev)
+        params = [torch.zeros((n, n, n), device=dev, requires_grad=True),
+                  torch.full((n, n, n), float(np.log(np.float32(0.1))),
+                             device=dev, requires_grad=True)]
+        profile_step(lambda: torch.autograd.grad(loss_fn(*params), params),
+                     f"8b {'streamed' if streamed else 'unstreamed'}")
+        del loss_fn, params
+    for r in records:  # the seeded kernels' launches in the streamed run
+        name = r["name"].split("[")[0]
+        r["launches"] = (k1_seeded if name == "sweep_preblended_planes"
+                         else runs[True][3][name])
+
+    # the rotated views' K4/K5 of fit-voxels on the m-grid, view (25, 0)
+    mu = gaussian_blob_volume((n, n, n), seed=0, device=dev)
+    cfg, planes, wi, origin, dz_sign, _ = shearwarp_setup(mu, (25.0, 0.0), W,
+                                                          2 * n)
+    del mu
+    lut = torch.as_tensor(gray, device=dev)
+    scal = [torch.tensor(v, device=dev) for v in (0.05, 0.0, 1.0)]
+    args = (cfg, planes, None, lut, *scal)
+    img4, tck = sv.sweep_fwd_ckpt(*args)
+    g = (2.0 / img4.numel()) * (img4 - 0.25)
+    n_live, tex = live_samples(planes, cfg.zs, cfg.slopes, gray, 0.05, 0.0,
+                               1.0, wi, wi, chunk=4, origin=origin,
+                               dz_sign=dz_sign)
+    ops = n_live * SAMPLE_OPS
+    img_b, tck_b = wi * wi * 16, cfg.n_chunks * wi * wi * 4
+    sw_launches = {name: runs[False][4][name].get((wi, wi), 0)
+                   for name in ("sweep_fwd_ckpt", "sweep_bwd")}
+    print(f"  [8b] the unstreamed run's K4/K5 launches on the {wi}^2 m-grid "
+          f"(the rotated views): {sw_launches}")
+    if min(sw_launches.values()) == 0:
+        fail(f"8b: the rotated views did not train through K4/K5 on the "
+             f"m-grid: {runs[False][4]}")
+    for name, fn, ref_fn, bd, line in (
+            ("sweep_fwd_ckpt", lambda: sv.sweep_fwd_ckpt(*args),
+             lambda: sv.sweep_fwd_ckpt_reference(*args),
+             bound(tex * 4 + img_b + tck_b, ops), 714),
+            ("sweep_bwd",
+             lambda: sv.sweep_bwd(*args, g, tck, True, False, False),
+             lambda: sv.sweep_bwd_reference(*args, g, True, False, False),
+             bound(tex * 4 + tck_b + img_b + planes.numel() * 4,
+                   K5_SAMPLE_FACTOR * ops), 787)):
+        ms = time_ms(fn, TIMED_RUNS)
+        p_ms, ref = timed_once(ref_fn)
+        got = fn()
+        if name == "sweep_bwd":
+            rel_l2(got[0], ref[0], f"[8b] shear-warp {name} d_planes")
+            e = float((got[0] - ref[0]).abs().max())
+        else:
+            e = compare(got[0], ref[0], f"[8b] shear-warp {name} image")
+            compare(got[1][..., None], ref[1][..., None],
+                    f"[8b] shear-warp {name} checkpoints")
+        del got, ref
+        print(f"  [8b] shear-warp view (25, 0), {wi}^2 m-grid, {2 * n} "
+              f"planes: {name} kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_live} "
+              f"evaluated samples, {tex} texels read)")
+        records.append({
+            "name": f"{name}[shearwarp,fit]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/"
+                      f"{'slice_vjp.cu' if name == 'sweep_bwd' else 'slice_sweep.cu'}",
+            "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
+            "launches": sw_launches[name], "max_abs_err": e, "ms": ms,
+            "plain_ms": p_ms, **bd,
+        })
+    del args, planes, img4, tck, g
+    torch.cuda.empty_cache()
+
+    # ---- 8c: rotated RenderPipeline frames (7b's volume) through 'auto'
+    hist = smooth_raw_histograms(n_raw, 32, dev)
+    pipe = RenderPipeline(raw=RawHistogramVolume(hist))
+    cfg_r = RenderConfig(camera=CameraConfig(width=W_render, height=W_render),
+                         query_method=QueryMethod(1))
+    vol = pipe.raw_stats[..., 0].contiguous()
+    P = max(64, 2 * n_raw)
+    print(f"[8c] RenderPipeline, {n_raw}^3 blocks x 32 bins -> {W_render}^2, "
+          f"query 1, rotated, renderer auto (shear-warp, K3)")
+    k3 = sv.sweep_fwd
+    seen_axes = set()
+    for view in ((30.0, 20.0), (0.0, 60.0), (60.0, 0.0)):
+        iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
+        if pipe.resolve_renderer("auto", iv, cfg_r) != "shearwarp":
+            fail(f"8c {view}: 'auto' did not resolve to shear-warp")
+        k3.launches = 0
+        img = pipe.render(iv, cfg_r, "auto")
+        torch.cuda.synchronize()
+        launches = k3.launches
+        if launches != 1:
+            fail(f"8c {view}: the frame launched K3 {launches} times")
+        frame_ms = host_ms(lambda: pipe.render(iv, cfg_r, "auto"), 5)
+        xla_ms, ref = timed_once(lambda: sw.shearwarp_render_image(
+            vol, iv, W_render, W_render, pipe.tf_lut, cfg_r.density,
+            cfg_r.brightness, cfg_r.tf.offset, cfg_r.tf.scale,
+            march=cfg_r.march, n_planes=P, backend="xla"))
+        compare(img, ref, f"[8c {view}] auto (K3) vs 'xla' shear-warp")
+        if float(img[..., 3].max()) <= 0.0:
+            fail(f"8c {view}: empty image")
+        del ref
+        cfg, planes, wi, origin, dz_sign, axis = shearwarp_setup(vol, view,
+                                                                 W_render, P)
+        seen_axes.add((axis, dz_sign))
+        args = (cfg, planes, None, torch.as_tensor(pipe.tf_lut, device=dev),
+                *[torch.tensor(v, device=dev) for v in
+                  (cfg_r.density, cfg_r.tf.offset, cfg_r.tf.scale)])
+        ms = time_ms(lambda: sv.sweep_fwd(*args), TIMED_RUNS)
+        p_ms, ref = timed_once(lambda: sv.sweep_fwd_reference(*args))
+        e = compare(sv.sweep_fwd(*args), ref,
+                    f"[8c {view}] K3 on the {wi}^2 m-grid vs plain")
+        n_live, tex = live_samples(planes, cfg.zs, cfg.slopes,
+                                   pipe.tf_lut.cpu().numpy(), cfg_r.density,
+                                   cfg_r.tf.offset, cfg_r.tf.scale, wi, wi,
+                                   chunk=4, origin=origin, dz_sign=dz_sign)
+        bd = bound(tex * 4 + wi * wi * 16, n_live * SAMPLE_OPS)
+        print(f"  [8c {view}] principal axis {axis}, d_z sign {dz_sign:+d}: "
+              f"frame {frame_ms:.3f} ms ({W_render * W_render / frame_ms / 1e3:.2f}"
+              f" MTexels/s), K3 {ms:.3f} ms (plain {p_ms:.3f}, bound "
+              f"{bd['bound_ms']:.4f} ms, {bd['bound_by']}; {n_live} "
+              f"evaluated samples, {tex} texels read), 'xla' frame "
+              f"{xla_ms:.3f} ms")
+        records.append({
+            "name": f"sweep_fwd[shearwarp,{view[0]:g},{view[1]:g}]",
+            "route": "cuda", "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_vjp.py:698",
+            "launches": launches, "max_abs_err": e, "ms": ms,
+            "plain_ms": p_ms, **bd,
+        })
+        del planes, args, ref, img
+    if {a for a, _ in seen_axes} != {0, 1, 2}:
+        fail(f"8c: the views did not cover the three principal axes: "
+             f"{seen_axes}")
+    del pipe, hist, vol
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1122,6 +1656,9 @@ def main() -> int:
     # ---- 7. the render path
     work.mkdir(parents=True)
     records += phase_7(dev, card, smi, tf, work)
+
+    # ---- 8. BASELINE config 3 (fit-voxels) and rotated views
+    records += phase_8(dev, card, smi, tf, work)
     shutil.rmtree(work)
 
     # ---- result

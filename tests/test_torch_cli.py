@@ -58,9 +58,11 @@ def test_render_hist_matches_jax(tmp_path, dims, stat, dtype):
 
 
 def test_render_hist_rotated_raises(tmp_path):
+    """Rotated render-hist views go through the distributed shear-warp
+    sweep of the histograms (ROADMAP.md queue 1 item 11), not ported."""
     path = _hist_file(tmp_path, (4, 4, 4))
     argv = _args(path, (4, 4, 4), "mean", "float32", tmp_path / "o.ppm")
-    with pytest.raises(NotImplementedError, match="shear-warp"):
+    with pytest.raises(NotImplementedError, match="shear-warp.*item 11"):
         tcli.main(argv + ["--device", "cpu", "--rot-x", "20"])
 
 
@@ -147,8 +149,6 @@ def test_render_unported_raise(tmp_path):
     out = tmp_path / "o.ppm"
     for extra, match in ((("--query", "4"), "fractal"),
                          (("--query", "9"), "flexible"),
-                         (("--rot-x", "20", "--renderer", "auto"),
-                          "shear-warp"),
                          (("--flex-normalize",), "flexible")):
         with pytest.raises(NotImplementedError, match=match):
             tcli.main(_render_args(out, "--device", "cpu", *extra))
@@ -172,3 +172,54 @@ def test_render_cuda_without_gpu_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(_render_args(out))  # --device defaults to cuda
     assert not out.exists()
+
+
+@pytest.mark.parametrize("renderer", ["auto", "shearwarp"])
+def test_render_rotated_matches_jax(tmp_path, renderer):
+    """A rotated ``render`` goes through the shear-warp sweep ('auto'
+    resolves to it; the plain sweep on the CPU), port vs JAX."""
+    ref_out, got_out = tmp_path / "jax.ppm", tmp_path / "torch.ppm"
+    args = ["--renderer", renderer, "--density", "0.5", "--rot-x", "20",
+            "--rot-y", "-30"]
+    assert jcli.main(_render_args(ref_out, *args)) == 0
+    assert tcli.main(_render_args(got_out, *args, "--device", "cpu")) == 0
+    ref = formats.read_ppm(str(ref_out)).astype(np.int32)
+    got = formats.read_ppm(str(got_out)).astype(np.int32)
+    assert ref.max() > 0, "vacuous comparison: image is black"
+    level = np.abs(got - ref).max(axis=-1)
+    assert level.max() <= 1 and np.mean(level > 0) <= 1e-2, (
+        level.max(), np.mean(level > 0))
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_fit_voxels_writes_checkpoint(tmp_path, capsys, streamed):
+    """``fit-voxels --device cpu`` at a small size: two Adam steps through
+    the plain sweeps (the seeded streamed decode with ``--streamed``), the
+    checkpoint holds JAX's keys, the loss is finite."""
+    from vrdd_tpu_torch.io.checkpoint import load_checkpoint
+
+    ckpt = tmp_path / "fit.npz"
+    argv = ["fit-voxels", "--device", "cpu", "--size", "8", "--image", "16",
+            "--iters", "2", "--checkpoint", str(ckpt)]
+    assert tcli.main(argv + (["--streamed"] if streamed else [])) == 0
+    out = capsys.readouterr().out
+    assert "renderer: slice" in out and ("streamed" in out) == streamed
+    import re
+
+    losses = [float(v) for v in re.findall(r"step \d+: loss (\S+)", out)]
+    assert len(losses) == 2 and losses[1] < losses[0], losses
+    state = load_checkpoint(str(ckpt))
+    assert set(state) == {"mu", "sigma", "loss"}
+    assert state["mu"].shape == state["sigma"].shape == (8, 8, 8)
+    assert float(state["loss"]) == np.float32(losses[1])
+    # sigma left JAX's start of 0.1 (mu starts at 0, the LUT's flat end)
+    assert np.abs(state["sigma"] - np.float32(0.1)).max() > 0
+
+
+def test_fit_voxels_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: --device cuda fits on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["fit-voxels", "--size", "8", "--image", "16", "--iters",
+                   "1", "--checkpoint", str(tmp_path / "f.npz")])
+    assert not (tmp_path / "f.npz").exists()

@@ -406,3 +406,280 @@ def test_pipeline_auto_is_pallas_with_ess_on_the_card(dev):
         assert sk.sweep_preblended_planes.launches == before + 1
         _close(got, p.render(None, cfg, "slice"))
     assert p._ess_cache, "ESS stats were not computed"
+
+
+# ---- the seeded sweep (K1/K3/K4/K5) and shear-warp --------------------------
+
+def _stack(dev, n=24, n_planes=48):
+    """A 24^3 blob's 48-plane stack, its depths and 100 x 72 slopes."""
+    vol = torch.from_numpy(gaussian_blob_volume((n, n, n), seed=5)).to(dev)
+    planes, zs = sk.preblend_planes(vol, n_planes, (-1.0, -1.0, -1.0),
+                                    (1.0, 1.0, 1.0), -1)
+    return planes, zs, sk.pixel_slope_params(100, 72)
+
+
+def _frozen_seed(img):
+    """``img`` with a few pixels replaced by frozen seeds: alpha 0.99 and
+    exactly 1 (past the 0.95 cutoff), and 0.5 (live)."""
+    seed = img.clone()
+    seed[10, 10:13] = torch.tensor([[0.2, 0.1, 0.3, 0.99],
+                                    [0.4, 0.0, 0.1, 1.0],
+                                    [0.1, 0.1, 0.1, 0.5]], device=img.device)
+    return seed
+
+
+@pytest.mark.parametrize("density", [0.8, 5.0])
+def test_seeded_k1_resumes_the_sweep(dev, density):
+    """K1 over the back half seeded with the front half's image equals the
+    one-pass sweep; a frozen seed comes back as itself x brightness; the
+    kernel matches its plain version from the same seed."""
+    planes, zs, slopes = _stack(dev)
+    sp = 2.0 / planes.shape[0]
+    kw = dict(width=100, height=72, plane_spacing=sp)
+    full = sk.sweep_preblended_planes(planes, zs, O, slopes, TF, density,
+                                      **kw)
+    front = sk.sweep_preblended_planes(planes[:24], zs[:24], O, slopes, TF,
+                                       density, **kw)
+    before = sk.sweep_preblended_planes.launches
+    back = sk.sweep_preblended_planes(planes[24:], zs[24:], O, slopes, TF,
+                                      density, acc_init=front, **kw)
+    assert sk.sweep_preblended_planes.launches == before + 1
+    _close(back, full)
+    seed = _frozen_seed(front)
+    got = sk.sweep_preblended_planes(planes[24:], zs[24:], O, slopes, TF,
+                                     density, 1.3, acc_init=seed, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[10, 10:12], seed[10, 10:12] * 1.3)
+    ref = sk.sweep_preblended_planes_reference(
+        planes[24:].cpu(), zs[24:], O, slopes, TF, density, 1.3,
+        acc_init=seed.cpu(), **kw)
+    _close(got, ref.to(dev))
+
+
+def test_null_seed_is_the_unseeded_sweep(dev):
+    """A null seed pointer is the unseeded kernel; a zero seed gives the same
+    bits (acc 0, T 1), for K1 and for K4's image and checkpoints."""
+    planes, zs, slopes = _stack(dev)
+    kw = dict(width=100, height=72)
+    zero = torch.zeros((72, 100, 4), device=dev)
+    assert torch.equal(
+        sk.sweep_preblended_planes(planes, zs, O, slopes, TF, 0.8, **kw),
+        sk.sweep_preblended_planes(planes, zs, O, slopes, TF, 0.8,
+                                   acc_init=zero, **kw))
+    cfg = sv.planes_config(zs, O, slopes, n_planes=48, **kw)
+    args = (planes, None, torch.tensor(TF, device=dev),
+            torch.tensor(0.8, device=dev), torch.tensor(0.0, device=dev),
+            torch.tensor(1.0, device=dev))
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
+    img0, tck0 = sv.sweep_fwd_ckpt(cfg, *args, zero)
+    assert torch.equal(img, img0) and torch.equal(tck, tck0)
+
+
+def test_seed_and_ess_are_refused(dev):
+    planes, zs, slopes = _stack(dev)
+    seed = torch.zeros((72, 100, 4), device=dev)
+    with pytest.raises(ValueError, match="empty-space"):
+        sk.sweep_preblended_planes(planes, zs, O, slopes, TF, width=100,
+                                   height=72, acc_init=seed,
+                                   empty_space_skip=True)
+    # the kernel itself refuses the pair (cudaErrorInvalidValue)
+    bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes, TF,
+                           0.0, 1.0, width=100, height=72, ny=24, nx=24,
+                           plane_chunk=8)
+    params = sk._sweep_params(
+        O, slopes, 0.8, 1.0, 0.0, 1.0, 2.0 / 48, sk.MarchConfig(),
+        width=100, height=72, ny=24, nx=24, n_planes=48, n_layers=48,
+        dz_sign=-1, reverse=False, length_correction=True, tex_offset=0.5,
+        axis_scale=(1.0, 1.0), filter_linear=True)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk._launch(planes, "none", zs, TF, None, params, ess=bitmap,
+                   ess_chunk=8, seed=seed)
+
+
+@pytest.mark.parametrize("density", [0.8, 5.0])
+@pytest.mark.parametrize("ck_stride", [4, 8])
+def test_seeded_k3_k4_k5_match_plain(dev, density, ck_stride):
+    """Seeded K3/K4/K5 against their plain versions at 24^3 -> 100 x 72,
+    with frozen seeds: K4's image is K3's, the checkpoint rows of a frozen
+    pixel are all T0 = 1 - seed_a, its S is 0 and its d seed_a is g_a; S,
+    d_planes and the LUT cotangent within 1e-3 relative L2; d_acc0 through
+    the public wrapper against the plain analytic VJP."""
+    planes, zs, slopes = _stack(dev)
+    sp = 2.0 / planes.shape[0]
+    front = sk.sweep_preblended_planes(planes[:24], zs[:24], O, slopes, TF,
+                                       density, width=100, height=72,
+                                       plane_spacing=sp)
+    seed = _frozen_seed(front)
+    cfg = sv.planes_config(zs[24:], O, slopes, width=100, height=72,
+                           n_planes=24, plane_spacing=sp,
+                           plane_chunk=ck_stride)
+    back = planes[24:].contiguous()
+    args = (back, None, torch.tensor(TF, device=dev),
+            torch.tensor(density, device=dev), torch.tensor(0.1, device=dev),
+            torch.tensor(1.5, device=dev))
+    cpu_args = tuple(None if a is None else a.cpu() for a in args)
+    k3 = sv.sweep_fwd(cfg, *args, seed)
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(img, k3)
+    assert torch.equal(img[10, 10:12], seed[10, 10:12])
+    t0 = 1.0 - seed[10, 10:12, 3]
+    assert torch.equal(tck[:, 10, 10:12], t0.expand(tck.shape[0], 2))
+    ref_img, ref_tck = sv.sweep_fwd_ckpt_reference(cfg, *cpu_args, seed.cpu())
+    _close(img, ref_img.to(dev))
+    _close(tck[..., None], ref_tck[..., None].to(dev))
+    g = torch.randn((72, 100, 4), generator=torch.Generator().manual_seed(1))
+    before = sv.sweep_bwd.launches
+    d, small, _, s_img = sv.sweep_bwd(cfg, *args, g.to(dev), tck, True, True,
+                                      False, acc0=seed)
+    torch.cuda.synchronize()
+    assert sv.sweep_bwd.launches == before + 1
+    assert torch.equal(s_img[10, 10:12], torch.zeros(2, device=dev))
+    d_r, small_r, _, s_r = sv.sweep_bwd_reference(cfg, *cpu_args, g, True,
+                                                  True, False, seed.cpu())
+    for got, ref in ((d, d_r), (small, small_r), (s_img, s_r)):
+        assert _rel_l2(got, ref) <= 1e-3
+    # d_acc0 through the autograd Function, against the plain analytic VJP
+    out = []
+    for device in (dev, "cpu"):
+        leaves = [back.to(device).clone().requires_grad_(),
+                  seed.to(device).clone().requires_grad_()]
+        out.append(_grads(lambda p, a: sv.sweep_preblended_planes_diff(
+            p, zs[24:], O, slopes, TF, density, 1.3, width=100, height=72,
+            plane_spacing=sp, plane_chunk=ck_stride, acc_init=a), leaves))
+    (img_k, (gp, ga)), (img_p, (gp_r, ga_r)) = out
+    _close(img_k.detach(), img_p.detach().to(dev))
+    assert _rel_l2(gp, gp_r) <= 1e-3 and _rel_l2(ga, ga_r) <= 1e-3
+    g1 = torch.randn((72, 100, 4), generator=torch.Generator().manual_seed(0))
+    assert torch.equal(ga[10, 10:12].cpu(), 1.3 * g1[10, 10:12])
+    # the seed's cotangent alone: K5 runs for S with no other cotangent
+    a0 = seed.clone().requires_grad_()
+    before = sv.sweep_bwd.seed_launches
+    (ga0,) = _grads(lambda a: sv.sweep_preblended_planes_diff(
+        back, zs[24:], O, slopes, TF, density, 1.3, width=100, height=72,
+        plane_spacing=sp, plane_chunk=ck_stride, acc_init=a), [a0])[1]
+    assert sv.sweep_bwd.seed_launches == before + 1
+    assert _rel_l2(ga0, ga_r) <= 1e-3
+
+
+def test_seeded_hist_sweep_matches_plain(dev):
+    """The in-kernel decode sweep seeded (linear): image, d_hist and d_acc0
+    against the plain versions."""
+    hist = _hist(dev, torch.float32)
+    rows, _ = sk.decode_weight_rows("mean", 8, family="unit")
+    cfg = sv.render_config(hist.shape, O, stat="linear", width=72, height=40)
+    seed = _frozen_seed(sv.sweep_fwd(
+        cfg, hist[6:], torch.as_tensor(rows, device=dev),
+        torch.tensor(TF, device=dev), torch.tensor(0.3, device=dev),
+        torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev)))
+    out = []
+    for device in (dev, "cpu"):
+        leaves = [hist[:6].to(device).clone().requires_grad_(),
+                  seed.to(device).clone().requires_grad_()]
+        out.append(_grads(lambda h, a: sv.sweep_preblended_hist_diff(
+            h, rows, cfg.zs[6:], O, cfg.slopes, TF, 0.3, width=72, height=40,
+            plane_spacing=cfg.plane_spacing, acc_init=a), leaves))
+    (img, (gh, ga)), (img_r, (gh_r, ga_r)) = out
+    _close(img.detach(), img_r.detach().to(dev))
+    assert _rel_l2(gh, gh_r) <= 1e-3 and _rel_l2(ga, ga_r) <= 1e-3
+
+
+SW_VIEWS = [(25.0, 0.0), (0.0, 60.0), (60.0, 0.0), (0.0, 180.0),
+            (180.0, 30.0)]
+
+
+@pytest.mark.parametrize("view", SW_VIEWS)
+def test_shearwarp_pallas_matches_plain(dev, view):
+    """Shear-warp on the fused sweep (K3 forward; K4/K5 under autograd)
+    against the same path's plain versions on the CPU, for all three
+    principal axes and both d_z signs: image at the image tolerance,
+    d_volume within 1e-3 relative L2 (atomics in K5 and the warp's
+    scatter)."""
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.march import shearwarp as sw
+
+    iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
+    vol = gaussian_blob_volume((20, 24, 28), seed=2)
+    before = sv.sweep_fwd.launches
+    with torch.no_grad():
+        got = sw.shearwarp_render_image(torch.from_numpy(vol).to(dev), iv,
+                                        100, 72, TF, 0.5, backend="pallas")
+    assert sv.sweep_fwd.launches == before + 1
+    ref = sw.shearwarp_render_image(torch.from_numpy(vol), iv, 100, 72, TF,
+                                    0.5, backend="pallas")
+    _close(got, ref.to(dev))
+    assert float(ref[..., 3].max()) > 0.05, "vacuous: empty render"
+    out = []
+    for device in (dev, "cpu"):
+        v = torch.tensor(vol, device=device, requires_grad=True)
+        img = sw.shearwarp_render_image(v, iv, 100, 72, TF, 0.5,
+                                        backend="pallas", wrt=("volume",))
+        out.append(torch.autograd.grad((img * img).sum(), [v])[0])
+    assert _rel_l2(out[0], out[1]) <= 1e-3
+
+
+def test_streaming_pallas_matches_plain(dev):
+    """The streamed decode on the card (chained seeded K4/K5, recomputed
+    under torch.utils.checkpoint) against the same path on the CPU."""
+    from vrdd_tpu_torch.march.streaming import streaming_decode_render
+    from vrdd_tpu_torch.ops.gaussian import gaussian_stats
+
+    rng = np.random.default_rng(4)
+    mu = rng.random((16, 20, 24), dtype=np.float32)
+    ls = np.log(0.05 + 0.2 * rng.random((16, 20, 24), dtype=np.float32))
+    out = []
+    for device in (dev, "cpu"):
+        leaves = [torch.tensor(x, device=device, requires_grad=True)
+                  for x in (mu, ls)]
+        before = sv.sweep_fwd_ckpt.launches
+        out.append(_grads(lambda m, s: streaming_decode_render(
+            (m, s), lambda t: gaussian_stats(t[0], torch.exp(t[1]))[..., 1],
+            O, TF, 0.5, transfer_scale=20.0, width=100, height=72,
+            n_planes=32, chunk_planes=8, backend="pallas", wrt=("volume",)),
+            leaves))
+        if device != "cpu":
+            torch.cuda.synchronize()
+            # four chunks, each K4 in the forward and again in the recompute
+            assert sv.sweep_fwd_ckpt.launches == before + 8
+    (img, (gm, gs)), (img_r, (gm_r, gs_r)) = out
+    _close(img.detach(), img_r.detach().to(dev))
+    assert _rel_l2(gs, gs_r) <= 1e-3
+
+
+def test_auto_sends_card_data_to_the_kernels(dev):
+    """'auto' picks the kernels for data on the card: shear-warp and the
+    streamed decode launch K3 there, and a configuration the kernels cannot
+    take (a LUT past their shared memory) raises instead of falling back to
+    the plain sweep, also through RenderPipeline's rotated 'auto'."""
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.march import shearwarp as sw
+    from vrdd_tpu_torch.march.streaming import streaming_decode_render
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.utils.config import CameraConfig, RenderConfig
+
+    vol = torch.from_numpy(gaussian_blob_volume((16, 20, 24), seed=1)).to(dev)
+    iv = inv_view_from_rotation_translation(20.0, 0.0, (0.0, 0.0, -4.0))
+    big = np.tile(TF, (4096 // len(TF) + 1, 1))[:4096]
+
+    def stream(lut):
+        return streaming_decode_render(vol, lambda t: t, O, lut, 0.5,
+                                       width=48, height=40, n_planes=32,
+                                       chunk_planes=8)
+
+    before = sv.sweep_fwd.launches
+    sw.shearwarp_render_image(vol, iv, 48, 40, TF, 0.5)
+    stream(TF)
+    torch.cuda.synchronize()
+    assert sv.sweep_fwd.launches == before + 1 + 4
+    with pytest.raises(ValueError, match="cannot"):
+        sw.shearwarp_render_image(vol, iv, 48, 40, big, 0.5)
+    with pytest.raises(ValueError, match="cannot"):
+        stream(big)
+    hist = np.random.default_rng(0).random((6, 8, 10, 32), dtype=np.float32)
+    p = RenderPipeline(raw=RawHistogramVolume(torch.from_numpy(hist).to(dev)),
+                       tf_lut=big)
+    cfg = RenderConfig(camera=CameraConfig(width=48, height=40))
+    assert p.resolve_renderer("auto", iv, cfg) == "shearwarp"
+    with pytest.raises(ValueError, match="cannot"):
+        p.render(iv, cfg, "auto")

@@ -214,10 +214,12 @@ def test_resolve_renderer(pipelines):
     point = RenderConfig(query_method=QueryMethod.RAW_MEAN,
                          filter_linear=False)
     assert tp.resolve_renderer("auto", ROT, point) == "scan"
-    with pytest.raises(NotImplementedError, match="shear-warp"):
-        tp.resolve_renderer("auto", ROT, _cfg(1))
-    with pytest.raises(NotImplementedError, match="shear-warp"):
-        tp.render(ROT, _cfg(1), "shearwarp")
+    # rotated views ride the shear-warp sweep (tests/test_torch_shearwarp.py
+    # holds its frames against JAX's)
+    for q in (1, 2, 3, 7):
+        assert tp.resolve_renderer("auto", ROT, _cfg(q)) == "shearwarp"
+    img = tp.render(ROT, _cfg(1), "shearwarp")
+    assert tuple(img.shape) == (H, W, 4) and torch.isfinite(img).all()
 
 
 def test_ess_stats_cache_contract(pipelines):

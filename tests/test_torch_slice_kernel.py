@@ -160,10 +160,18 @@ def test_unported_modes_raise():
         tk.pallas_slice_render(vol, O, TF, width=8, height=8,
                                empty_space_skip=True),
         tk.pallas_slice_render(vol, O, TF, width=8, height=8))
-    with pytest.raises(NotImplementedError):
+    # the seeded sweep is ported: an empty stack gives the seed back times
+    # brightness; a seed with ESS raises, as JAX asserts
+    seed = torch.rand((8, 8, 4), generator=torch.Generator().manual_seed(0))
+    got = tk.sweep_preblended_planes(vol, np.zeros(4, np.float32), O,
+                                     (0.0, 0.1, 0.0, 0.1), TF, 0.05, 1.5,
+                                     width=8, height=8, acc_init=seed)
+    assert torch.equal(got, seed * 1.5)
+    with pytest.raises(ValueError, match="empty-space"):
         tk.sweep_preblended_planes(vol, np.zeros(4, np.float32), O,
                                    (0.0, 0.1, 0.0, 0.1), TF, width=8,
-                                   height=8, acc_init=torch.zeros(8, 8, 4))
+                                   height=8, acc_init=seed,
+                                   empty_space_skip=True)
     with pytest.raises(NotImplementedError):
         tk.pallas_hist_render(torch.zeros((4, 2, 4, 4)), np.ones(2), O, TF,
                               width=8, height=8, precision="bf16")

@@ -272,10 +272,17 @@ def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
         tv.pallas_slice_render_diff(vol, O, TF, width=8, height=8,
                                     precision="bf16")
-    with pytest.raises(NotImplementedError):
-        tv.sweep_preblended_planes_diff(
-            vol, np.zeros(4, np.float32), O, (0.0, 0.1, 0.0, 0.1), TF,
-            width=8, height=8, acc_init=torch.zeros(8, 8, 4))
+    # the seeded sweep is ported: an empty stack passes the seed through,
+    # and its cotangent back (tests/test_torch_streaming.py holds the
+    # seeded sweep against JAX's)
+    seed = torch.rand((8, 8, 4), generator=torch.Generator().manual_seed(0),
+                      requires_grad=True)
+    img = tv.sweep_preblended_planes_diff(
+        vol, np.zeros(4, np.float32), O, (0.0, 0.1, 0.0, 0.1), TF,
+        width=8, height=8, acc_init=seed)
+    assert torch.equal(img.detach(), seed.detach())
+    (g,) = torch.autograd.grad(img.sum(), [seed])
+    assert torch.equal(g, torch.ones_like(g))
     with pytest.raises(NotImplementedError):
         tv.live_fractions(vol, O, TF, width=8, height=8)
     with pytest.raises(ValueError, match="plane_chunk"):

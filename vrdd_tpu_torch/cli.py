@@ -4,8 +4,9 @@ Subcommands ported so far:
 
 - ``render``       render a raw block-histogram dataset (a file or the seeded
                    synthetic one) through ``RenderPipeline`` for queries
-                   1/2/3/7 with the ``scan``, ``slice``, ``pallas`` or
-                   ``auto`` renderer, to PPM/NPY; ``--file ref.ppm`` is the
+                   1/2/3/7 with the ``scan``, ``slice``, ``pallas``,
+                   ``shearwarp`` (rotated views) or ``auto`` renderer, to
+                   PPM/NPY; ``--file ref.ppm`` is the
                    benchmark + golden mode of the reference's ``-file`` flag
                    (warm-up, ``--iters`` timed renders, the MTexels/s line,
                    PPM compare with exit code 1 on a fail; ``--file none``
@@ -17,12 +18,18 @@ Subcommands ported so far:
                    statistic, differentiating through
                    ``pallas_hist_render_diff`` (K4 forward, K5 backward) with
                    Adam; writes an ``.npz`` checkpoint.
+- ``fit-voxels``   fit a per-voxel Gaussian ``(mu, sigma)`` volume (BASELINE
+                   config 3) to multi-view renders of its mean and variance:
+                   unrotated views through the fused sweep (or, with
+                   ``--streamed``, the seeded streamed decode), rotated views
+                   through the shear-warp sweep; Adam; ``.npz`` checkpoint.
 
 ``--device cuda`` (the default) runs the CUDA kernels and raises when no GPU
 is present; ``--device cpu`` runs the plain torch versions. Run as
 ``python -m vrdd_tpu_torch.cli render --file none``,
 ``python -m vrdd_tpu_torch.cli render-hist --hist-file F --dims NZ NY NX
-...`` or ``python -m vrdd_tpu_torch.cli fit-hist --iters 50``. The other
+...``, ``python -m vrdd_tpu_torch.cli fit-hist --iters 50`` or ``python -m
+vrdd_tpu_torch.cli fit-voxels --size 256 --image 512``. The other
 subcommands of ``vrdd_tpu.cli`` are later work (ROADMAP.md).
 """
 
@@ -256,6 +263,151 @@ def cmd_fit_hist(args) -> int:
     return 0
 
 
+def fit_voxels_problem(size: int, image: int, views: int, view_angle: float,
+                       seed: int, renderer: str, streamed: bool, device):
+    """The ``fit-voxels`` inverse problem (``vrdd_tpu/cli.py``
+    cmd_fit_voxels): returns ``(loss_fn, mu_true, renderer)``.
+
+    Ground truth: a Gaussian-blob ``mu`` and a spatially varying ``sigma =
+    0.05 + 0.15 blob``, made from ``seed`` (numpy on the CPU, the same draws
+    on the card). Up to five views (0, then +-``view_angle`` about x and y);
+    each renders the decoded mean (TF scale 1) and variance (TF scale
+    ``1 / max(sigma)^2``) through a 9-entry grayscale LUT, ``2 size``
+    planes. ``renderer`` 'pallas' takes the fused kernels (K3/K4/K5:
+    ``pallas_slice_render_diff`` unrotated, shear-warp's and the streamed
+    decode's 'pallas' backends; their plain versions on the CPU), 'slice'
+    the plain torch sweeps (shear-warp's and streaming's 'xla' backends),
+    'auto' 'pallas' on the card and 'slice' on the CPU. ``streamed``
+    renders the unrotated view by the seeded streamed decode
+    (``march/streaming.py``). ``loss_fn(mu, log_sigma)`` is the mean over
+    views of the two channels' mean squared image errors against the
+    targets."""
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.core.transfer import grayscale_ramp
+    from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
+    from vrdd_tpu_torch.kernels.slice_vjp import pallas_slice_render_diff
+    from vrdd_tpu_torch.march.shearwarp import shearwarp_render_image
+    from vrdd_tpu_torch.march.slice import slice_render_image
+    from vrdd_tpu_torch.march.streaming import streaming_decode_render
+    from vrdd_tpu_torch.ops.gaussian import gaussian_stats
+
+    n, W = size, image
+    H = W
+    if renderer == "auto":
+        renderer = "pallas" if device.type == "cuda" else "slice"
+    backend = "pallas" if renderer == "pallas" else "xla"
+
+    blob_dev = None if device.type == "cpu" else device
+    mu_true = torch.as_tensor(gaussian_blob_volume((n, n, n), seed=seed,
+                                                   device=blob_dev),
+                              device=device)
+    sigma_true = 0.05 + 0.15 * torch.as_tensor(
+        gaussian_blob_volume((n, n, n), seed=seed + 1, device=blob_dev),
+        device=device)
+    lut = torch.as_tensor(grayscale_ramp(9), device=device)
+    a = float(view_angle)
+    view_list = [(0.0, 0.0), (a, 0.0), (0.0, a), (-a, 0.0), (0.0, -a)]
+    view_list = view_list[: max(1, views)]
+    # variance lives in [0, ~sigma_max^2]: scale it into the TF domain
+    var_scale = 1.0 / float(torch.max(sigma_true) ** 2)
+    origin = (0.0, 0.0, 4.0)
+
+    def render_channel(vol, rx, ry, tf_scale):
+        if (rx, ry) == (0.0, 0.0):
+            if renderer == "pallas":
+                return pallas_slice_render_diff(
+                    vol, origin, lut, transfer_scale=tf_scale, width=W,
+                    height=H, n_planes=2 * n, wrt=("volume",))
+            return slice_render_image(vol, origin, W, H, lut,
+                                      transfer_scale=tf_scale,
+                                      n_planes=2 * n)
+        iv = inv_view_from_rotation_translation(rx, ry, (0.0, 0.0, -4.0))
+        return shearwarp_render_image(
+            vol, iv, W, H, lut, transfer_scale=tf_scale, n_planes=2 * n,
+            backend=backend, wrt=("volume",))
+
+    def render_channel_streamed(mu, log_sigma, ch, tf_scale):
+        return streaming_decode_render(
+            (mu, log_sigma),
+            lambda t: gaussian_stats(t[0], torch.exp(t[1]))[..., ch],
+            origin, lut, transfer_scale=tf_scale, width=W, height=H,
+            n_planes=2 * n, wrt=("volume",), backend=backend)
+
+    def render_views(mu, log_sigma):
+        stats = gaussian_stats(mu, torch.exp(log_sigma))
+        out = []
+        for rx, ry in view_list:
+            if streamed and (rx, ry) == (0.0, 0.0):
+                out.append((
+                    render_channel_streamed(mu, log_sigma, 0, 1.0),
+                    render_channel_streamed(mu, log_sigma, 1, var_scale)))
+            else:
+                out.append((render_channel(stats[..., 0], rx, ry, 1.0),
+                            render_channel(stats[..., 1], rx, ry, var_scale)))
+        return out
+
+    with torch.no_grad():
+        targets = render_views(mu_true, torch.log(sigma_true))
+
+    def loss_fn(mu, log_sigma):
+        loss = 0.0
+        for (rm, rv), (tm, tv) in zip(render_views(mu, log_sigma), targets):
+            loss = loss + torch.mean((rm - tm) ** 2) + torch.mean(
+                (rv - tv) ** 2)
+        return loss / len(view_list)
+
+    return loss_fn, mu_true, renderer
+
+
+def cmd_fit_voxels(args) -> int:
+    """BASELINE config 3: per-voxel Gaussian (mu, sigma) recovered from
+    multi-view renders through the differentiable renderer
+    (:func:`fit_voxels_problem`), with Adam over ``(mu, log sigma)`` from
+    JAX's start (0 and log 0.1). Prints the loss and the step time (host
+    clock; the loss readback waits for the device) of each reported step,
+    and the peak device memory on the card."""
+    from vrdd_tpu_torch.io.checkpoint import save_checkpoint
+
+    device = _device(args.device)
+    n = args.size
+    loss_fn, mu_true, renderer = fit_voxels_problem(
+        n, args.image, args.views, args.view_angle, args.seed, args.renderer,
+        args.streamed, device)
+    n_views = min(max(1, args.views), 5)
+    print(f"fit-voxels renderer: {renderer}{', streamed' if args.streamed else ''}"
+          f" on {device}")
+    mu = torch.zeros((n, n, n), dtype=torch.float32, device=device,
+                     requires_grad=True)
+    log_sigma = torch.full((n, n, n), float(np.log(np.float32(0.1))),
+                           dtype=torch.float32, device=device,
+                           requires_grad=True)
+    opt = torch.optim.Adam([mu, log_sigma], lr=args.lr, betas=(0.9, 0.999),
+                           eps=1e-8)
+    loss = float("nan")
+    for i in range(args.iters):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss_t = loss_fn(mu, log_sigma)
+        loss_t.backward()
+        opt.step()
+        loss = float(loss_t.detach())
+        ms = 1e3 * (time.perf_counter() - t0)
+        if (i + 1) % max(1, args.iters // 10) == 0:
+            print(f"step {i + 1}: loss {loss:.9g} ({ms:.3f} ms)")
+    if device.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} GiB")
+    with torch.no_grad():
+        mu_np = mu.cpu().numpy()
+        sigma_np = torch.exp(log_sigma).cpu().numpy()
+        err = float(torch.sqrt(torch.mean((mu - mu_true) ** 2)))
+    save_checkpoint(args.checkpoint,
+                    {"mu": mu_np, "sigma": sigma_np, "loss": np.float32(loss)})
+    print(f"saved {args.checkpoint} (final loss {loss:.6f}, mu RMSE "
+          f"{err:.4f} over {n_views} views)")
+    return 0
+
+
 def cmd_render_hist(args) -> int:
     """Histogram file -> decode statistic -> sweep -> PPM, unrotated camera
     at ``(0, 0, -translate_z)`` as ``vrdd_tpu.cli`` places it."""
@@ -267,8 +419,9 @@ def cmd_render_hist(args) -> int:
 
     if args.rot_x != 0.0 or args.rot_y != 0.0:
         raise NotImplementedError(
-            "rotated views need the shear-warp sweep, which is not ported yet "
-            "(ROADMAP.md queue 1 item 7: march/shearwarp.py)"
+            "rotated render-hist views go through the distributed shear-warp "
+            "sweep of the histograms (distributed_shearwarp_hist_render), not "
+            "ported yet (ROADMAP.md queue 1 item 11)"
         )
     device = _device(args.device)
     nz, ny, nx = args.dims
@@ -321,8 +474,9 @@ def main(argv=None) -> int:
         default="scan",
         help="scan = general ray marcher (reference-faithful); slice = "
         "object-order plain torch sweep (unrotated); pallas = the fused CUDA "
-        "sweep kernel (unrotated; its plain version on --device cpu); auto = "
-        "fastest applicable; shearwarp (rotated views) is not ported yet",
+        "sweep kernel (unrotated; its plain version on --device cpu); "
+        "shearwarp = any view on the sweep (the fused kernel on the card, "
+        "the plain sweep on --device cpu); auto = fastest applicable",
     )
     pr.add_argument("--device", default="cuda",
                     help="'cuda' (the kernels) or 'cpu' (the plain versions)")
@@ -348,8 +502,9 @@ def main(argv=None) -> int:
                      help="decoded statistic (reference queries 1/2/3)")
     prh.add_argument("--tf-scale", type=float, default=1.0, dest="tf_scale")
     prh.add_argument("--rot-x", type=float, default=0.0,
-                     help="camera rotation about x (degrees; not ported yet: "
-                     "nonzero raises)")
+                     help="camera rotation about x (degrees; rotated views "
+                     "need the distributed shear-warp sweep, not ported "
+                     "yet: nonzero raises)")
     prh.add_argument("--rot-y", type=float, default=0.0)
     prh.add_argument("-o", "--output", default="hist_render.ppm")
     prh.add_argument("--device", default="cuda",
@@ -378,6 +533,33 @@ def main(argv=None) -> int:
     ph.add_argument("--device", default="cuda",
                     help="'cuda' (the kernels) or 'cpu' (the plain versions)")
     ph.set_defaults(fn=cmd_fit_hist)
+
+    pv = sub.add_parser(
+        "fit-voxels",
+        help="fit per-voxel Gaussian (mu, sigma) from multi-view renders",
+    )
+    pv.add_argument("--size", type=int, default=32, help="volume dimension")
+    pv.add_argument("--image", type=int, default=128)
+    pv.add_argument("--views", type=int, default=3, help="1-5 views")
+    pv.add_argument("--view-angle", type=float, default=25.0)
+    pv.add_argument("--iters", type=int, default=100)
+    pv.add_argument("--lr", type=float, default=3e-2)
+    pv.add_argument("--seed", type=int, default=0)
+    pv.add_argument("--checkpoint", default="voxel_fit.npz")
+    pv.add_argument(
+        "--renderer", default="auto", choices=["auto", "slice", "pallas"],
+        help="pallas = the fused CUDA kernels (their plain versions on "
+        "--device cpu); slice = the plain torch sweeps; auto = pallas on "
+        "the card, else slice",
+    )
+    pv.add_argument(
+        "--streamed", action="store_true",
+        help="decode (mu, sigma) per plane chunk inside the seeded sweep for "
+        "the unrotated view (march/streaming.py)",
+    )
+    pv.add_argument("--device", default="cuda",
+                    help="'cuda' (the kernels) or 'cpu' (the plain versions)")
+    pv.set_defaults(fn=cmd_fit_voxels)
 
     args = p.parse_args(argv)
     return args.fn(args)

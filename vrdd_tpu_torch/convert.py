@@ -52,3 +52,12 @@ def pipeline_state_from_jax(pipeline, device) -> Dict[str, torch.Tensor]:
         "tf_lut": pipeline.tf_lut,
         "raw_stats": pipeline.raw_stats,
     }, device)
+
+
+def fit_voxels_state_from_jax(mu, sigma, device):
+    """A JAX ``fit-voxels`` state, the ``(mu, sigma)`` numpy pair of its
+    checkpoint (or of its parameters ``(mu, exp(log_sigma))``) -> the
+    port's parameters ``(mu, log_sigma)``: float32 tensors on ``device``
+    (``log_sigma`` is the float32 log of ``sigma``)."""
+    mu_t = tensor_from_jax(mu, device).to(torch.float32)
+    return mu_t, torch.log(tensor_from_jax(sigma, device).to(torch.float32))

@@ -70,6 +70,18 @@
 // memory (TMA, double-buffered along z) so each voxel is decoded once per
 // block instead of once per tap.
 //
+// Seeded resume (K1/K3/K4; the seed mode of _make_kernel, slice_kernel.py
+// :815-823 and :1081-1090, acc_init in JAX). `seed` (H, W, 4) is a
+// premultiplied RGBA image the "over" recursion resumes from: the ray's
+// accumulator starts at the seed and K4's transmittance at T0 = 1 - seed_a,
+// so a pixel seeded past the cutoff freezes before its first sample and its
+// checkpoint rows are all T0. The TPU kernel accumulates the sweep alone and
+// adds the seed at the end (A_sweep = A - seed_a); starting from the seed is
+// the same algebra rounded in another order. A null seed is the unseeded
+// sweep, bitwise as before. Brightness scales seed and sweep together, as on
+// the TPU. Seed and ESS together are refused, as JAX asserts
+// (slice_vjp.py:596).
+//
 // No atomics and one thread per ray: results are bitwise reproducible.
 
 #include "sweep_common.cuh"
@@ -85,7 +97,8 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
                    const float* __restrict__ lut,
                    const float* __restrict__ rows, float* __restrict__ out,
                    int ck_stride, float* __restrict__ tck,
-                   const unsigned char* __restrict__ ess, int ess_chunk) {
+                   const unsigned char* __restrict__ ess, int ess_chunk,
+                   const float* __restrict__ seed) {
   extern __shared__ float smem[];
   float* s_lut = smem;                  // (n_lut, 4)
   float* s_rows = smem + 4 * p.n_lut;   // (n_rows, B)
@@ -115,6 +128,14 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_a = 0.0f;
   float tr = 1.0f;  // CKPT: the backward's transmittance
+  if (seed != nullptr) {
+    const float4 s0 = reinterpret_cast<const float4*>(seed)[pix];
+    acc_r = s0.x;
+    acc_g = s0.y;
+    acc_b = s0.z;
+    acc_a = s0.w;
+    tr = __fsub_rn(1.0f, s0.w);
+  }
   int k = 0;
   for (; k < p.n_planes; ++k) {
     // frozen: nothing more can accumulate (and, with CKPT, T is frozen too)
@@ -168,7 +189,8 @@ template <int MODE, typename T>
 cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
                    const float* lut, const float* rows, float* out,
                    int ck_stride, float* tck, const unsigned char* ess,
-                   int ess_chunk, dim3 block, cudaStream_t stream) {
+                   int ess_chunk, const float* seed, dim3 block,
+                   cudaStream_t stream) {
   const dim3 grid((p.width + block.x - 1) / block.x,
                   (p.height + block.y - 1) / block.y);
   const size_t smem =
@@ -177,10 +199,10 @@ cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
   const T* v = static_cast<const T*>(vol);
   if (ck_stride > 0)
     slice_sweep_kernel<MODE, T, true><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk);
+        p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, seed);
   else
     slice_sweep_kernel<MODE, T, false><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, 0, nullptr, ess, ess_chunk);
+        p, v, zs, lut, rows, out, 0, nullptr, ess, ess_chunk, seed);
   return cudaGetLastError();
 }
 
@@ -190,16 +212,18 @@ cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
 // ck_stride > 0 also writes the (ceil(n_planes / ck_stride), H, W)
 // transmittance checkpoints to tck (K4), 0 writes none (K1-K3). ess: the
 // (ceil(n_planes / ess_chunk), ceil(H / tile_h), ceil(W / tile_w)) uint8
-// ESS bitmap, or null for no culling. tile_w x tile_h is the block shape
-// (at most 256 threads). Launches on `stream` and returns
+// ESS bitmap, or null for no culling. seed: the (H, W, 4) f32 image the
+// sweep resumes from, or null for none; not with ess. tile_w x tile_h is the
+// block shape (at most 256 threads). Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" __attribute__((visibility("default"))) int vrdd_slice_sweep(
     const SweepParams* p, int mode, int bf16, const void* vol,
     const float* zs, const float* lut, const float* rows, float* out,
     int ck_stride, float* tck, const unsigned char* ess, int ess_chunk,
-    int tile_w, int tile_h, void* stream) {
+    const float* seed, int tile_w, int tile_h, void* stream) {
   if (p->height <= 0 || p->width <= 0) return (int)cudaSuccess;
-  if (ck_stride < 0 || (ck_stride > 0 && tck == nullptr))
+  if (ck_stride < 0 || (ck_stride > 0 && tck == nullptr) ||
+      (seed != nullptr && ess != nullptr))
     return (int)cudaErrorInvalidValue;
   if (tile_w <= 0 || tile_h <= 0 || tile_w * tile_h > 256 ||
       (ess != nullptr && ess_chunk <= 0))
@@ -209,7 +233,7 @@ extern "C" __attribute__((visibility("default"))) int vrdd_slice_sweep(
   using bf = __nv_bfloat16;
 #define VRDD_LAUNCH(M, TYPE)                                                 \
   launch<M, TYPE>(*p, vol, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, \
-                  block, s)
+                  seed, block, s)
   switch (mode * 2 + (bf16 ? 1 : 0)) {
     case 0: return (int)VRDD_LAUNCH(kNone, float);
     case 1: return (int)VRDD_LAUNCH(kNone, bf);

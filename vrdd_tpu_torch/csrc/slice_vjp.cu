@@ -38,6 +38,13 @@
 // `wrt` pruning: GVOL compiles the d_planes scatter in or out, GSMALL the
 // LUT and parameter accumulation; pruned outputs stay zero.
 //
+// Seeded sweeps (S_img of slice_vjp.py:787-826): once the walk reaches plane
+// 0 the suffix sum S is P_total = sum_k P_k, the total the seed cotangent
+// needs (d seed_a = g_a - S / T0, formed in torch). With a non-null s_out
+// each ray writes it there. The replay needs nothing else: K4's checkpoint
+// row 0 already holds T0 = 1 - seed_a, and a seed frozen past the cutoff
+// skips every chunk, so S = 0.
+//
 // Bound on the H100: load issue and latency, in three parts of about equal
 // cost at 512^3 x 16 bf16 -> 1024^2 (mean, 20.5 ms on an H100 80GB HBM3 at
 // 700 W): the replay re-reads and re-decodes the forward's samples (the
@@ -68,7 +75,7 @@ slice_bwd_kernel(const SweepParams p, const BwdParams bp,
                  const float* __restrict__ rows,
                  const float* __restrict__ g, const float* __restrict__ tck,
                  float* __restrict__ d_planes, float* __restrict__ partials,
-                 float* __restrict__ mom) {
+                 float* __restrict__ mom, float* __restrict__ s_out) {
   extern __shared__ float smem[];
   const int n_small = 4 * p.n_lut + 3;
   float* s_lut = smem;                                   // (n_lut, 4)
@@ -194,6 +201,7 @@ slice_bwd_kernel(const SweepParams p, const BwdParams bp,
         }
       }
     }
+    if (s_out != nullptr) s_out[pix] = S;
   }
   if (GSMALL) {
     const int base = 4 * p.n_lut * kBwdThreads + tid;
@@ -216,7 +224,7 @@ cudaError_t launch_bwd(const SweepParams& p, const BwdParams& bp,
                        const void* vol, const float* zs, const float* lut,
                        const float* rows, const float* g, const float* tck,
                        float* d_planes, float* partials, float* mom,
-                       cudaStream_t stream) {
+                       float* s_out, cudaStream_t stream) {
   const dim3 block(kBwdX, kBwdY);
   const dim3 grid((p.width + kBwdX - 1) / kBwdX,
                   (p.height + kBwdY - 1) / kBwdY);
@@ -227,7 +235,7 @@ cudaError_t launch_bwd(const SweepParams& p, const BwdParams& bp,
        (GSMALL ? (4 * (size_t)p.n_lut + 3) * kBwdThreads : 0));
   slice_bwd_kernel<MODE, T, CK, GVOL, GSMALL><<<grid, block, smem, stream>>>(
       p, bp, static_cast<const T*>(vol), zs, lut, rows, g, tck, d_planes,
-      partials, mom);
+      partials, mom, s_out);
   return cudaGetLastError();
 }
 
@@ -236,18 +244,18 @@ cudaError_t dispatch_wrt(const SweepParams& p, const BwdParams& bp,
                          const void* vol, const float* zs, const float* lut,
                          const float* rows, const float* g, const float* tck,
                          float* d_planes, float* partials, float* mom,
-                         cudaStream_t s) {
+                         float* s_out, cudaStream_t s) {
   const bool gvol = bp.g_planes != 0;
   const bool gsmall = bp.g_lut != 0 || bp.g_params != 0;
   if (gvol && gsmall)
-    return launch_bwd<MODE, T, CK, true, true>(p, bp, vol, zs, lut, rows, g,
-                                               tck, d_planes, partials, mom, s);
+    return launch_bwd<MODE, T, CK, true, true>(
+        p, bp, vol, zs, lut, rows, g, tck, d_planes, partials, mom, s_out, s);
   if (gvol)
-    return launch_bwd<MODE, T, CK, true, false>(p, bp, vol, zs, lut, rows, g,
-                                                tck, d_planes, partials, mom, s);
+    return launch_bwd<MODE, T, CK, true, false>(
+        p, bp, vol, zs, lut, rows, g, tck, d_planes, partials, mom, s_out, s);
   if (gsmall)
-    return launch_bwd<MODE, T, CK, false, true>(p, bp, vol, zs, lut, rows, g,
-                                                tck, d_planes, partials, mom, s);
+    return launch_bwd<MODE, T, CK, false, true>(
+        p, bp, vol, zs, lut, rows, g, tck, d_planes, partials, mom, s_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -256,13 +264,13 @@ cudaError_t dispatch_ck(const SweepParams& p, const BwdParams& bp,
                         const void* vol, const float* zs, const float* lut,
                         const float* rows, const float* g, const float* tck,
                         float* d_planes, float* partials, float* mom,
-                        cudaStream_t s) {
+                        float* s_out, cudaStream_t s) {
   if (bp.ck_stride == 4)
     return dispatch_wrt<MODE, T, 4>(p, bp, vol, zs, lut, rows, g, tck,
-                                    d_planes, partials, mom, s);
+                                    d_planes, partials, mom, s_out, s);
   if (bp.ck_stride == 8)
     return dispatch_wrt<MODE, T, 8>(p, bp, vol, zs, lut, rows, g, tck,
-                                    d_planes, partials, mom, s);
+                                    d_planes, partials, mom, s_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -273,18 +281,20 @@ cudaError_t dispatch_ck(const SweepParams& p, const BwdParams& bp,
 // same ck_stride. d_planes (n_layers, ny, nx) f32 zero-filled when
 // bp->g_planes; partials (n_blocks, 4 n_lut + 3) when bp->g_lut or
 // bp->g_params; mom (n_layers, 2, ny, nx) f32 zero-filled in variance mode
-// with g_planes. Launches on `stream`; returns cudaGetLastError().
+// with g_planes; s_out (H, W) f32 receives each ray's P_total for a seeded
+// sweep's cotangent, or null. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" __attribute__((visibility("default"))) int vrdd_slice_bwd(
     const SweepParams* p, const BwdParams* bp, int mode, int bf16,
     const void* vol, const float* zs, const float* lut, const float* rows,
     const float* g, const float* tck, float* d_planes, float* partials,
-    float* mom, void* stream) {
+    float* mom, float* s_out, void* stream) {
   if (p->height <= 0 || p->width <= 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
 #define VRDD_BWD(M, TYPE)                                                   \
   dispatch_ck<M, TYPE>(*p, *bp, vol, zs, lut, rows, g, tck, d_planes,       \
-                       partials, mom, s)
+                       partials, mom, s_out, s)
   switch (mode * 2 + (bf16 ? 1 : 0)) {
     case 0: return (int)VRDD_BWD(kNone, float);
     case 1: return (int)VRDD_BWD(kNone, bf);

@@ -16,11 +16,27 @@ def gaussian_blob_volume(
     shape: Tuple[int, int, int] = (64, 64, 64),
     n_blobs: int = 4,
     seed: int = 0,
-) -> np.ndarray:
+    device=None,
+):
     """Sum-of-Gaussians scalar volume in [0, 1] (the 64^3 scalar config of
-    BASELINE.json)."""
+    BASELINE.json): a float32 numpy array, or with ``device`` a float32
+    tensor computed there in float64 from the same seeded centres, widths
+    and amplitudes (at 256^3 the host meshgrids take seconds and over a GB;
+    the two agree to float32 rounding)."""
     rng = np.random.default_rng(seed)
     nz, ny, nx = shape
+    if device is not None:
+        f64 = dict(dtype=torch.float64, device=device)
+        z, y, x = (torch.linspace(0, 1, n, **f64) for n in shape)
+        vol = torch.zeros(shape, **f64)
+        for _ in range(n_blobs):
+            c = rng.uniform(0.2, 0.8, size=3)
+            s = rng.uniform(0.05, 0.2)
+            a = rng.uniform(0.5, 1.0)
+            vol += a * torch.exp(
+                -(((z - c[0]) ** 2)[:, None, None] + ((y - c[1]) ** 2)[:, None]
+                  + (x - c[2]) ** 2) / (2 * s * s))
+        return (vol / vol.max()).to(torch.float32)
     z, y, x = np.meshgrid(
         np.linspace(0, 1, nz), np.linspace(0, 1, ny), np.linspace(0, 1, nx),
         indexing="ij",

@@ -143,16 +143,16 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fwd = lib.vrdd_slice_sweep
     # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, ess,
-    # ess_chunk, tile_w, tile_h, stream
+    # ess_chunk, seed, tile_w, tile_h, stream
     fwd.argtypes = [ctypes.POINTER(SweepParams), i32, i32, ptr, ptr, ptr,
-                    ptr, ptr, i32, ptr, ptr, i32, i32, i32, ptr]
+                    ptr, ptr, i32, ptr, ptr, i32, ptr, i32, i32, ptr]
     fwd.restype = i32
     bwd = lib.vrdd_slice_bwd
     # params, bwd params, mode, bf16, vol, zs, lut, rows, g, tck,
-    # d_planes, partials, mom, stream
+    # d_planes, partials, mom, s_out, stream
     bwd.argtypes = [ctypes.POINTER(SweepParams), ctypes.POINTER(BwdParams),
                     i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                    ptr]
+                    ptr, ptr]
     bwd.restype = i32
     ess = lib.vrdd_ess_bitmap
     # params, pmin, pmax, zs, lut, out, stream

@@ -20,7 +20,8 @@ version (:func:`sweep_preblended_planes_reference`,
 plain version. Each wrapper counts its kernel launches in a plain int
 attribute, ``sweep_preblended_planes.launches`` and
 ``pallas_hist_render.launches``; ``sweep_preblended_planes.ess_launches``
-counts those of them that culled by an ESS bitmap.
+counts those of them that culled by an ESS bitmap, ``.seed_launches`` those
+that resumed from a seed.
 
 **Empty-space skipping** (``empty_space_skip``, ``ess_stats``) is K1's
 exact TF-interval culling: :func:`ess_bitmap` marks each (tile, chunk) —
@@ -33,10 +34,16 @@ planes — whose samples provably map to alpha 0, from the block min/max of
 The sweep kernel skips culled chunks; its plain version zeroes their alpha,
 so both give the image without ESS.
 
-Not ported yet (they raise ``NotImplementedError``): the seeded resume
-(``acc_init``, ROADMAP.md queue 2 item 1) and ``precision='bf16'`` (item
-2). The kernels take any image size, so the TPU's padding, banding and VMEM
-budgets have no counterpart here.
+**The seeded resume** (``acc_init`` of :func:`sweep_preblended_planes`) is
+K1's seed mode: an ``(H, W, 4)`` premultiplied-RGBA image the "over"
+recursion resumes from (the back half of a split stack, a streamed chunk),
+on the card passed to the kernel as its ``seed`` pointer (null: unseeded).
+Brightness scales seed and sweep together. Seed and ESS together raise, as
+JAX asserts.
+
+Not ported yet (it raises ``NotImplementedError``): ``precision='bf16'``
+(ROADMAP.md queue 2 item 2). The kernels take any image size, so the TPU's
+padding, banding and VMEM budgets have no counterpart here.
 """
 
 from __future__ import annotations
@@ -118,11 +125,18 @@ def _uniform_grid_params(m: np.ndarray, name: str):
     return float(m[0]), dm
 
 
-def _pixel_slopes(width: int, height: int, focal: float):
-    """The unrotated NDC pixel grid's ray slopes (march/slice.py semantics;
-    not pixel-centred, exactly as the JAX package)."""
+def _pixel_uv(width: int, height: int):
+    """The NDC pixel coordinates ``u (W,)`` and ``v (H,)``, float32 (not
+    pixel-centred, exactly as the JAX package)."""
     u = ((np.arange(width, dtype=np.float32) / width) * 2.0 - 1.0)
     v = ((np.arange(height, dtype=np.float32) / height) * 2.0 - 1.0)
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+def _pixel_slopes(width: int, height: int, focal: float):
+    """The unrotated camera's ray slopes over the pixel grid (march/slice.py
+    semantics)."""
+    u, v = _pixel_uv(width, height)
     return (u / (-focal)).astype(np.float32), (v / (-focal)).astype(np.float32)
 
 
@@ -349,38 +363,46 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def _device_f32(x, dev: torch.device) -> torch.Tensor:
     """``x`` (sequence, numpy array or tensor) as a contiguous float32
-    tensor on the card ``dev``. A host array goes up through pinned memory
-    without blocking: a pageable upload would wait for all the work queued
-    on the stream before it."""
+    tensor on ``dev``. A host array goes up to the card through pinned
+    memory without blocking: a pageable upload would wait for all the work
+    queued on the stream before it."""
     if isinstance(x, torch.Tensor):
         if x.device == dev:
-            return x.to(torch.float32).contiguous()
+            return x.detach().to(torch.float32).contiguous()
         x = x.detach().cpu()
     host = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    if dev.type != "cuda":
+        return host
     return host.pin_memory().to(dev, non_blocking=True)
 
 
-def _check_unported(precision, acc_init=None):
+def _check_unported(precision):
     if precision != "f32":
         raise NotImplementedError(
             f"precision={precision!r}: only 'f32' is ported (ROADMAP.md queue "
             "2 item 2)"
         )
-    if acc_init is not None:
-        raise NotImplementedError(
-            "the seeded sweep (acc_init) is not ported yet (ROADMAP.md queue 2 "
-            "item 1, seed mode)"
+
+
+def _check_seed(acc_init, empty_space_skip):
+    if acc_init is not None and empty_space_skip:
+        raise ValueError(
+            "a seeded sweep (acc_init) takes no empty-space skipping, as in "
+            "JAX (its ESS bitmap does not see the seed)"
         )
 
 
 def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
-            params: dict, ck_stride: int = 0, ess=None, ess_chunk: int = 0):
+            params: dict, ck_stride: int = 0, ess=None, ess_chunk: int = 0,
+            seed=None):
     """Validate, allocate the (H, W, 4) output and launch the CUDA kernel on
     the current stream of the volume's device, in blocks of
     :data:`ESS_TILE` pixels. ``ck_stride > 0`` also writes the transmittance
     checkpoints (K4) and returns ``(out, tck)``. ``ess``: the uint8
     ``(n_chunks, n_tile_rows, n_tile_cols)`` bitmap of :func:`ess_bitmap`
-    over chunks of ``ess_chunk`` planes (None: no culling)."""
+    over chunks of ``ess_chunk`` planes (None: no culling). ``seed``: the
+    ``(H, W, 4)`` image the sweep resumes from (None: unseeded); host data
+    goes up through :func:`_device_f32`."""
     from vrdd_tpu_torch.kernels import _build
 
     if vol.dtype not in (torch.float32, torch.bfloat16):
@@ -405,6 +427,9 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
                 f"ess bitmap {tuple(ess.shape)} {ess.dtype} on {ess.device}: "
                 f"want a contiguous uint8 {want} on {dev}"
             )
+    seed_t = None if seed is None else _device_f32(seed, dev)
+    if seed_t is not None and tuple(seed_t.shape) != (H, W, 4):
+        raise ValueError(f"acc_init {tuple(seed_t.shape)}: want ({H}, {W}, 4)")
     out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     tck = None
     if ck_stride:
@@ -420,6 +445,7 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             None if rows_t is None else rows_t.data_ptr(), out.data_ptr(),
             ck_stride, None if tck is None else tck.data_ptr(),
             None if ess is None else ess.data_ptr(), int(ess_chunk),
+            None if seed_t is None else seed_t.data_ptr(),
             ESS_TILE[1], ESS_TILE[0], stream,
         )
     if rc != 0:
@@ -713,14 +739,15 @@ def sweep_preblended_planes_reference(
     transfer_offset=0.0, transfer_scale=1.0, *, dz_sign=-1, width, height,
     march: MarchConfig = MarchConfig(), length_correction=True,
     plane_chunk=8, tex_offset=0.5, plane_spacing=None, axis_scale=(1.0, 1.0),
-    filter_linear=True, reverse_planes=False, ess=None,
+    filter_linear=True, reverse_planes=False, ess=None, acc_init=None,
 ):
     """Plain torch version of K1, on the device of ``planes_all``: the slope
     grid ``mx0 + dmx * j`` is built in float32 exactly as the kernel builds
     it, then :func:`sweep_preblended_planes_xla` sweeps (a flipped copy of
-    the stack when ``reverse_planes``). ``ess``: the bitmap of
-    :func:`ess_bitmap` over chunks of ``plane_chunk`` planes; culled samples
-    get alpha exactly 0, as the kernel skips them."""
+    the stack when ``reverse_planes``), from the seed ``acc_init`` when
+    given. ``ess``: the bitmap of :func:`ess_bitmap` over chunks of
+    ``plane_chunk`` planes; culled samples get alpha exactly 0, as the
+    kernel skips them."""
     mx, my = _slope_grids(slopes, width, height)
     if reverse_planes:
         planes_all = planes_all.flip(0)
@@ -731,6 +758,7 @@ def sweep_preblended_planes_reference(
         plane_chunk=plane_chunk, tex_offset=tex_offset,
         axis_scale=axis_scale, filter_linear=filter_linear,
         ess=None if ess is None else (ess, plane_chunk, ESS_TILE),
+        acc_init=acc_init,
     )
 
 
@@ -754,9 +782,12 @@ def sweep_preblended_planes(
     batches and the ESS chunks. ``empty_space_skip`` culls (tile, chunk)
     pairs by :func:`ess_bitmap`, from ``ess_stats`` (cached
     :func:`ess_plane_stats` of the logical plane order) or from the stack;
-    the image is the one without ESS. Returns ``(height, width, 4)``.
+    the image is the one without ESS. ``acc_init`` ``(height, width, 4)``
+    seeds the sweep (premultiplied RGBA the recursion resumes from; not with
+    ``empty_space_skip``). Returns ``(height, width, 4)``.
     """
-    _check_unported(precision, acc_init)
+    _check_unported(precision)
+    _check_seed(acc_init, empty_space_skip)
     n_planes, ny, nx = planes_all.shape
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
@@ -777,7 +808,7 @@ def sweep_preblended_planes(
             plane_chunk=plane_chunk, tex_offset=tex_offset,
             plane_spacing=plane_spacing, axis_scale=axis_scale,
             filter_linear=filter_linear, reverse_planes=reverse_planes,
-            ess=ess,
+            ess=ess, acc_init=acc_init,
         )
     if not pallas_supported(planes_all.shape, width, height, n_planes,
                             n_lut=len(tf_lut)):
@@ -794,15 +825,18 @@ def sweep_preblended_planes(
         filter_linear=filter_linear,
     )
     out = _launch(planes_all, "none", zs, tf_lut, None, params, ess=ess,
-                  ess_chunk=plane_chunk)
+                  ess_chunk=plane_chunk, seed=acc_init)
     sweep_preblended_planes.launches += 1
     sweep_preblended_planes.ess_launches += ess is not None
+    sweep_preblended_planes.seed_launches += acc_init is not None
     return out
 
 
 sweep_preblended_planes.launches = 0
 #: the launches among ``launches`` that culled by an ESS bitmap
 sweep_preblended_planes.ess_launches = 0
+#: the launches among ``launches`` that resumed from a seed
+sweep_preblended_planes.seed_launches = 0
 
 
 def _sweep_call(

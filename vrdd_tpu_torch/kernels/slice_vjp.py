@@ -19,9 +19,11 @@ Each wrapper dispatches on the device of its volume: a CUDA tensor goes to
 the kernel or the wrapper raises; a CPU tensor takes the plain torch version
 (:func:`sweep_fwd_reference`, :func:`sweep_fwd_ckpt_reference`,
 :func:`sweep_bwd_reference`: the plain sweep, its transmittance recursion,
-and the analytic VJP of ``march/slice.py``). Each counts its kernel
-launches in ``.launches``; K3's and K4's ``.ess_launches`` count those of
-them that culled by an ESS bitmap.
+the analytic VJP of ``march/slice.py`` and its ``P_total``). Each counts
+its kernel launches in ``.launches``; K3's and K4's ``.ess_launches`` count
+those of them that culled by an ESS bitmap, every wrapper's
+``.seed_launches`` those that resumed from a seed (K5: that wrote ``S``),
+and ``.size_launches`` (a Counter) its launches per image ``(H, W)``.
 
 Brightness is folded outside the kernels (they run at brightness 1 and the
 image is scaled in torch), so it stays differentiable. In the histogram
@@ -29,26 +31,40 @@ modes K5 returns the decoded-plane cotangent and the chain to the
 histograms is plain torch (``slice_kernel.decode_chain``), as JAX runs it in
 XLA outside the kernel.
 
+**Seeded sweeps** (``acc_init`` of :func:`sweep_preblended_planes_diff` and
+:func:`sweep_preblended_hist_diff`): K3/K4 resume the "over" recursion from
+the ``(H, W, 4)`` seed (K4's checkpoint row 0 is ``T_0 = 1 - seed_a``), K5
+also writes each ray's ``S = P_total``, and the seed's cotangent is
+``d seed_rgb = g_rgb``, ``d seed_a = g_a - S / T_0`` (0 where ``|T_0| <=
+1e-6``, JAX's kernel-route guard, slice_vjp.py:920, 976), whatever ``wrt``
+says, so chained sweeps (a streamed decode) backpropagate exactly. The seed
+is scaled by brightness with the rest of the image: a chain of seeded
+sweeps passes brightness 1 and scales once at the end.
+
 ``wrt`` prunes cotangents as in JAX: an input that needs a gradient but is
 not listed gets exact zeros. Empty-space skipping (``empty_space_skip`` of
 :func:`pallas_slice_render_diff`) culls in K3/K4 with the bitmap of
 ``slice_kernel.ess_bitmap``; it is exact only for ``wrt=('volume',)`` and
-raises otherwise, as in JAX. K5 takes no bitmap: it replays the culled
-samples, whose alpha and slope are zero. Not ported yet (they raise
-``NotImplementedError``): the seeded sweep (``acc_init``, ROADMAP.md queue
-2 item 1), ``precision='bf16'`` (item 2) and :func:`live_fractions` (item
-3).
+raises otherwise, as in JAX; it takes no seed. K5 takes no bitmap: it
+replays the culled samples, whose alpha and slope are zero. Not ported yet
+(they raise ``NotImplementedError``): ``precision='bf16'`` (ROADMAP.md
+queue 2 item 2) and :func:`live_fractions` (item 3).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from vrdd_tpu_torch.march.slice import preblend_planes, transmittance_checkpoints
+from vrdd_tpu_torch.march.slice import (
+    preblend_planes,
+    sweep_p_total,
+    transmittance_checkpoints,
+)
 from vrdd_tpu_torch.kernels.slice_kernel import (
     ESS_TILE, _MODES, _SMEM_FLOATS, _check_unported, _decode_plain,
     _decode_rows, _decode_rows_grad, _device_f32, _hist_geometry,
@@ -194,9 +210,11 @@ class _Sweep:
         return vol if self.mode == "none" else _decode_plain(vol, rows,
                                                              self.mode)
 
-    def reference_image(self, planes, lut, density, toff, tscl, ess=True):
-        """The plain image; ``ess=False`` ignores the bitmap (the plain
-        version of K5 replays culled samples, as K5 does)."""
+    def reference_image(self, planes, lut, density, toff, tscl, ess=True,
+                        acc0=None):
+        """The plain image from the seed ``acc0``; ``ess=False`` ignores the
+        bitmap (the plain version of K5 replays culled samples, as K5
+        does)."""
         return sweep_preblended_planes_reference(
             planes, self.zs, self.origin, self.slopes, lut, density, 1.0,
             toff, tscl, dz_sign=self.dz_sign, width=self.width,
@@ -205,8 +223,15 @@ class _Sweep:
             plane_chunk=self.ck_stride, tex_offset=self.tex_offset,
             plane_spacing=self.plane_spacing, axis_scale=self.axis_scale,
             filter_linear=self.filter_linear, reverse_planes=self.reverse,
-            ess=self.ess if ess else None,
+            ess=self.ess if ess else None, acc_init=acc0,
         )
+
+    def slope_grids(self):
+        return _slope_grids(self.slopes, self.width, self.height)
+
+    def stack(self, planes):
+        """The plain versions' front-to-back stack of decoded planes."""
+        return planes.flip(0) if self.reverse else planes
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -215,44 +240,53 @@ def _f32(x, dev) -> torch.Tensor:
 
 # ---- K3 ----------------------------------------------------------------
 
-def sweep_fwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl):
+def sweep_fwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
+                        acc0=None):
     """Plain version of K3 (and of K4's image): the plain sweep over the
-    plane stack or the materialized decode."""
+    plane stack or the materialized decode, from the seed ``acc0``."""
     with torch.no_grad():
         return cfg.reference_image(cfg.planes(vol, rows), lut, density, toff,
-                                   tscl)
+                                   tscl, acc0=acc0)
 
 
-def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl):
+def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, acc0=None):
     """K3: the differentiable sweep's primal without checkpoints, for calls
-    where no input needs a gradient. Returns ``(H, W, 4)`` at brightness 1."""
+    where no input needs a gradient, resumed from the seed ``acc0 (H, W, 4)``
+    when given. Returns ``(H, W, 4)`` at brightness 1."""
     if not _on_card(vol):
-        return sweep_fwd_reference(cfg, vol, rows, lut, density, toff, tscl)
+        return sweep_fwd_reference(cfg, vol, rows, lut, density, toff, tscl,
+                                   acc0)
     cfg.check(vol, lut)
     out = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
                   cfg.params(vol, rows, density, toff, tscl), ess=cfg.ess,
-                  ess_chunk=cfg.ck_stride)
+                  ess_chunk=cfg.ck_stride, seed=acc0)
     sweep_fwd.launches += 1
     sweep_fwd.ess_launches += cfg.ess is not None
+    sweep_fwd.seed_launches += acc0 is not None
+    sweep_fwd.size_launches[(cfg.height, cfg.width)] += 1
     return out
 
 
 sweep_fwd.launches = 0
 sweep_fwd.ess_launches = 0
+sweep_fwd.seed_launches = 0
+sweep_fwd.size_launches = collections.Counter()
 
 
 # ---- K4 ----------------------------------------------------------------
 
 def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
-                             tscl):
+                             tscl, acc0=None):
     """Plain version of K4: the image and the plain transmittance
-    recursion's checkpoints (``march.slice.transmittance_checkpoints``)."""
+    recursion's checkpoints (``march.slice.transmittance_checkpoints``),
+    from the seed ``acc0``."""
     with torch.no_grad():
         planes = cfg.planes(vol, rows)
-        img = cfg.reference_image(planes, lut, density, toff, tscl)
-        mx, my = _slope_grids(cfg.slopes, cfg.width, cfg.height)
+        img = cfg.reference_image(planes, lut, density, toff, tscl,
+                                  acc0=acc0)
+        mx, my = cfg.slope_grids()
         tck = transmittance_checkpoints(
-            planes.flip(0) if cfg.reverse else planes, cfg.zs, cfg.origin,
+            cfg.stack(planes), cfg.zs, cfg.origin,
             mx, my, lut, density, toff, tscl, cfg.march,
             ck_stride=cfg.ck_stride, dz_sign=cfg.dz_sign,
             plane_spacing=cfg.plane_spacing,
@@ -261,30 +295,36 @@ def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
             filter_linear=cfg.filter_linear,
             ess=None if cfg.ess is None else (cfg.ess, cfg.ck_stride,
                                               ESS_TILE),
+            acc_init=acc0,
         )
     return img, tck
 
 
-def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl):
+def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
+                   acc0=None):
     """K4: the primal plus ``tck (n_chunks, H, W)``, the transmittance at
     the start of every block of ``cfg.ck_stride`` planes under the
-    backward's recursion ``T <- T - [T >= 1-thr] T a``. K4's image is
-    bitwise K3's."""
+    backward's recursion ``T <- T - [T >= 1-thr] T a``, from ``1 - seed_a``
+    for a seed ``acc0``. K4's image is bitwise K3's."""
     if not _on_card(vol):
         return sweep_fwd_ckpt_reference(cfg, vol, rows, lut, density, toff,
-                                        tscl)
+                                        tscl, acc0)
     cfg.check(vol, lut)
     out = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
                   cfg.params(vol, rows, density, toff, tscl),
                   ck_stride=cfg.ck_stride, ess=cfg.ess,
-                  ess_chunk=cfg.ck_stride)
+                  ess_chunk=cfg.ck_stride, seed=acc0)
     sweep_fwd_ckpt.launches += 1
     sweep_fwd_ckpt.ess_launches += cfg.ess is not None
+    sweep_fwd_ckpt.seed_launches += acc0 is not None
+    sweep_fwd_ckpt.size_launches[(cfg.height, cfg.width)] += 1
     return out
 
 
 sweep_fwd_ckpt.launches = 0
 sweep_fwd_ckpt.ess_launches = 0
+sweep_fwd_ckpt.seed_launches = 0
+sweep_fwd_ckpt.size_launches = collections.Counter()
 
 
 # ---- K5 ----------------------------------------------------------------
@@ -302,39 +342,58 @@ def _small(n_lut: int, dev, lut=None, params=(None, None, None)):
 
 
 def sweep_bwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g,
-                        g_planes, g_lut, g_params):
+                        g_planes, g_lut, g_params, acc0=None):
     """Plain version of K5: the analytic VJP of ``march/slice.py`` over the
-    plain planes. Returns ``(d_planes, small, mom)`` like :func:`sweep_bwd`
-    (``mom`` None: the torch chain computes the moments itself)."""
+    plain planes from the seed ``acc0``, and for a seed its ``P_total``
+    (``march.slice.sweep_p_total``). Returns ``(d_planes, small, mom,
+    s_img)`` like :func:`sweep_bwd` (``mom`` None: the torch chain computes
+    the moments itself)."""
+    planes = cfg.planes(vol.detach(), rows).detach().to(torch.float32)
+    acc0 = None if acc0 is None else acc0.detach()
     with torch.enable_grad():
-        planes = cfg.planes(vol.detach(), rows).detach().to(torch.float32)
         leaves = [planes.requires_grad_(g_planes),
                   lut.detach().requires_grad_(g_lut)] + [
             t.detach().requires_grad_(g_params) for t in (density, toff, tscl)
         ]
-        img = cfg.reference_image(*leaves, ess=False)
         wanted = [t for t in leaves if t.requires_grad]
-        got = iter(torch.autograd.grad(img, wanted, g))
+        got = iter(())
+        if wanted:
+            img = cfg.reference_image(*leaves, ess=False, acc0=acc0)
+            got = iter(torch.autograd.grad(img, wanted, g))
     d = [next(got) if t.requires_grad else None for t in leaves]
-    return d[0], _small(lut.shape[0], vol.device, d[1], d[2:]), None
+    s_img = None
+    if acc0 is not None:
+        mx, my = cfg.slope_grids()
+        s_img = sweep_p_total(
+            cfg.stack(planes.detach()), cfg.zs, cfg.origin, mx, my, lut,
+            density, toff, tscl, cfg.march, g=g, acc_init=acc0,
+            dz_sign=cfg.dz_sign, plane_spacing=cfg.plane_spacing,
+            length_correction=cfg.length_correction,
+            plane_chunk=cfg.ck_stride, tex_offset=cfg.tex_offset,
+            axis_scale=cfg.axis_scale, filter_linear=cfg.filter_linear,
+        )
+    return d[0], _small(lut.shape[0], vol.device, d[1], d[2:]), None, s_img
 
 
 def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
-              g_planes: bool, g_lut: bool, g_params: bool):
+              g_planes: bool, g_lut: bool, g_params: bool, acc0=None):
     """K5: one reverse sweep from K4's checkpoints. Returns ``(d_planes,
-    small, mom)``: the plane (or decoded-plane) cotangent ``(n_layers, ny,
-    nx)`` float32 in storage layer order (None unless ``g_planes``), the
-    ``(4 n_lut + 3,)`` LUT / density / TF offset / TF scale cotangents
-    (zeros where pruned), and in variance mode the per-voxel chain moments
-    ``(n_layers, 2, ny, nx)``."""
+    small, mom, s_img)``: the plane (or decoded-plane) cotangent
+    ``(n_layers, ny, nx)`` float32 in storage layer order (None unless
+    ``g_planes``), the ``(4 n_lut + 3,)`` LUT / density / TF offset / TF
+    scale cotangents (zeros where pruned), in variance mode the per-voxel
+    chain moments ``(n_layers, 2, ny, nx)``, and for a seeded sweep
+    (``acc0``, the seed K4 ran from) each ray's ``P_total`` ``(H, W)`` that
+    the seed cotangent needs (else None)."""
     if not _on_card(vol):
         return sweep_bwd_reference(cfg, vol, rows, lut, density, toff, tscl,
-                                   g, g_planes, g_lut, g_params)
+                                   g, g_planes, g_lut, g_params, acc0)
     from vrdd_tpu_torch.kernels import _build
 
     cfg.check(vol, lut)
     if not (g_planes or g_lut or g_params):
-        raise ValueError("sweep_bwd: no cotangent requested")
+        raise ValueError("sweep_bwd: K5 needs a volume, LUT or parameter "
+                         "cotangent (S alone is not a mode of it)")
     dev = vol.device
     H, W = cfg.height, cfg.width
     if tuple(g.shape) != (H, W, 4) or tuple(tck.shape) != (cfg.n_chunks, H, W):
@@ -351,9 +410,12 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
                             device=dev) if g_planes else None)
     n_blocks = (-(-W // _BWD_BLOCK[0])) * (-(-H // _BWD_BLOCK[1]))
     partials = (torch.empty((n_blocks, 4 * n_lut + 3), dtype=torch.float32,
-                            device=dev) if (g_lut or g_params) else None)
+                            device=dev)
+                if (g_lut or g_params) else None)
     mom = (torch.zeros((n_layers, 2, ny, nx), dtype=torch.float32, device=dev)
            if (cfg.mode == "var" and g_planes) else None)
+    s_img = (None if acc0 is None
+             else torch.empty((H, W), dtype=torch.float32, device=dev))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -369,17 +431,21 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
             p, bp, _MODES[cfg.mode], int(vol.dtype == torch.bfloat16),
             vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(), ptr(rows_t),
             g.data_ptr(), tck.data_ptr(), ptr(d_planes), ptr(partials),
-            ptr(mom), stream,
+            ptr(mom), ptr(s_img), stream,
         )
     if rc != 0:
         raise RuntimeError(f"vrdd_slice_bwd launch failed: CUDA error {rc}")
     sweep_bwd.launches += 1
+    sweep_bwd.seed_launches += acc0 is not None
+    sweep_bwd.size_launches[(H, W)] += 1
     small = (partials.sum(0) if partials is not None
              else torch.zeros(4 * n_lut + 3, dtype=torch.float32, device=dev))
-    return d_planes, small, mom
+    return d_planes, small, mom, s_img
 
 
 sweep_bwd.launches = 0
+sweep_bwd.seed_launches = 0
+sweep_bwd.size_launches = collections.Counter()
 
 
 # ---- autograd ------------------------------------------------------------
@@ -395,31 +461,53 @@ def _unpack_small(small, n_lut, need, flags):
     return [g_lut] + params
 
 
-def _save(ctx, cfg, wrt, vol, rows, lut, density, toff, tscl):
-    """K4 forward of both Functions; keeps what K5 needs."""
-    img, tck = sweep_fwd_ckpt(cfg, vol, rows, lut, density, toff, tscl)
+def _save(ctx, cfg, wrt, vol, rows, lut, density, toff, tscl, acc0):
+    """K4 forward of both Functions; keeps what K5 needs. Every tensor goes
+    through ``save_for_backward``, so a recompute under
+    ``torch.utils.checkpoint`` replaces all of them."""
+    img, tck = sweep_fwd_ckpt(cfg, vol, rows, lut, density, toff, tscl,
+                              acc0)
     ctx.cfg, ctx.wrt = cfg, wrt
-    ctx.save_for_backward(vol, rows, lut, density, toff, tscl, tck)
+    ctx.save_for_backward(vol, rows, lut, density, toff, tscl, acc0, tck)
     return img
+
+
+def _seed_cotangent(g, acc0, s_img):
+    """``d acc0 = [g_rgb, g_a - S / T_0]``, ``T_0 = 1 - seed_a``, with JAX's
+    kernel-route guard ``|T_0| > 1e-6`` (a seed frozen past the cutoff has
+    ``S = 0``, so the guard never hides a contribution)."""
+    t0 = 1.0 - acc0[..., 3]
+    live = t0.abs() > 1e-6
+    d_a = g[..., 3] - torch.where(live, s_img / torch.where(live, t0, 1.0),
+                                  0.0)
+    return torch.cat([g[..., :3], d_a[..., None]], -1)
 
 
 def _grads(ctx, g, need):
     """K5 backward of both Functions: gradients of (volume or histograms,
-    decode rows, LUT, density, TF offset, TF scale) for the inputs in
-    ``need``; exact zeros where ``wrt`` prunes one that needs a gradient."""
-    vol, rows, lut, density, toff, tscl, tck = ctx.saved_tensors
+    decode rows, LUT, density, TF offset, TF scale, seed) for the inputs in
+    ``need``; exact zeros where ``wrt`` prunes one that needs a gradient
+    (the seed's is never pruned)."""
+    vol, rows, lut, density, toff, tscl, acc0, tck = ctx.saved_tensors
     cfg, wrt = ctx.cfg, ctx.wrt
     hist = cfg.mode != "none"
     want_vol = need[0] and ("hist" if hist else "volume") in wrt
     want_rows = need[1] and "weights" in wrt
     flags = (want_vol or want_rows, need[2] and "lut" in wrt,
-             any(need[3:]) and "params" in wrt)
-    d_planes, mom = None, None
+             any(need[3:6]) and "params" in wrt)
+    d_planes, mom, s_img = None, None, None
     small = _small(lut.shape[0], g.device)
-    if any(flags):
-        d_planes, small, mom = sweep_bwd(
+    if any(flags) or need[6]:
+        # a seed alone (a constant stack resumed from a differentiable
+        # prefix) still needs K5 for S: it runs with the parameter sums, as
+        # JAX's backward always computes them, and drops them
+        d_planes, small_k5, mom, s_img = sweep_bwd(
             cfg, vol, None if rows is None else rows.detach(), lut, density,
-            toff, tscl, g, tck, *flags)
+            toff, tscl, g, tck, *(flags if any(flags) else (False, False,
+                                                            True)),
+            acc0=acc0 if need[6] else None)
+        if any(flags):
+            small = small_k5
     d_vol = d_rows = None
     if need[0] and not want_vol:
         d_vol = torch.zeros_like(vol)
@@ -430,17 +518,19 @@ def _grads(ctx, g, need):
     if need[1]:
         d_rows = (_decode_rows_grad(vol, rows.detach(), "linear", d_planes)
                   if want_rows else torch.zeros_like(rows))
-    return [d_vol, d_rows] + _unpack_small(small, lut.shape[0], need[2:],
-                                           flags[1:])
+    d_acc0 = _seed_cotangent(g, acc0, s_img) if need[6] else None
+    return [d_vol, d_rows] + _unpack_small(small, lut.shape[0], need[2:6],
+                                           flags[1:]) + [d_acc0]
 
 
 class _PlanesDiff(torch.autograd.Function):
     """The scalar sweep: K4 forward, K5 backward (gradients to the plane
-    stack, the LUT, density, TF offset and TF scale)."""
+    stack, the LUT, density, TF offset, TF scale and the seed)."""
 
     @staticmethod
-    def forward(ctx, cfg, wrt, planes, lut, density, toff, tscl):
-        return _save(ctx, cfg, wrt, planes, None, lut, density, toff, tscl)
+    def forward(ctx, cfg, wrt, planes, lut, density, toff, tscl, acc0):
+        return _save(ctx, cfg, wrt, planes, None, lut, density, toff, tscl,
+                     acc0)
 
     @staticmethod
     def backward(ctx, g):
@@ -452,29 +542,40 @@ class _PlanesDiff(torch.autograd.Function):
 class _HistDiff(torch.autograd.Function):
     """The in-kernel decode sweep: K4 forward, K5 backward to the decoded
     planes, then the torch chain to the histograms (and, linear mode, to the
-    decode weights)."""
+    decode weights), and the seed's cotangent."""
 
     @staticmethod
-    def forward(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl):
-        return _save(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl)
+    def forward(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl, acc0):
+        return _save(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl,
+                     acc0)
 
     @staticmethod
     def backward(ctx, g):
         return (None, None, *_grads(ctx, g, ctx.needs_input_grad[2:]))
 
 
-def _diff_sweep(cfg: _Sweep, wrt, vol, rows, tf_lut, density, toff, tscl):
-    """K3 when nothing needs a gradient, else the autograd Function."""
+def _diff_sweep(cfg: _Sweep, wrt, vol, rows, tf_lut, density, toff, tscl,
+                acc_init=None):
+    """K3 when nothing needs a gradient, else the autograd Function; from
+    the seed ``acc_init`` when given."""
     dev = vol.device
     lut, density, toff, tscl = (_f32(x, dev)
                                 for x in (tf_lut, density, toff, tscl))
-    tensors = [vol, lut, density, toff, tscl] + ([rows] if rows is not None
-                                                  else [])
+    acc0 = None
+    if acc_init is not None:
+        acc0 = _f32(acc_init, dev)
+        if tuple(acc0.shape) != (cfg.height, cfg.width, 4):
+            raise ValueError(f"acc_init {tuple(acc0.shape)}: want "
+                             f"({cfg.height}, {cfg.width}, 4)")
+    tensors = [vol, lut, density, toff, tscl] + [
+        t for t in (rows, acc0) if t is not None]
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
-        return sweep_fwd(cfg, vol, rows, lut, density, toff, tscl)
+        return sweep_fwd(cfg, vol, rows, lut, density, toff, tscl, acc0)
     if rows is None:
-        return _PlanesDiff.apply(cfg, wrt, vol, lut, density, toff, tscl)
-    return _HistDiff.apply(cfg, wrt, vol, rows, lut, density, toff, tscl)
+        return _PlanesDiff.apply(cfg, wrt, vol, lut, density, toff, tscl,
+                                 acc0)
+    return _HistDiff.apply(cfg, wrt, vol, rows, lut, density, toff, tscl,
+                           acc0)
 
 
 # ---- public API -----------------------------------------------------------
@@ -533,8 +634,10 @@ def sweep_preblended_planes_diff(
     when ``reverse_planes``, with ``d_planes`` in the same storage order),
     ``zs (P,)`` plane depths, ``slopes = [mx0, dmx, my0, dmy]``. Under
     autograd the forward is K4 and the backward K5; otherwise K3.
-    ``plane_chunk`` (4 or 8) is the backward's chunk."""
-    _check_unported(precision, acc_init=acc_init)
+    ``plane_chunk`` (4 or 8) is the backward's chunk. ``acc_init (H, W,
+    4)`` seeds the sweep and gets its own cotangent (see the module
+    docstring); ``plane_spacing`` must then be the full stack's."""
+    _check_unported(precision)
     cfg = planes_config(
         zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
         march=march, plane_spacing=plane_spacing,
@@ -543,7 +646,7 @@ def sweep_preblended_planes_diff(
         axis_scale=axis_scale, reverse_planes=reverse_planes,
     )
     out = _diff_sweep(cfg, _norm_wrt(wrt), planes_all, None, tf_lut, density,
-                      transfer_offset, transfer_scale)
+                      transfer_offset, transfer_scale, acc_init)
     return out * brightness
 
 
@@ -576,8 +679,9 @@ def sweep_preblended_hist_diff(
     ``(P, B, NY, NX)``: the planes ARE the layers (walked back to front when
     ``reverse_planes``), decoded per voxel in the kernels (``stat`` =
     'linear' / 'var' / 'entropy' with the rows of ``decode_weight_rows``).
-    ``wrt``: 'hist', 'weights' (linear only), 'lut', 'params'."""
-    _check_unported(precision, acc_init=acc_init)
+    ``wrt``: 'hist', 'weights' (linear only), 'lut', 'params'; ``acc_init``
+    seeds the sweep, as in :func:`sweep_preblended_planes_diff`."""
+    _check_unported(precision)
     n_planes, B = hist_bm.shape[:2]
     rows = _decode_rows(weights, stat, B, hist_bm.device)
     if plane_spacing is None:
@@ -590,7 +694,7 @@ def sweep_preblended_hist_diff(
         reverse=bool(reverse_planes), length_correction=length_correction,
     )
     out = _diff_sweep(cfg, _norm_hist_wrt(wrt, stat), hist_bm, rows, tf_lut,
-                      density, transfer_offset, transfer_scale)
+                      density, transfer_offset, transfer_scale, acc_init)
     return out * brightness
 
 

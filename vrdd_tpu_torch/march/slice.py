@@ -16,8 +16,11 @@ opacity cutoff. Per-ray slab length ``dz * sqrt(1 + mx^2 + my^2)`` corrects
 the opacity (``length_correction``).
 
 The backward is the JAX package's analytic two-pass VJP
-(``use_custom_vjp``, :class:`_AnalyticSweep`); the seeded resume
-(``acc_init``) is later work; ``compute_dtype`` is float32 throughout.
+(``use_custom_vjp``, :class:`_AnalyticSweep`). ``acc_init`` seeds the sweep
+with a premultiplied RGBA image and resumes the "over" recursion from it
+(a streamed decode chunk, the back half of a split stack); its cotangent is
+``d seed_rgb = g_rgb``, ``d seed_a = g_a - P_total / T_0`` with
+``T_0 = 1 - seed_a``. ``compute_dtype`` is float32 throughout.
 """
 
 from __future__ import annotations
@@ -226,16 +229,38 @@ def _chunk_rgba_fn(n_planes, ny, nx, zs, origin, mx, my, march, dz_sign,
     return chunk_rgba
 
 
-def _composite(chunk_rgba, planes_all, args, plane_chunk, thr, shape):
-    """The masked front-to-back "over" of every chunk's RGBA."""
-    acc = torch.zeros((*shape, 4), dtype=torch.float32,
-                      device=planes_all.device)
+def _composite(chunk_rgba, planes_all, args, plane_chunk, thr, shape,
+               acc0=None):
+    """The masked front-to-back "over" of every chunk's RGBA, from the seed
+    ``acc0`` (zeros when None)."""
+    acc = (torch.zeros((*shape, 4), dtype=torch.float32,
+                       device=planes_all.device) if acc0 is None else acc0)
     for c0 in range(0, planes_all.shape[0], plane_chunk):
         rgba = chunk_rgba(c0, planes_all[c0:c0 + plane_chunk], *args)
         for k in range(rgba.shape[0]):
             new_acc = acc + rgba[k] * (1.0 - acc[..., 3:4])
             acc = torch.where(acc[..., 3:4] > thr, acc, new_acc)
     return acc
+
+
+def _p_total(chunk_rgba, planes, args, chunk, thr, g, T0):
+    """Pass 1 of the VJP: ``P_total = sum_k m_k (g . c_k) T_{k-1}`` per ray,
+    the transmittance starting at ``T0``."""
+    T, ptot = T0, torch.zeros_like(T0)
+    for c0 in range(0, planes.shape[0], chunk):
+        rgba = chunk_rgba(c0, planes[c0:c0 + chunk], *args)
+        for k in range(rgba.shape[0]):
+            m = T >= 1.0 - thr
+            ptot = ptot + torch.where(m, torch.sum(g * rgba[k], -1) * T, 0.0)
+            T = torch.where(m, T * (1.0 - rgba[k][..., 3]), T)
+    return ptot
+
+
+def _seed_t0(acc0, shape, dev):
+    """The transmittance entering plane 0: ``1 - seed_a`` (1 unseeded)."""
+    if acc0 is None:
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+    return 1.0 - acc0[..., 3]
 
 
 class _AnalyticSweep(torch.autograd.Function):
@@ -250,33 +275,30 @@ class _AnalyticSweep(torch.autograd.Function):
         S_k = sum_{j>k} P_j,
 
     so the backward holds one chunk's graph at a time, never the planes'.
-    The plain version of the reverse-sweep kernel (K5)."""
+    A seed ``acc0`` starts T at ``T_0 = 1 - seed_a``; every later T is
+    proportional to it, so ``d seed_rgb = g_rgb`` and ``d seed_a = g_a -
+    P_total / T_0`` (0 where ``T_0 <= 1e-6``: a saturated seed has
+    ``P_total = 0``). The plain version of the reverse-sweep kernel (K5)."""
 
     @staticmethod
     def forward(ctx, chunk_rgba, plane_chunk, thr, shape, planes, lut,
-                density, toff, tscl):
+                density, toff, tscl, acc0):
         ctx.chunk_rgba, ctx.plane_chunk, ctx.thr = chunk_rgba, plane_chunk, thr
-        ctx.save_for_backward(planes, lut, density, toff, tscl)
+        ctx.save_for_backward(planes, lut, density, toff, tscl, acc0)
         return _composite(chunk_rgba, planes, (lut, density, toff, tscl),
-                          plane_chunk, thr, shape)
+                          plane_chunk, thr, shape, acc0)
 
     @staticmethod
     def backward(ctx, g):
-        planes, lut, density, toff, tscl = ctx.saved_tensors
+        planes, lut, density, toff, tscl, acc0 = ctx.saved_tensors
         chunk_rgba, chunk, thr = ctx.chunk_rgba, ctx.plane_chunk, ctx.thr
-        need = ctx.needs_input_grad[4:]
+        need = ctx.needs_input_grad[4:9]
         args = (lut, density, toff, tscl)
         n_planes = planes.shape[0]
-        T0 = torch.ones(g.shape[:2], dtype=torch.float32, device=g.device)
+        T0 = _seed_t0(acc0, g.shape[:2], g.device)
 
         # pass 1: P_total
-        T, ptot = T0, torch.zeros_like(T0)
-        for c0 in range(0, n_planes, chunk):
-            rgba = chunk_rgba(c0, planes[c0:c0 + chunk], *args)
-            for k in range(rgba.shape[0]):
-                m = T >= 1.0 - thr
-                ptot = ptot + torch.where(m, torch.sum(g * rgba[k], -1) * T, 0.0)
-                T = torch.where(m, T * (1.0 - rgba[k][..., 3]), T)
+        ptot = _p_total(chunk_rgba, planes, args, chunk, thr, g, T0)
 
         # pass 2: per-plane cotangents, transposed chunk by chunk
         grads = [torch.zeros_like(planes) if need[0] else None] + [
@@ -314,7 +336,13 @@ class _AnalyticSweep(torch.autograd.Function):
                     grads[0][c0:c0 + chunk] += d
                 else:
                     grads[i] += d
-        return (None, None, None, None, *grads)
+        d_acc0 = None
+        if ctx.needs_input_grad[9]:
+            live = T0 > 1e-6
+            d_a = g[..., 3] - torch.where(
+                live, ptot / torch.where(live, T0, 1.0), 0.0)
+            d_acc0 = torch.cat([g[..., :3], d_a[..., None]], -1)
+        return (None, None, None, None, *grads, d_acc0)
 
 
 def sweep_preblended_planes_xla(
@@ -339,6 +367,7 @@ def sweep_preblended_planes_xla(
     axis_scale=(1.0, 1.0),
     filter_linear: bool = True,
     ess=None,
+    acc_init=None,
 ) -> torch.Tensor:
     """Masked "over" sweep over an ALREADY pre-blended plane stack.
 
@@ -346,10 +375,12 @@ def sweep_preblended_planes_xla(
     depths, ``mx``/``my`` the slope grids. ``plane_spacing`` must be the FULL
     stack's inter-plane distance when ``planes_all`` is a partial stack.
     Planes are processed ``plane_chunk`` at a time (batched matmuls); the
-    chunking changes memory, not the result.
+    chunking changes memory, not the result. ``acc_init`` is an optional
+    ``(H, W, 4)`` premultiplied-RGBA seed the "over" recursion resumes from:
+    seeded pixels past the opacity threshold stay frozen.
 
     Gradients flow to the planes, the LUT, ``density``, the TF offset and
-    scale (tensors that require grad) and ``brightness``. With
+    scale (tensors that require grad), ``brightness`` and the seed. With
     ``use_custom_vjp`` (the default) the backward is the analytic two-pass
     VJP (:class:`_AnalyticSweep`, O(chunk) memory); ``False`` is plain
     autograd through the forward, the oracle the tests hold it against.
@@ -369,13 +400,14 @@ def sweep_preblended_planes_xla(
 
     args = (f32(tf_lut), f32(density), f32(transfer_offset),
             f32(transfer_scale))
+    acc0 = None if acc_init is None else f32(acc_init)
     thr = march.opacity_threshold
     if use_custom_vjp:
         acc = _AnalyticSweep.apply(chunk_rgba, plane_chunk, thr,
-                                   (height, width), planes_all, *args)
+                                   (height, width), planes_all, *args, acc0)
     else:
         acc = _composite(chunk_rgba, planes_all, args, plane_chunk, thr,
-                         (height, width))
+                         (height, width), acc0)
     return acc * brightness
 
 
@@ -385,13 +417,14 @@ def transmittance_checkpoints(
     march: MarchConfig = MarchConfig(), *, ck_stride: int, dz_sign: int = -1,
     plane_spacing=None, length_correction: bool = True,
     tex_offset: float = 0.5, axis_scale=(1.0, 1.0),
-    filter_linear: bool = True, ess=None,
+    filter_linear: bool = True, ess=None, acc_init=None,
 ) -> torch.Tensor:
     """The backward's transmittance ``T`` at the start of every block of
     ``ck_stride`` planes: ``(ceil(P / ck_stride), H, W)``, with the
     recursion ``T <- T - [T >= 1 - thr] T a`` (vrdd_tpu/pallas/slice_kernel.py
-    :1046-1051). The plain version of the checkpoints K4 writes; ``ess``:
-    see :func:`_chunk_rgba_fn`."""
+    :1046-1051) from ``T_0 = 1 - seed_a`` (1 without ``acc_init``). The
+    plain version of the checkpoints K4 writes; ``ess``: see
+    :func:`_chunk_rgba_fn`."""
     dev = planes_all.device
     planes_all = planes_all.to(torch.float32)
     n_planes, ny, nx = planes_all.shape
@@ -401,8 +434,9 @@ def transmittance_checkpoints(
     )
     lut = torch.as_tensor(tf_lut, dtype=torch.float32, device=dev)
     thr = march.opacity_threshold
-    T = torch.ones((np.asarray(my).shape[0], np.asarray(mx).shape[0]),
-                   dtype=torch.float32, device=dev)
+    T = _seed_t0(None if acc_init is None else torch.as_tensor(
+        acc_init, dtype=torch.float32, device=dev),
+        (np.asarray(my).shape[0], np.asarray(mx).shape[0]), dev)
     rows = []
     for c0 in range(0, n_planes, ck_stride):
         rows.append(T)
@@ -411,6 +445,36 @@ def transmittance_checkpoints(
         for k in range(a.shape[0]):
             T = T - torch.where(T >= 1.0 - thr, T, 0.0) * a[k]
     return torch.stack(rows)
+
+
+def sweep_p_total(
+    planes_all: torch.Tensor, zs, origin, mx, my, tf_lut, density=0.05,
+    transfer_offset=0.0, transfer_scale=1.0,
+    march: MarchConfig = MarchConfig(), *, g, acc_init=None,
+    dz_sign: int = -1, plane_spacing=None, length_correction: bool = True,
+    plane_chunk: int = 8, tex_offset: float = 0.5, axis_scale=(1.0, 1.0),
+    filter_linear: bool = True,
+) -> torch.Tensor:
+    """``P_total = sum_k m_k (g . c_k) T_{k-1}`` per ray for the image
+    cotangent ``g (H, W, 4)``, T starting at ``1 - seed_a``: the ``(H, W)``
+    total the seed cotangent needs (``d seed_a = g_a - P_total / T_0``).
+    The plain version of the ``S`` image the reverse-sweep kernel writes."""
+    dev = planes_all.device
+    planes_all = planes_all.to(torch.float32)
+    n_planes, ny, nx = planes_all.shape
+    chunk_rgba = _chunk_rgba_fn(
+        n_planes, ny, nx, zs, origin, mx, my, march, dz_sign, plane_spacing,
+        length_correction, tex_offset, axis_scale, filter_linear, dev,
+    )
+    args = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in
+            (tf_lut, density, transfer_offset, transfer_scale)]
+    g = torch.as_tensor(g, dtype=torch.float32, device=dev)
+    acc0 = (None if acc_init is None
+            else torch.as_tensor(acc_init, dtype=torch.float32, device=dev))
+    with torch.no_grad():
+        return _p_total(chunk_rgba, planes_all, args, plane_chunk,
+                        march.opacity_threshold, g,
+                        _seed_t0(acc0, g.shape[:2], dev))
 
 
 def slice_render_image(

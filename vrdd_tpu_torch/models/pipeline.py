@@ -11,13 +11,14 @@ query method (volumeRender.cpp:129 legend):
 through one of the renderers of the JAX package: ``scan`` (the ray marcher,
 ``march/scan.py``), ``slice`` (the plain torch plane sweep,
 ``march/slice.py``), ``pallas`` (the fused sweep kernel K1,
-``kernels/slice_kernel.py``, with empty-space skipping on by default) or
-``auto``. Everything runs on the device of the raw histograms.
+``kernels/slice_kernel.py``, with empty-space skipping on by default),
+``shearwarp`` (rotated views on the sweep, ``march/shearwarp.py``: the fused
+K3 for a volume on the card, the plain sweep on the CPU) or ``auto``.
+Everything runs on the device of the raw histograms.
 
 Not ported yet (each raises ``NotImplementedError``): the fractal queries
-4/5/6 (ROADMAP.md queue 1 item 5), the flexible-block queries 8/9/0 (item
-8) and rotated views under ``auto`` or ``shearwarp`` (the shear-warp sweep,
-item 7).
+4/5/6 (ROADMAP.md queue 1 item 5) and the flexible-block queries 8/9/0
+(item 8).
 """
 
 from __future__ import annotations
@@ -32,10 +33,13 @@ from vrdd_tpu_torch.core.image import rgba_to_uint8
 from vrdd_tpu_torch.core.transfer import default_transfer_function
 from vrdd_tpu_torch.kernels.slice_kernel import (
     pallas_slice_render,
-    pallas_supported,
     precompute_ess_stats,
 )
 from vrdd_tpu_torch.march.scan import render_image
+from vrdd_tpu_torch.march.shearwarp import (
+    shearwarp_applicable,
+    shearwarp_render_image,
+)
 from vrdd_tpu_torch.march.slice import slice_render_image
 from vrdd_tpu_torch.models.renderer import (
     interp_mean_sample_fn,
@@ -64,13 +68,6 @@ def _check_method(method: QueryMethod) -> QueryMethod:
             "yet (ROADMAP.md queue 1 item 8: models/flexible.py)"
         )
     return method
-
-
-def _shearwarp_missing() -> NotImplementedError:
-    return NotImplementedError(
-        "rotated views render through the shear-warp sweep, not ported yet "
-        "(ROADMAP.md queue 1 item 7: march/shearwarp.py)"
-    )
 
 
 class RenderPipeline:
@@ -163,11 +160,13 @@ class RenderPipeline:
         """'auto' -> the fastest applicable path for this view/method.
 
         Unrotated views of queries 1-3 and 7 go object-order: the fused
-        kernel ('pallas') when the stats channel is on the card and the
-        kernel takes the configuration, else the plain torch sweep
-        ('slice'), as JAX picks 'slice' off the TPU. Point filtering at a
-        rotated view goes to the scan marcher, as in JAX; other rotated
-        views raise (JAX takes the shear-warp sweep, not ported yet)."""
+        kernel ('pallas', which raises on a configuration it cannot take)
+        when the stats channel is on the card, else the plain torch sweep
+        ('slice'), as JAX picks 'slice' off the TPU. Rotated views take the
+        shear-warp sweep ('shearwarp') where d_z keeps one sign over the
+        image, else the scan marcher; point filtering at a rotated view goes
+        to the scan marcher (the warp would re-soften its texels), as in
+        JAX."""
         if renderer != "auto":
             return renderer
         _check_method(config.query_method)
@@ -177,14 +176,9 @@ class RenderPipeline:
         if not config.filter_linear and not unrotated:
             return "scan"
         if not unrotated:
-            raise _shearwarp_missing()
+            return "shearwarp" if shearwarp_applicable(inv_view) else "scan"
         vol = self._stats_channel(config.query_method)
-        if vol.device.type == "cuda" and pallas_supported(
-            tuple(vol.shape), config.camera.width, config.camera.height,
-            max(64, 2 * vol.shape[0]), n_lut=int(self.tf_lut.shape[0]),
-        ):
-            return "pallas"
-        return "slice"
+        return "pallas" if vol.device.type == "cuda" else "slice"
 
     def render(
         self,
@@ -198,10 +192,11 @@ class RenderPipeline:
 
         ``renderer``: 'scan' (general ray marcher, bit-faithful to d_render),
         'slice' (object-order plain torch sweep), 'pallas' (the fused CUDA
-        kernel on the card; its plain version on the CPU), or 'auto'
-        (fastest applicable). The object-order paths require an unrotated
-        view. ``as_uint8=True`` packs to RGBA8; ``channels=3`` also drops
-        alpha (uint8 only)."""
+        kernel on the card; its plain version on the CPU), 'shearwarp'
+        (any view on the sweep: the fused forward for a volume on the card,
+        the plain sweep on the CPU) or 'auto' (fastest applicable). 'slice'
+        and 'pallas' require an unrotated view. ``as_uint8=True`` packs to
+        RGBA8; ``channels=3`` also drops alpha (uint8 only)."""
         if inv_view is None:
             inv_view = default_benchmark_inv_view()
         if channels not in (3, 4):
@@ -212,12 +207,22 @@ class RenderPipeline:
         pack_u8 = (channels if channels != 4 else True) if as_uint8 else False
         method = _check_method(config.query_method)
         renderer = self.resolve_renderer(renderer, inv_view, config)
-        if renderer == "shearwarp":
-            raise _shearwarp_missing()
         params = (
             self.tf_lut, config.density, config.brightness, config.tf.offset,
             config.tf.scale,
         )
+        if renderer == "shearwarp":
+            vol = self._stats_channel(method)
+            # distribution stats volumes are coarse (tens of blocks per
+            # axis): floor the plane count so the sweep's axial sampling
+            # stays comparable to the scan marcher's tstep
+            return shearwarp_render_image(
+                vol, np.asarray(inv_view, dtype=np.float32),
+                config.camera.width, config.camera.height, *params,
+                march=config.march, n_planes=max(64, 2 * vol.shape[0]),
+                tex_offset=self._tex_offset(method),
+                backend="auto", pack_u8=pack_u8,
+            )
         # ESS applies to the fused forward with linear filtering (the cached
         # plane stats describe the LINEAR pre-blend; point sampling snaps
         # the z taps, which would make them non-conservative)

@@ -7,8 +7,8 @@ tensor of (mean, variance, entropy), on the device of the family's data —
 the analogue of originalQueryTex (d_basicDataProcessing,
 volumeRender_kernel.cu:722-872).
 
-Ported so far: ``ScalarVolume`` and ``RawHistogramVolume``. The fractal and
-Gaussian-moment families need ``ops/fractal.py`` and ``ops/gaussian.py``
+Ported so far: ``ScalarVolume``, ``RawHistogramVolume`` and
+``GaussianMomentVolume``. The fractal family needs ``ops/fractal.py``
 (ROADMAP.md queue 1 item 5).
 """
 
@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from vrdd_tpu_torch.ops.gaussian import gaussian_stats
 from vrdd_tpu_torch.ops.histogram import raw_block_stats
 
 
@@ -55,6 +56,17 @@ class RawHistogramVolume:
         for z0 in range(0, nz, step):
             out[z0:z0 + step] = raw_block_stats(h[z0:z0 + step])
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianMomentVolume:
+    """Per-voxel Gaussian (mu, sigma): BASELINE.json config 3 (256^3)."""
+
+    mu: torch.Tensor  # (Z, Y, X)
+    sigma: torch.Tensor  # (Z, Y, X)
+
+    def stats_volume(self) -> torch.Tensor:
+        return gaussian_stats(self.mu, self.sigma)
 
 
 def compute_stats_volume(volume) -> torch.Tensor:
