@@ -29,10 +29,15 @@ Phases (each prints its lines; any failure exits non-zero):
    mean((img - 0.25)^2) of ``pallas_hist_render_diff`` on the same volume
    with gradients to the histograms and the LUT, for mean (materialized,
    inkernel), var (inkernel, materialized) and entropy (inkernel), after an
-   evaluation render without gradients; launch counters reset before and
+   evaluation render without gradients; launch counters (and staged
+   launches: K3/K4/K5 must take the fetch path the wrappers choose, staged
+   but for K5 on the materialized route's scalar planes) reset before and
    read after each; gradients against the plain analytic VJP (1e-3
-   relative L2); fwd+bwd and each of K3/K4/K5 timed against its plain
-   version;
+   relative L2); fwd+bwd on both fetch paths, and each of K3/K4/K5 on
+   both, timed in turns (direct, staged, staged, direct) and held against
+   its plain version; staged against direct: images and checkpoints
+   bitwise, K5's LUT cotangents bitwise (and over two staged runs), its
+   ``d_planes`` and variance moments within 1e-6 relative L2;
 7. the ``render`` path (``RenderPipeline``, queries 1/2/3/7):
    7a. the reference's benchmark geometry, the Isabel-shaped 50 x 50 x 10
        blocks x 32 bins, to 512^2 with the ``scan``, ``slice`` and
@@ -81,14 +86,22 @@ Phases (each prints its lines; any failure exits non-zero):
        ``'xla'`` shear-warp at the image tolerance, frame ms and MTexels/s,
        K3 on the 2048^2 m-grid timed against its plain version.
 
+Every sweep kernel runs by default on the fetch path its wrapper chooses
+(staged where the footprint fits shared memory, K5 on scalar planes
+direct); phases 5, 7 and 8 also time the other path and hold the two
+bitwise (K5: ``d_planes`` within 1e-6 relative L2).
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Each kernel's record holds its launches
-in the main-path run (a seeded kernel's: its seeded launches in the
+and its launches on the staged path (``staged_launches``; null for the ESS
+bitmap, which has one path) in the main-path run (a seeded kernel's: its
+seeded launches in the
 streamed fit-voxels run; K1's seeded launches are those of 8a, its split
 stack, as no fit-voxels path resumes K1; the rotated views' K4/K5: their
 launches on the m-grid in the unstreamed run), its error against the plain
-version, its ms (median
-of warm runs, CUDA events), the plain version's ms, and ``bound_ms``: the
+version, its ms on the staged path and ``direct_ms`` on the direct path
+(each the mean of two medians of warm runs, CUDA events, timed in turns),
+the plain version's ms, and ``bound_ms``: the
 larger of the bytes the call must move over the H100's 3.35 TB/s and its
 FP32 operations over its 67 TFLOP/s, with ``bound_by`` naming the larger.
 Both count what this run's data needs: the samples evaluated (in front of
@@ -179,9 +192,9 @@ def compare(got, ref, what):
     return err
 
 
-def rel_l2(got, ref, what):
+def rel_l2(got, ref, what, limit=GRAD_TOL):
     """Relative L2 error, summed a few z-layers at a time in float64 (the
-    full-size histogram cotangents are 2^31 values); fails past GRAD_TOL."""
+    full-size histogram cotangents are 2^31 values); fails past ``limit``."""
     import torch
 
     if got.shape != ref.shape:
@@ -199,9 +212,38 @@ def rel_l2(got, ref, what):
         den += float((b ** 2).sum())
     err = (num / max(den, 1e-300)) ** 0.5
     print(f"  {what}: rel L2 {err:.3e}")
-    if err > GRAD_TOL or den == 0.0:
-        fail(f"{what}: rel L2 {err:.3e} (limit {GRAD_TOL:g}, ref norm^2 {den})")
+    if err > limit or den == 0.0:
+        fail(f"{what}: rel L2 {err:.3e} (limit {limit:g}, ref norm^2 {den})")
     return err
+
+
+def bitwise(a, b, what):
+    """Fails unless the two tensors are bitwise equal."""
+    import torch
+
+    if not torch.equal(a, b):
+        fail(f"{what}: not bitwise equal")
+
+
+def on_path(staged, fn):
+    """``fn`` with every sweep launch inside it forced onto the staged
+    (True) or the direct (False) fetch path."""
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+
+    def run():
+        with sk._fetch_path(staged):
+            return fn()
+    return run
+
+
+def paths_ms(fn_for, runs=TIMED_RUNS):
+    """``(staged_ms, direct_ms)``: ``fn_for(staged)`` timed on both fetch
+    paths in turns (direct, staged, staged, direct), each the mean of its
+    two medians of ``runs`` warm runs."""
+    t = {True: [], False: []}
+    for staged in (False, True, True, False):
+        t[staged].append(time_ms(fn_for(staged), runs))
+    return sum(t[True]) / 2, sum(t[False]) / 2
 
 
 def time_ms(fn, runs):
@@ -451,7 +493,7 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
           f"mean((img - 0.25)^2), wrt (hist, lut), on {card} ({smi})")
     counters = diff_counters()
     lut0 = torch.as_tensor(tf, device=dev)
-    records = []
+    records, mrays = [], {}
     for stat, route in (("mean", "materialized"), ("mean", "inkernel"),
                         ("var", "inkernel"), ("var", "materialized"),
                         ("entropy", "inkernel")):
@@ -473,16 +515,23 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
 
         # the main-path run: an evaluation render (K3), then fwd+bwd (K4, K5)
         for c in counters:
-            c.launches = 0
+            c.launches = c.staged_launches = 0
         with torch.no_grad():
             img3 = render(hist, lut0)
         loss, img, gh, gl = fwd_bwd()
         torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
-        print(f"  [{tag}] launches in the main-path run: {launches}, loss "
-              f"{float(loss.detach()):.6f}")
+        staged = {c.__name__: c.staged_launches for c in counters}
+        print(f"  [{tag}] launches in the main-path run: {launches}, on the "
+              f"staged path: {staged}, loss {float(loss.detach()):.6f}")
         if any(v == 0 for v in launches.values()):
             fail(f"{tag}: a kernel of the training path was not launched")
+        # K5 on scalar planes (the materialized route) goes direct by choice
+        want = dict(launches, sweep_bwd=0) if route == "materialized" else (
+            launches)
+        if staged != want:
+            fail(f"{tag}: K3/K4/K5 did not take the fetch paths the wrappers "
+                 f"choose: staged {staged} of {launches}")
         if not torch.equal(img.detach(), img3):
             fail(f"{tag}: K4's image is not bitwise K3's")
 
@@ -501,10 +550,12 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         rel_l2(gl, glp, f"[{tag}] d_lut")
         del lossp, imgp, ghp, glp, loss, img, gh, gl
         torch.cuda.reset_peak_memory_stats()
-        ms = time_ms(fwd_bwd, TIMED_RUNS)
+        ms, direct_ms = paths_ms(lambda s: on_path(s, fwd_bwd))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"  [{tag}] fwd+bwd: kernels {ms:.3f} ms ({W * W / ms / 1e3:.2f}"
-              f" Mrays/s), plain {plain_ms:.3f} ms "
+        mrays[tag] = (W * W / ms / 1e3, W * W / direct_ms / 1e3)
+        print(f"  [{tag}] fwd+bwd: kernels staged {ms:.3f} ms "
+              f"({mrays[tag][0]:.2f} Mrays/s), direct {direct_ms:.3f} ms "
+              f"({mrays[tag][1]:.2f} Mrays/s), plain {plain_ms:.3f} ms "
               f"({W * W / plain_ms / 1e3:.2f} Mrays/s), peak "
               f"{peak:.2f} GiB")
 
@@ -538,43 +589,79 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         args = (cfg, vol, rows_t, lut0,
                 torch.tensor(0.05, device=dev), torch.tensor(0.0, device=dev),
                 torch.tensor(tscl, device=dev))
-        k3_ms = time_ms(lambda: sv.sweep_fwd(*args), TIMED_RUNS)
+        paths = (True, False)
+        # K3 on both fetch paths: each against the plain version, staged
+        # bitwise direct
+        k3_ms, k3_direct = paths_ms(
+            lambda s: lambda: sv.sweep_fwd(*args, staged=s))
         k3_plain_ms, ref3 = timed_once(lambda: sv.sweep_fwd_reference(*args))
-        k3_err = compare(sv.sweep_fwd(*args), ref3, f"[{tag}] K3 image")
-        img4, tck = sv.sweep_fwd_ckpt(*args)
-        k4_ms = time_ms(lambda: sv.sweep_fwd_ckpt(*args), TIMED_RUNS)
+        k3 = {s: sv.sweep_fwd(*args, staged=s) for s in paths}
+        k3_err = compare(k3[True], ref3, f"[{tag}] K3 image, staged")
+        compare(k3[False], ref3, f"[{tag}] K3 image, direct")
+        bitwise(k3[True], k3[False], f"[{tag}] K3 image staged vs direct")
+        # K4
+        k4_ms, k4_direct = paths_ms(
+            lambda s: lambda: sv.sweep_fwd_ckpt(*args, staged=s))
         k4_plain_ms, (ref4, tck_ref) = timed_once(
             lambda: sv.sweep_fwd_ckpt_reference(*args))
-        k4_err = compare(img4, ref4, f"[{tag}] K4 image")
-        compare(tck[..., None], tck_ref[..., None], f"[{tag}] K4 checkpoints")
+        k4 = {s: sv.sweep_fwd_ckpt(*args, staged=s) for s in paths}
+        k4_err = [compare(k4[s][0], ref4, f"[{tag}] K4 image, "
+                          f"{'staged' if s else 'direct'}") for s in paths][0]
+        for s in paths:
+            compare(k4[s][1][..., None], tck_ref[..., None],
+                    f"[{tag}] K4 checkpoints, {'staged' if s else 'direct'}")
+        bitwise(k4[True][0], k4[False][0], f"[{tag}] K4 image staged vs direct")
+        bitwise(k4[True][1], k4[False][1],
+                f"[{tag}] K4 checkpoints staged vs direct")
+        bitwise(k4[True][0], k3[True], f"[{tag}] K4 image vs K3 image")
+        img4, tck = k4[True]
+        del k3, k4, ref3, ref4, tck_ref
         g = (2.0 / img4.numel()) * (img4 - 0.25)  # d loss / d image
         flags = (True, True, False)
-        k5_ms = time_ms(lambda: sv.sweep_bwd(*args, g, tck, *flags),
-                        TIMED_RUNS)
-        d_k, small_k, *_ = sv.sweep_bwd(*args, g, tck, *flags)
+        # K5
+        k5_ms, k5_direct = paths_ms(
+            lambda s: lambda: sv.sweep_bwd(*args, g, tck, *flags, staged=s))
         k5_plain_ms, (d_r, small_r, *_) = timed_once(
             lambda: sv.sweep_bwd_reference(*args, g, *flags))
-        rel_l2(d_k, d_r, f"[{tag}] K5 d_planes")
-        rel_l2(small_k, small_r, f"[{tag}] K5 d_lut")
-        k5_err = float((d_k - d_r).abs().max())
-        del vol, ref3, img4, tck, ref4, tck_ref, d_k, d_r
-        for name, src, line, k_ms, p_ms, e in (
-            ("sweep_fwd", "slice_sweep.cu", 698, k3_ms, k3_plain_ms, k3_err),
-            ("sweep_fwd_ckpt", "slice_sweep.cu", 714, k4_ms, k4_plain_ms,
-             k4_err),
-            ("sweep_bwd", "slice_vjp.cu", 787, k5_ms, k5_plain_ms, k5_err),
+        k5 = {s: sv.sweep_bwd(*args, g, tck, *flags, staged=s) for s in paths}
+        for s in paths:
+            path = "staged" if s else "direct"
+            rel_l2(k5[s][0], d_r, f"[{tag}] K5 d_planes, {path}")
+            rel_l2(k5[s][1], small_r, f"[{tag}] K5 d_lut, {path}")
+        k5_err = float((k5[True][0] - d_r).abs().max())
+        bitwise(k5[True][1], k5[False][1], f"[{tag}] K5 d_lut staged vs direct")
+        rel_l2(k5[True][0], k5[False][0],
+               f"[{tag}] K5 d_planes staged vs direct", 1e-6)
+        if k5[True][2] is not None:
+            rel_l2(k5[True][2], k5[False][2],
+                   f"[{tag}] K5 var moments staged vs direct", 1e-6)
+        again = sv.sweep_bwd(*args, g, tck, *flags, staged=True)
+        bitwise(again[1], k5[True][1], f"[{tag}] K5 d_lut, two staged runs")
+        del vol, img4, tck, k5, d_r, again
+        for name, src, line, k_ms, d_ms, p_ms, e in (
+            ("sweep_fwd", "slice_sweep.cu", 698, k3_ms, k3_direct,
+             k3_plain_ms, k3_err),
+            ("sweep_fwd_ckpt", "slice_sweep.cu", 714, k4_ms, k4_direct,
+             k4_plain_ms, k4_err),
+            ("sweep_bwd", "slice_vjp_staged.cu", 787, k5_ms, k5_direct,
+             k5_plain_ms, k5_err),
         ):
-            print(f"  [{tag}] {name}: kernel {k_ms:.3f} ms, plain "
-                  f"{p_ms:.3f} ms, bound {bounds[name]['bound_ms']:.3f} ms "
+            print(f"  [{tag}] {name}: staged {k_ms:.3f} ms, direct "
+                  f"{d_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{bounds[name]['bound_ms']:.3f} ms "
                   f"({bounds[name]['bound_by']}), max_abs_err {e:.3e}")
             records.append({
                 "name": f"{name}[{tag}]", "route": "cuda",
                 "source": f"vrdd_tpu_torch/csrc/{src}",
                 "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
-                "launches": launches[name], "max_abs_err": e, "ms": k_ms,
-                "plain_ms": p_ms, **bounds[name],
+                "launches": launches[name],
+                "staged_launches": staged[name], "max_abs_err": e,
+                "ms": k_ms, "direct_ms": d_ms, "plain_ms": p_ms,
+                **bounds[name],
             })
         torch.cuda.empty_cache()
+    print("  fwd+bwd Mrays/s (staged / direct): " + ", ".join(
+        f"{t} {a:.2f} / {b:.2f}" for t, (a, b) in mrays.items()))
     return records
 
 
@@ -696,20 +783,26 @@ def phase_7(dev, card, smi, tf, work):
     for q in (1, 2, 3, 7):
         if pipe.resolve_renderer("auto", iv, config(q, W, 6.0)) != "pallas":
             fail(f"7b q{q}: 'auto' did not resolve to the fused kernel")
-    k1.launches = k1.ess_launches = bm.launches = 0
+    k1.launches = k1.ess_launches = k1.staged_launches = bm.launches = 0
     images, launches = {}, {}
+
+    def counts():
+        return (k1.launches, k1.ess_launches, bm.launches, k1.staged_launches)
+
     for q in (1, 2, 3, 7):
-        before = (k1.launches, k1.ess_launches, bm.launches)
+        before = counts()
         images[q] = pipe.render(iv, config(q, W, 6.0), "auto")
-        launches[q] = tuple(c - b for c, b in zip(
-            (k1.launches, k1.ess_launches, bm.launches), before))
+        launches[q] = tuple(c - b for c, b in zip(counts(), before))
     torch.cuda.synchronize()
     print(f"  launches in the main-path run: K1 {k1.launches}, with ESS "
-          f"{k1.ess_launches}, ESS bitmap {bm.launches} (per query, K1 / "
-          f"with ESS / bitmap: {launches})")
+          f"{k1.ess_launches}, ESS bitmap {bm.launches}, K1 staged "
+          f"{k1.staged_launches} (per query, K1 / with ESS / bitmap / "
+          f"staged: {launches})")
     if (k1.launches == 0 or k1.ess_launches != k1.launches
             or bm.launches != k1.launches):
         fail("7b: the render path did not run the ESS bitmap and K1 with ESS")
+    if k1.staged_launches != k1.launches:
+        fail("7b: the render path did not run K1 on the staged path")
 
     def channel(q):
         """The pipeline's scalar field of query q, from its public parts."""
@@ -759,9 +852,12 @@ def phase_7(dev, card, smi, tf, work):
                       empty_space_skip=culled,
                       ess_stats=stats if culled else None)
 
-        k1_ess_ms = time_ms(lambda: k1_run(True), TIMED_RUNS)
+        k1_ess_ms, k1_ess_direct = paths_ms(
+            lambda st: on_path(st, lambda: k1_run(True)))
         k1_ms = time_ms(lambda: k1_run(False), TIMED_RUNS)
         img_ess, img_plain_k1 = k1_run(True), k1_run(False)
+        bitwise(on_path(False, lambda: k1_run(True))(), img_ess,
+                f"7b q{q}: K1+ESS staged vs direct")
         pipe.empty_space_skip = False
         no_ess = pipe.render(iv, cfg, "pallas")
         pipe.empty_space_skip = True
@@ -795,7 +891,8 @@ def phase_7(dev, card, smi, tf, work):
               f"{ess_ms:.3f} ms (once per volume); per frame: pre-blend "
               f"{blend_ms:.3f} ms, bitmap {bitmap_ms:.3f} ms (bound "
               f"{bd_bm['bound_ms']:.4f}, plain {bitmap_plain_ms:.3f}), K1+ESS "
-              f"with its bitmap {k1_ess_ms:.3f} ms (bound "
+              f"with its bitmap {k1_ess_ms:.3f} ms (direct fetch "
+              f"{k1_ess_direct:.3f}; bound "
               f"{bd['bound_ms']:.4f}, {bd['bound_by']}), K1 {k1_ms:.3f} ms "
               f"(bound {bd_all['bound_ms']:.4f}, {bd_all['bound_by']}); "
               f"culled {culled:.4f} of (tile, chunk) pairs, evaluated samples "
@@ -806,14 +903,16 @@ def phase_7(dev, card, smi, tf, work):
             "name": f"ess_bitmap[q{q}]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/ess_bitmap.cu",
             "replaces": "vrdd_tpu/pallas/slice_kernel.py:397",
-            "launches": launches[q][2], "max_abs_err": float(n_diff),
-            "ms": bitmap_ms, "plain_ms": bitmap_plain_ms, **bd_bm,
+            "launches": launches[q][2], "staged_launches": None,
+            "max_abs_err": float(n_diff), "ms": bitmap_ms,
+            "direct_ms": None, "plain_ms": bitmap_plain_ms, **bd_bm,
         })
         records.append({
             "name": f"sweep_preblended_planes[ess,q{q}]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
             "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
-            "launches": launches[q][1], "max_abs_err": err, "ms": k1_ess_ms,
+            "launches": launches[q][1], "staged_launches": launches[q][3],
+            "max_abs_err": err, "ms": k1_ess_ms, "direct_ms": k1_ess_direct,
             "plain_ms": bitmap_plain_ms + ref_ess_ms, **bd,
         })
         del planes, ref, ref_ess, no_ess, vol
@@ -825,7 +924,7 @@ def phase_7(dev, card, smi, tf, work):
     P, ck = 2 * n, 4
     counters = diff_counters()
     for c in counters:
-        c.launches = 0
+        c.launches = c.staged_launches = 0
     sv.sweep_fwd.ess_launches = sv.sweep_fwd_ckpt.ess_launches = 0
     bm.launches = 0
     kw = dict(width=W, height=W, n_planes=P, wrt=("volume",),
@@ -843,10 +942,11 @@ def phase_7(dev, card, smi, tf, work):
         if ess:
             torch.cuda.synchronize()
             diff_launches = {c.__name__: c.launches for c in counters}
+            diff_staged = {c.__name__: c.staged_launches for c in counters}
             ess_launches = {c.__name__: c.ess_launches for c in counters[:2]}
             diff_launches["ess_bitmap"] = bm.launches
     print(f"  [7b diff, wrt volume] launches with ESS: {diff_launches}, of "
-          f"them culling: {ess_launches}")
+          f"them culling: {ess_launches}, staged: {diff_staged}")
     if min(diff_launches.values()) == 0 or min(ess_launches.values()) == 0:
         fail("7b diff: the ESS bitmap, K3/K4 with ESS or K5 was not launched")
     if not (torch.equal(out[True][0], out[False][0])
@@ -877,9 +977,14 @@ def phase_7(dev, card, smi, tf, work):
             ("sweep_fwd", sv.sweep_fwd, sv.sweep_fwd_reference, 0),
             ("sweep_fwd_ckpt", sv.sweep_fwd_ckpt,
              sv.sweep_fwd_ckpt_reference, cfg.n_chunks * W * W * 4)):
-        k_ms = time_ms(lambda fn=fn: fn(ess_cfg, *args), TIMED_RUNS)
+        k_ms, d_ms = paths_ms(
+            lambda st, fn=fn: lambda: fn(ess_cfg, *args, staged=st))
         p_ms, ref = timed_once(lambda ref_fn=ref_fn: ref_fn(ess_cfg, *args))
         got = fn(ess_cfg, *args)
+        direct = fn(ess_cfg, *args, staged=False)
+        for a, b in (zip(got, direct) if isinstance(got, tuple)
+                     else ((got, direct),)):
+            bitwise(a, b, f"[7b diff] {name}+ESS staged vs direct")
         if name == "sweep_fwd_ckpt":
             compare(got[1][..., None], ref[1][..., None],
                     f"[7b diff] {name}+ESS checkpoints vs plain")
@@ -889,8 +994,8 @@ def phase_7(dev, card, smi, tf, work):
         # the image (and K4's checkpoint rows, every one written)
         bd = bound(tex_live * 4 + ess.numel() + img_bytes + extra,
                    n_live * SAMPLE_OPS)
-        print(f"  [7b diff] {name}+ESS: kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+        print(f"  [7b diff] {name}+ESS: staged {k_ms:.3f} ms, direct "
+              f"{d_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
               f"({bd['bound_by']}; {n_live} evaluated samples, {tex_live} "
               f"texels read)")
         records.append({
@@ -898,8 +1003,9 @@ def phase_7(dev, card, smi, tf, work):
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
             "replaces": "vrdd_tpu/pallas/slice_vjp.py:"
                         f"{698 if name == 'sweep_fwd' else 714}",
-            "launches": ess_launches[name], "max_abs_err": e, "ms": k_ms,
-            "plain_ms": p_ms, **bd,
+            "launches": ess_launches[name],
+            "staged_launches": diff_staged[name], "max_abs_err": e,
+            "ms": k_ms, "direct_ms": d_ms, "plain_ms": p_ms, **bd,
         })
     del pipe, hist, vol, planes, img, tck, img_e, tck_e
     torch.cuda.empty_cache()
@@ -969,14 +1075,14 @@ def seed_records(dev, tf, n, W, density):
 
     cfg_all, cfg_f, cfg_b = cfg(0, P), cfg(0, half), cfg(half, P)
     kw = dict(width=W, height=W, plane_spacing=sp)
-    k1.seed_launches = 0
+    k1.seed_launches = k1.staged_launches = 0
     one = sv.sweep_fwd(cfg_all, planes, None, lut, *scal)
     front = sv.sweep_fwd(cfg_f, front_p, None, lut, *scal)
     back_k1 = k1(back_p, zs[half:], ORIGIN, slopes, tf, density, acc_init=front,
                  **kw)
     back_k3 = sv.sweep_fwd(cfg_b, back_p, None, lut, *scal, front)
     torch.cuda.synchronize()
-    k1_seeded = k1.seed_launches
+    k1_seeded, k1_staged = k1.seed_launches, k1.staged_launches
     compare(back_k1, one, "[8a] K1 seeded back half vs one pass (K3)")
     compare(back_k3, one, "[8a] K3 seeded back half vs one pass (K3)")
     # frozen seeds: 8 rows at alpha 0.99, 8 at exactly 1
@@ -1026,22 +1132,26 @@ def seed_records(dev, tf, n, W, density):
                                1.0, W, W, chunk=4, seed_alpha=front[..., 3])
     img_b = W * W * 16
     bd = bound(tex * 4 + 2 * img_b, n_live * SAMPLE_OPS)
-    ms = time_ms(lambda: k1(back_p, zs[half:], ORIGIN, slopes, tf, density,
-                            acc_init=front, **kw), TIMED_RUNS)
+    ms, direct_ms = paths_ms(lambda st: on_path(st, lambda: k1(
+        back_p, zs[half:], ORIGIN, slopes, tf, density, acc_init=front,
+        **kw)))
+    bitwise(on_path(False, lambda: k1(back_p, zs[half:], ORIGIN, slopes, tf,
+                                      density, acc_init=front, **kw))(),
+            back_k1, "[8a] K1 seeded staged vs direct")
     p_ms, ref = timed_once(lambda: sk.sweep_preblended_planes_reference(
         back_p, zs[half:], ORIGIN, slopes, tf, density, acc_init=front, **kw))
     e = compare(back_k1, ref, "[8a] sweep_preblended_planes seeded vs plain")
     del ref
-    print(f"  [8a] sweep_preblended_planes seeded ({half} planes): kernel "
-          f"{ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+    print(f"  [8a] sweep_preblended_planes seeded ({half} planes): staged "
+          f"{ms:.3f} ms, direct {direct_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
           f"({bd['bound_by']}; {n_live} evaluated samples, {tex} texels "
           f"read)")
     records = [{
         "name": "sweep_preblended_planes[seed]", "route": "cuda",
         "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
         "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
-        "launches": k1_seeded, "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
-        **bd,
+        "launches": k1_seeded, "staged_launches": k1_staged, "max_abs_err": e,
+        "ms": ms, "direct_ms": direct_ms, "plain_ms": p_ms, **bd,
     }]
 
     # the seeded K3/K4/K5 as the streamed fit-voxels launches them: chunk
@@ -1076,43 +1186,51 @@ def seed_records(dev, tf, n, W, density):
     ops = n_live * SAMPLE_OPS
     tck_b = cfg_c.n_chunks * W * W * 4
     cases = (
-        ("sweep_fwd", lambda: sv.sweep_fwd(*args, acc),
+        ("sweep_fwd", lambda st: sv.sweep_fwd(*args, acc, staged=st),
          lambda: sv.sweep_fwd_reference(*args, acc),
          bound(tex * 4 + 2 * img_b, ops), 698, "slice_sweep.cu"),
-        ("sweep_fwd_ckpt", lambda: sv.sweep_fwd_ckpt(*args, acc),
+        ("sweep_fwd_ckpt", lambda st: sv.sweep_fwd_ckpt(*args, acc, staged=st),
          lambda: sv.sweep_fwd_ckpt_reference(*args, acc),
          bound(tex * 4 + 2 * img_b + tck_b, ops), 714, "slice_sweep.cu"),
         ("sweep_bwd",
-         lambda: sv.sweep_bwd(*args, g, tck, True, False, False, acc0=acc),
+         lambda st: sv.sweep_bwd(*args, g, tck, True, False, False, acc0=acc,
+                                 staged=st),
          lambda: sv.sweep_bwd_reference(*args, g, True, False, False, acc),
          bound(tex * 4 + tck_b + 2 * img_b + p_c.numel() * 4 + W * W * 4,
-               K5_SAMPLE_FACTOR * ops), 787, "slice_vjp.cu"),
+               K5_SAMPLE_FACTOR * ops), 787, "slice_vjp_staged.cu"),
     )
     for name, fn, ref_fn, bd, line, src in cases:
-        ms = time_ms(fn, TIMED_RUNS)
+        ms, direct_ms = paths_ms(lambda st, fn=fn: lambda: fn(st))
         p_ms, ref = timed_once(ref_fn)
-        got = fn()
+        got, direct = fn(True), fn(False)
         what = f"[8a chunk {c}] {name} seeded"
         if name == "sweep_bwd":
             rel_l2(got[0], ref[0], f"{what} d_planes")
             rel_l2(got[3], ref[3], f"{what} S (P_total per ray)")
+            rel_l2(got[0], direct[0], f"{what} d_planes staged vs direct",
+                   1e-6)
+            rel_l2(got[3], direct[3], f"{what} S staged vs direct", 1e-6)
             e = float((got[0] - ref[0]).abs().max())
         elif name == "sweep_fwd_ckpt":
             e = compare(got[0], ref[0], f"{what} image vs plain")
             compare(got[1][..., None], ref[1][..., None],
                     f"{what} checkpoints vs plain")
+            bitwise(got[0], direct[0], f"{what} image staged vs direct")
+            bitwise(got[1], direct[1], f"{what} checkpoints staged vs direct")
         else:
             e = compare(got, ref, f"{what} vs plain")
-        del got, ref
-        print(f"  {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            bitwise(got, direct, f"{what} staged vs direct")
+        del got, ref, direct
+        print(f"  {what}: staged {ms:.3f} ms, direct {direct_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms, bound "
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_live} evaluated "
               f"samples, {tex} texels read)")
         records.append({
             "name": f"{name}[seed]", "route": "cuda",
             "source": f"vrdd_tpu_torch/csrc/{src}",
             "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
-            "launches": None, "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
-            **bd,
+            "launches": None, "staged_launches": None, "max_abs_err": e,
+            "ms": ms, "direct_ms": direct_ms, "plain_ms": p_ms, **bd,
         })
     # d_acc0 of the chunk through the public wrapper (K4/K5, the main path's
     # wrt) against the plain analytic VJP
@@ -1144,8 +1262,9 @@ def fit_voxels_cli(work, n, W, steps, streamed):
 
     counters = diff_counters()
     for c in counters:
-        c.launches = c.seed_launches = 0
+        c.launches = c.seed_launches = c.staged_launches = 0
         c.size_launches.clear()
+        c.size_staged_launches.clear()
     torch.cuda.reset_peak_memory_stats()
     ckpt = work / f"fit_voxels_{int(streamed)}.npz"
     buf = io.StringIO()
@@ -1163,12 +1282,15 @@ def fit_voxels_cli(work, n, W, steps, streamed):
                                        text)]
     launches = {c.__name__: c.launches for c in counters}
     seeded = {c.__name__: c.seed_launches for c in counters}
+    staged = {c.__name__: c.staged_launches for c in counters}
     sizes = {c.__name__: dict(c.size_launches) for c in counters}
+    staged_sizes = {c.__name__: dict(c.size_staged_launches)
+                    for c in counters}
     tag = "streamed" if streamed else "unstreamed"
     for line in text.splitlines():
         print(f"  [{tag}] {line}")
     print(f"  [{tag}] {wall:.2f} s in all; launches {launches}, seeded "
-          f"{seeded}, per image size {sizes}")
+          f"{seeded}, staged {staged}, per image size {sizes}")
     if rc != 0 or not ckpt.exists() or len(losses) != steps:
         fail(f"fit-voxels {tag}: rc {rc}, checkpoint {ckpt.exists()}, "
              f"{losses}")
@@ -1178,7 +1300,7 @@ def fit_voxels_cli(work, n, W, steps, streamed):
         fail(f"fit-voxels {tag} did not train through K3/K4/K5: {launches}")
     if streamed and min(seeded.values()) == 0:
         fail(f"fit-voxels streamed did not run the seeded K3/K4/K5: {seeded}")
-    return losses, ms, launches, seeded, sizes
+    return losses, ms, launches, seeded, sizes, staged, staged_sizes
 
 
 def profile_step(step, what, top=8):
@@ -1289,8 +1411,15 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
         del loss_fn, params
     for r in records:  # the seeded kernels' launches in the streamed run
         name = r["name"].split("[")[0]
-        r["launches"] = (k1_seeded if name == "sweep_preblended_planes"
-                         else runs[True][3][name])
+        if name != "sweep_preblended_planes":
+            # seeded and staged: all the run's seeded launches when every
+            # launch was staged, none when none was
+            total, staged = runs[True][2][name], runs[True][5][name]
+            r["launches"] = runs[True][3][name]
+            r["staged_launches"] = (r["launches"] if staged == total
+                                    else 0 if staged == 0 else None)
+        else:
+            r["launches"] = k1_seeded
 
     # the rotated views' K4/K5 of fit-voxels on the m-grid, view (25, 0)
     mu = gaussian_blob_volume((n, n, n), seed=0, device=dev)
@@ -1309,42 +1438,51 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
     img_b, tck_b = wi * wi * 16, cfg.n_chunks * wi * wi * 4
     sw_launches = {name: runs[False][4][name].get((wi, wi), 0)
                    for name in ("sweep_fwd_ckpt", "sweep_bwd")}
+    sw_staged = {name: runs[False][6][name].get((wi, wi), 0)
+                 for name in ("sweep_fwd_ckpt", "sweep_bwd")}
     print(f"  [8b] the unstreamed run's K4/K5 launches on the {wi}^2 m-grid "
-          f"(the rotated views): {sw_launches}")
+          f"(the rotated views): {sw_launches}, staged {sw_staged}")
     if min(sw_launches.values()) == 0:
         fail(f"8b: the rotated views did not train through K4/K5 on the "
              f"m-grid: {runs[False][4]}")
     for name, fn, ref_fn, bd, line in (
-            ("sweep_fwd_ckpt", lambda: sv.sweep_fwd_ckpt(*args),
+            ("sweep_fwd_ckpt", lambda st: sv.sweep_fwd_ckpt(*args, staged=st),
              lambda: sv.sweep_fwd_ckpt_reference(*args),
              bound(tex * 4 + img_b + tck_b, ops), 714),
             ("sweep_bwd",
-             lambda: sv.sweep_bwd(*args, g, tck, True, False, False),
+             lambda st: sv.sweep_bwd(*args, g, tck, True, False, False,
+                                     staged=st),
              lambda: sv.sweep_bwd_reference(*args, g, True, False, False),
              bound(tex * 4 + tck_b + img_b + planes.numel() * 4,
                    K5_SAMPLE_FACTOR * ops), 787)):
-        ms = time_ms(fn, TIMED_RUNS)
+        ms, direct_ms = paths_ms(lambda st, fn=fn: lambda: fn(st))
         p_ms, ref = timed_once(ref_fn)
-        got = fn()
+        got, direct = fn(True), fn(False)
         if name == "sweep_bwd":
             rel_l2(got[0], ref[0], f"[8b] shear-warp {name} d_planes")
+            rel_l2(got[0], direct[0],
+                   f"[8b] shear-warp {name} d_planes staged vs direct", 1e-6)
             e = float((got[0] - ref[0]).abs().max())
         else:
             e = compare(got[0], ref[0], f"[8b] shear-warp {name} image")
             compare(got[1][..., None], ref[1][..., None],
                     f"[8b] shear-warp {name} checkpoints")
-        del got, ref
+            for a, b in zip(got, direct):
+                bitwise(a, b, f"[8b] shear-warp {name} staged vs direct")
+        del got, ref, direct
         print(f"  [8b] shear-warp view (25, 0), {wi}^2 m-grid, {2 * n} "
-              f"planes: {name} kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"planes: {name} staged {ms:.3f} ms, direct {direct_ms:.3f} "
+              f"ms, plain {p_ms:.3f} ms, "
               f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_live} "
               f"evaluated samples, {tex} texels read)")
         records.append({
             "name": f"{name}[shearwarp,fit]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/"
-                      f"{'slice_vjp.cu' if name == 'sweep_bwd' else 'slice_sweep.cu'}",
+                      f"{'slice_vjp_staged.cu' if name == 'sweep_bwd' else 'slice_sweep.cu'}",
             "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
-            "launches": sw_launches[name], "max_abs_err": e, "ms": ms,
-            "plain_ms": p_ms, **bd,
+            "launches": sw_launches[name],
+            "staged_launches": sw_staged[name], "max_abs_err": e, "ms": ms,
+            "direct_ms": direct_ms, "plain_ms": p_ms, **bd,
         })
     del args, planes, img4, tck, g
     torch.cuda.empty_cache()
@@ -1364,10 +1502,10 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
         iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
         if pipe.resolve_renderer("auto", iv, cfg_r) != "shearwarp":
             fail(f"8c {view}: 'auto' did not resolve to shear-warp")
-        k3.launches = 0
+        k3.launches = k3.staged_launches = 0
         img = pipe.render(iv, cfg_r, "auto")
         torch.cuda.synchronize()
-        launches = k3.launches
+        launches, staged = k3.launches, k3.staged_launches
         if launches != 1:
             fail(f"8c {view}: the frame launched K3 {launches} times")
         frame_ms = host_ms(lambda: pipe.render(iv, cfg_r, "auto"), 5)
@@ -1385,10 +1523,14 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
         args = (cfg, planes, None, torch.as_tensor(pipe.tf_lut, device=dev),
                 *[torch.tensor(v, device=dev) for v in
                   (cfg_r.density, cfg_r.tf.offset, cfg_r.tf.scale)])
-        ms = time_ms(lambda: sv.sweep_fwd(*args), TIMED_RUNS)
+        ms, direct_ms = paths_ms(
+            lambda st: lambda: sv.sweep_fwd(*args, staged=st))
         p_ms, ref = timed_once(lambda: sv.sweep_fwd_reference(*args))
-        e = compare(sv.sweep_fwd(*args), ref,
-                    f"[8c {view}] K3 on the {wi}^2 m-grid vs plain")
+        got = sv.sweep_fwd(*args)
+        e = compare(got, ref, f"[8c {view}] K3 on the {wi}^2 m-grid vs plain")
+        bitwise(got, sv.sweep_fwd(*args, staged=False),
+                f"[8c {view}] K3 staged vs direct")
+        del got
         n_live, tex = live_samples(planes, cfg.zs, cfg.slopes,
                                    pipe.tf_lut.cpu().numpy(), cfg_r.density,
                                    cfg_r.tf.offset, cfg_r.tf.scale, wi, wi,
@@ -1396,7 +1538,8 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
         bd = bound(tex * 4 + wi * wi * 16, n_live * SAMPLE_OPS)
         print(f"  [8c {view}] principal axis {axis}, d_z sign {dz_sign:+d}: "
               f"frame {frame_ms:.3f} ms ({W_render * W_render / frame_ms / 1e3:.2f}"
-              f" MTexels/s), K3 {ms:.3f} ms (plain {p_ms:.3f}, bound "
+              f" MTexels/s), K3 staged {ms:.3f} ms (direct {direct_ms:.3f}, "
+              f"plain {p_ms:.3f}, bound "
               f"{bd['bound_ms']:.4f} ms, {bd['bound_by']}; {n_live} "
               f"evaluated samples, {tex} texels read), 'xla' frame "
               f"{xla_ms:.3f} ms")
@@ -1404,7 +1547,8 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
             "name": f"sweep_fwd[shearwarp,{view[0]:g},{view[1]:g}]",
             "route": "cuda", "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
             "replaces": "vrdd_tpu/pallas/slice_vjp.py:698",
-            "launches": launches, "max_abs_err": e, "ms": ms,
+            "launches": launches, "staged_launches": staged,
+            "max_abs_err": e, "ms": ms, "direct_ms": direct_ms,
             "plain_ms": p_ms, **bd,
         })
         del planes, args, ref, img
@@ -1567,21 +1711,30 @@ def main() -> int:
     mean_vol = sk.decode_with_rows(hist, renderers["linear"].rows, "linear")
     torch.cuda.synchronize()
 
-    k1.launches = 0
-    k2.launches = 0
-    launches, images = {}, {}
+    k1.launches = k2.launches = k1.staged_launches = k2.staged_launches = 0
+    launches, staged, images = {}, {}, {}
     for mode, renderer in renderers.items():
-        before = k2.launches
+        before = (k2.launches, k2.staged_launches)
         images[mode] = renderer(hist, origin)
-        launches[mode] = k2.launches - before
+        launches[mode] = k2.launches - before[0]
+        staged[mode] = k2.staged_launches - before[1]
     images["k1"] = sk.pallas_slice_render(mean_vol, origin, tf, width=W,
                                           height=W, n_planes=n)
     torch.cuda.synchronize()
-    launches["k1"] = k1.launches
+    launches["k1"], staged["k1"] = k1.launches, k1.staged_launches
     print(f"  launches in the main-path run: K1 {k1.launches}, K2 "
-          f"{k2.launches} {launches}")
+          f"{k2.launches} {launches}; on the staged path {staged}")
     if k1.launches == 0 or any(launches[m] == 0 for m in renderers):
         fail("a kernel of the main path was not launched")
+    if staged != launches:
+        fail(f"the forward main path did not run on the staged path: {staged}")
+    with sk._fetch_path(False):  # the direct path's images, bit for bit
+        bitwise(sk.pallas_slice_render(mean_vol, origin, tf, width=W,
+                                       height=W, n_planes=n), images["k1"],
+                "K1 staged vs direct")
+        for mode, renderer in renderers.items():
+            bitwise(renderer(hist, origin), images[mode],
+                    f"K2 {mode} staged vs direct")
     for name, img in images.items():
         if img.shape != (W, W, 4) or not torch.isfinite(img).all():
             fail(f"{name}: bad output")
@@ -1600,7 +1753,8 @@ def main() -> int:
         ref = plain()
         err = compare(images[mode], ref, f"K2 {mode}")
         del ref
-        ms = time_ms(lambda r=renderer: r(hist, origin), TIMED_RUNS)
+        ms, direct_ms = paths_ms(
+            lambda st, r=renderer: on_path(st, lambda: r(hist, origin)))
         plain_ms = time_ms(plain, 1)
         zs, slopes, _ = sk._hist_geometry(n, W, W, 2.0, renderer.march)
         n_live, n_texels = live_samples(
@@ -1608,8 +1762,8 @@ def main() -> int:
             0.05, 0.0, renderer.transfer_scale, W, W, reverse=True)
         bd = bound(n_texels * B * hist.element_size() + W * W * 16,
                    n_live * (SAMPLE_OPS + decode_ops(mode, B)))
-        print(f"  K2 {mode}: kernel {ms:.3f} ms ({W * W / ms / 1e3:.2f} "
-              f"Mrays/s), plain {plain_ms:.3f} ms "
+        print(f"  K2 {mode}: staged {ms:.3f} ms ({W * W / ms / 1e3:.2f} "
+              f"Mrays/s), direct {direct_ms:.3f} ms, plain {plain_ms:.3f} ms "
               f"({W * W / plain_ms / 1e3:.2f} Mrays/s), bound "
               f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}; {n_live} "
               f"evaluated samples, {n_texels} voxels read)")
@@ -1617,7 +1771,8 @@ def main() -> int:
             "name": f"pallas_hist_render[{mode}]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
             "replaces": "vrdd_tpu/pallas/slice_kernel.py:1595",
-            "launches": launches[mode], "max_abs_err": err, "ms": ms,
+            "launches": launches[mode], "staged_launches": staged[mode],
+            "max_abs_err": err, "ms": ms, "direct_ms": direct_ms,
             "plain_ms": plain_ms, **bd,
         })
 
@@ -1627,22 +1782,23 @@ def main() -> int:
     ref = plain_k1()
     err = compare(images["k1"], ref, "K1 (decoded mean, n_planes = nz)")
     del ref
-    ms = time_ms(lambda: sk.pallas_slice_render(
-        mean_vol, origin, tf, width=W, height=W, n_planes=n), TIMED_RUNS)
+    ms, direct_ms = paths_ms(lambda st: on_path(st, lambda: sk.pallas_slice_render(
+        mean_vol, origin, tf, width=W, height=W, n_planes=n)))
     plain_ms = time_ms(plain_k1, 1)
     zs, slopes, _ = sk._hist_geometry(n, W, W, 2.0, renderers["linear"].march)
     n_live, n_texels = live_samples(mean_vol, zs, slopes, tf, 0.05, 0.0, 1.0,
                                     W, W, reverse=True)
     bd = bound(n_texels * 4 + W * W * 16, n_live * SAMPLE_OPS)
-    print(f"  K1: kernel {ms:.3f} ms ({W * W / ms / 1e3:.2f} Mrays/s), plain "
-          f"{plain_ms:.3f} ms ({W * W / plain_ms / 1e3:.2f} Mrays/s), bound "
+    print(f"  K1: staged {ms:.3f} ms ({W * W / ms / 1e3:.2f} Mrays/s), direct "
+          f"{direct_ms:.3f} ms, plain {plain_ms:.3f} ms ({W * W / plain_ms / 1e3:.2f} Mrays/s), bound "
           f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}; {n_live} evaluated "
           f"samples, {n_texels} texels read)")
     records.insert(0, {
         "name": "sweep_preblended_planes", "route": "cuda",
         "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
         "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
-        "launches": launches["k1"], "max_abs_err": err, "ms": ms,
+        "launches": launches["k1"], "staged_launches": staged["k1"],
+        "max_abs_err": err, "ms": ms, "direct_ms": direct_ms,
         "plain_ms": plain_ms, **bd,
     })
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

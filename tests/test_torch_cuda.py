@@ -130,19 +130,26 @@ def test_k3_k4_images_are_bitwise_the_forward(dev, n_planes, density):
 
 @pytest.mark.parametrize("stat", ["mean", "var", "entropy"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_k4_hist_images_are_bitwise_k2(dev, stat, dtype):
+@pytest.mark.parametrize("staged", [True, False])
+def test_k3_k4_hist_images_are_bitwise_k2(dev, stat, dtype, staged):
     hist = _hist(dev, dtype)
     rows, mode = sk.decode_weight_rows(stat, 8, family="unit")
     kw = dict(transfer_scale=10.0 if stat == "var" else 1.0, width=72,
               height=40, stat=mode)
-    k2 = sk.pallas_hist_render(hist, rows, O, TF, 0.3, **kw)
-    with torch.no_grad():
-        k3 = sv.pallas_hist_render_diff(hist, rows, O, TF, 0.3, **kw)
-    k4 = sv.pallas_hist_render_diff(hist.clone().requires_grad_(), rows, O,
-                                    TF, 0.3, **kw)
+    before = sk.pallas_hist_render.staged_launches
+    with sk._fetch_path(staged):
+        k2 = sk.pallas_hist_render(hist, rows, O, TF, 0.3, **kw)
+        with torch.no_grad():
+            k3 = sv.pallas_hist_render_diff(hist, rows, O, TF, 0.3, **kw)
+        k4 = sv.pallas_hist_render_diff(hist.clone().requires_grad_(), rows,
+                                        O, TF, 0.3, **kw)
     torch.cuda.synchronize()
+    assert sk.pallas_hist_render.staged_launches == before + staged
     assert torch.equal(k3, k2)
     assert torch.equal(k4.detach(), k3)
+
+
+_DIFF = (sv.sweep_fwd, sv.sweep_fwd_ckpt, sv.sweep_bwd)
 
 
 def _grads(fn, leaves, seed=0):
@@ -185,10 +192,12 @@ def test_k5_scalar_matches_plain(dev, n_planes, density, plane_chunk):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("density", [0.05, 5.0])
 @pytest.mark.parametrize("route", ["inkernel", "materialized"])
-def test_k5_hist_matches_plain(dev, stat, dtype, density, route):
+@pytest.mark.parametrize("staged", [True, False])
+def test_k5_hist_matches_plain(dev, stat, dtype, density, route, staged):
     """Histogram and LUT cotangents through K4/K5 (in-kernel decode, or
     the materialized decode and the scalar kernels) against the plain
-    versions, at an unaligned shape (12 x 8 x 20 x 24 -> 136 x 96)."""
+    versions, at an unaligned shape (12 x 8 x 20 x 24 -> 136 x 96), on the
+    staged and on the direct fetch path."""
     rows, mode = sk.decode_weight_rows(stat, 8, family="unit")
 
     def fn(h, lut):
@@ -197,10 +206,15 @@ def test_k5_hist_matches_plain(dev, stat, dtype, density, route):
             transfer_scale=10.0 if stat == "var" else 1.0, route=route)
 
     out = []
+    before = [c.staged_launches for c in _DIFF]
     for device in (dev, "cpu"):
         leaves = [_hist(device, dtype).requires_grad_(),
                   torch.tensor(TF, device=device, requires_grad=True)]
-        out.append(_grads(fn, leaves))
+        with sk._fetch_path(staged):
+            out.append(_grads(fn, leaves))
+    torch.cuda.synchronize()
+    assert [c.staged_launches - b for c, b in zip(_DIFF, before)] == [
+        0, int(staged), int(staged)]
     (img, (gh, gl)), (img_ref, (gh_ref, gl_ref)) = out
     assert gh.dtype == dtype
     _close(img.detach(), img_ref.detach().to(dev))
@@ -498,12 +512,19 @@ def test_seed_and_ess_are_refused(dev):
 
 @pytest.mark.parametrize("density", [0.8, 5.0])
 @pytest.mark.parametrize("ck_stride", [4, 8])
-def test_seeded_k3_k4_k5_match_plain(dev, density, ck_stride):
+@pytest.mark.parametrize("staged", [True, False])
+def test_seeded_k3_k4_k5_match_plain(dev, density, ck_stride, staged):
     """Seeded K3/K4/K5 against their plain versions at 24^3 -> 100 x 72,
-    with frozen seeds: K4's image is K3's, the checkpoint rows of a frozen
-    pixel are all T0 = 1 - seed_a, its S is 0 and its d seed_a is g_a; S,
-    d_planes and the LUT cotangent within 1e-3 relative L2; d_acc0 through
-    the public wrapper against the plain analytic VJP."""
+    with frozen seeds, on either fetch path: K4's image is K3's, the
+    checkpoint rows of a frozen pixel are all T0 = 1 - seed_a, its S is 0
+    and its d seed_a is g_a; S, d_planes and the LUT cotangent within 1e-3
+    relative L2; d_acc0 through the public wrapper against the plain
+    analytic VJP."""
+    with sk._fetch_path(staged):
+        _seeded_k3_k4_k5(dev, density, ck_stride)
+
+
+def _seeded_k3_k4_k5(dev, density, ck_stride):
     planes, zs, slopes = _stack(dev)
     sp = 2.0 / planes.shape[0]
     front = sk.sweep_preblended_planes(planes[:24], zs[:24], O, slopes, TF,
@@ -683,3 +704,209 @@ def test_auto_sends_card_data_to_the_kernels(dev):
     assert p.resolve_renderer("auto", iv, cfg) == "shearwarp"
     with pytest.raises(ValueError, match="cannot"):
         p.render(iv, cfg, "auto")
+
+
+# ---- the staged and the direct fetch paths ----------------------------------
+
+def _case(dev, kind, dtype, size):
+    """``(cfg, vol, rows)`` of a small sweep: a 24^3 blob's 48-plane stack
+    ('none'), or the in-kernel decode of 24^2 / 20 x 24 smooth histograms."""
+    W, H = size
+    if kind == "none":
+        planes, zs, _ = _stack(dev)
+        cfg = sv.planes_config(zs, O, sk.pixel_slope_params(W, H), width=W,
+                               height=H, n_planes=48)
+        return cfg, planes.to(dtype).contiguous(), None
+    stat = {"linear": "mean", "var": "var", "entropy": "entropy"}[kind]
+    rows, _ = sk.decode_weight_rows(stat, 8, family="unit")
+    hist = torch.from_numpy(_smooth_hist((16, 8, 24, 24), seed=2)).to(
+        dev, dtype)
+    cfg = sv.render_config(hist.shape, O, stat=kind, width=W, height=H)
+    return cfg, hist, torch.as_tensor(rows, device=dev)
+
+
+def _smooth_hist(shape, seed):
+    nz, B, ny, nx = shape
+    base = gaussian_blob_volume((nz, ny, nx), seed=seed)
+    centers = ((np.arange(B) + 0.5) / B).astype(np.float32)
+    logits = -((centers[None, :, None, None] - base[:, None]) ** 2) / 0.02
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    return (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def _scalars(dev, kind):
+    return (torch.tensor(TF, device=dev), torch.tensor(0.8, device=dev),
+            torch.tensor(0.0, device=dev),
+            torch.tensor(10.0 if kind == "var" else 1.0, device=dev))
+
+
+SIZES = [(100, 72), (136, 96), (20, 6)]  # the last: less than one block
+
+
+@pytest.mark.parametrize("kind", ["none", "linear", "var", "entropy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("ck_stride", [4, 8])
+def test_staged_k3_k4_are_bitwise_direct(dev, kind, dtype, size, ck_stride):
+    """K3's image and K4's image and every checkpoint row on the staged path
+    are bitwise the direct path's, at odd sizes (24 x 24 volumes, images
+    unaligned to the 32 x 8 block and smaller than one)."""
+    import dataclasses
+
+    cfg, vol, rows = _case(dev, kind, dtype, size)
+    cfg = dataclasses.replace(cfg, ck_stride=ck_stride)
+    args = (vol, rows, *_scalars(dev, kind))
+    before = (sv.sweep_fwd.staged_launches, sv.sweep_fwd_ckpt.staged_launches)
+    k3 = {s: sv.sweep_fwd(cfg, *args, staged=s) for s in (True, False)}
+    k4 = {s: sv.sweep_fwd_ckpt(cfg, *args, staged=s) for s in (True, False)}
+    torch.cuda.synchronize()
+    assert (sv.sweep_fwd.staged_launches, sv.sweep_fwd_ckpt.staged_launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(k3[True], k3[False])
+    assert torch.equal(k4[True][0], k4[False][0])
+    assert torch.equal(k4[True][1], k4[False][1])
+    assert torch.equal(k4[True][0], k3[True])
+    assert float(k3[True][..., 3].max()) > 0.05, "vacuous: empty render"
+
+
+@pytest.mark.parametrize("ck_stride", [4, 8])
+def test_staged_ess_and_seed_are_bitwise_direct(dev, ck_stride):
+    """With an ESS bitmap, and from a seed with frozen pixels, the staged
+    K3/K4 images and checkpoints are bitwise the direct ones."""
+    import dataclasses
+
+    vol = _sparse_blob(dev)
+    planes, zs = sk.preblend_planes(vol, 48, (-1.0, -1.0, -1.0),
+                                    (1.0, 1.0, 1.0), -1)
+    slopes = sk.pixel_slope_params(100, 72)
+    cfg = sv.planes_config(zs, O, slopes, width=100, height=72, n_planes=48,
+                           plane_chunk=ck_stride)
+    bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes,
+                           _band_lut(), 0.0, 1.0, width=100, height=72,
+                           ny=24, nx=24, plane_chunk=ck_stride)
+    assert bool((bitmap == 0).any()), "vacuous: nothing culled"
+    args = (planes, None, torch.tensor(_band_lut(), device=dev),
+            torch.tensor(0.8, device=dev), torch.tensor(0.0, device=dev),
+            torch.tensor(1.0, device=dev))
+    ess_cfg = dataclasses.replace(cfg, ess=bitmap)
+    seed = _frozen_seed(sv.sweep_fwd(cfg, *args))
+    for c, acc0 in ((ess_cfg, None), (cfg, seed)):
+        got = [sv.sweep_fwd_ckpt(c, *args, acc0, staged=s) for s in (True,
+                                                                   False)]
+        assert torch.equal(got[0][0], got[1][0])
+        assert torch.equal(got[0][1], got[1][1])
+        assert torch.equal(sv.sweep_fwd(c, *args, acc0, staged=True),
+                           sv.sweep_fwd(c, *args, acc0, staged=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_k1_k2_are_bitwise_direct(dev, dtype):
+    """The public K1 and K2 wrappers on either path: bitwise equal images,
+    counted in ``.staged_launches``."""
+    vol = torch.from_numpy(gaussian_blob_volume((16, 24, 20))).to(dev, dtype)
+    hist = torch.from_numpy(_smooth_hist((16, 8, 24, 24), seed=2)).to(
+        dev, dtype)
+    rows, _ = sk.decode_weight_rows("var", 8, family="unit")
+    k1, k2 = sk.sweep_preblended_planes, sk.pallas_hist_render
+    out = {}
+    for staged in (True, False):
+        before = (k1.staged_launches, k2.staged_launches)
+        with sk._fetch_path(staged):
+            out[staged] = (
+                sk.pallas_slice_render(vol, O, TF, 0.8, width=100, height=72,
+                                       n_planes=32),
+                k2(hist, rows, O, TF, 0.8, width=136, height=96, stat="var",
+                   transfer_scale=10.0))
+        assert (k1.staged_launches, k2.staged_launches) == (
+            before[0] + staged, before[1] + staged)
+    torch.cuda.synchronize()
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+
+
+@pytest.mark.parametrize("kind", ["none", "linear", "var", "entropy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", SIZES)
+def test_staged_k5_matches_direct(dev, kind, dtype, size):
+    """K5 on the staged path against the direct path on the same inputs:
+    LUT and parameter cotangents bitwise equal (the same per-ray sums in
+    the same blocks), d_planes (or d_dec), S and the variance moments within
+    1e-6 relative L2 (d_planes: atomics in another order). A seeded sweep
+    gives S."""
+    cfg, vol, rows = _case(dev, kind, dtype, size)
+    scal = _scalars(dev, kind)
+    args = (vol, rows, *scal)
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
+    seed = _frozen_seed(0.5 * img) if min(size) > 12 else None
+    if seed is not None:
+        img, tck = sv.sweep_fwd_ckpt(cfg, *args, seed)
+    g = torch.randn(img.shape, generator=torch.Generator().manual_seed(3))
+    g = g.to(dev)
+    before = sv.sweep_bwd.staged_launches
+    got = {s: sv.sweep_bwd(cfg, *args, g, tck, True, True, True, acc0=seed,
+                           staged=s) for s in (True, False)}
+    torch.cuda.synchronize()
+    assert sv.sweep_bwd.staged_launches == before + 1
+    (d_s, small_s, mom_s, s_s), (d_d, small_d, mom_d, s_d) = (got[True],
+                                                              got[False])
+    assert torch.equal(small_s, small_d)
+    assert float(d_d.abs().max()) > 0.0, "vacuous: zero cotangent"
+    assert _rel_l2(d_s, d_d) <= 1e-6
+    if kind == "var":
+        assert _rel_l2(mom_s, mom_d) <= 1e-6
+    if seed is not None:
+        assert _rel_l2(s_s, s_d) <= 1e-6
+
+
+def test_k5_on_scalar_planes_defaults_to_direct(dev):
+    """By default K5 stages only the decode modes: on scalar planes it takes
+    the direct path (measured faster there), unless a path is forced."""
+    for kind, staged in (("none", 0), ("linear", 1)):
+        cfg, vol, rows = _case(dev, kind, torch.float32, (100, 72))
+        args = (vol, rows, *_scalars(dev, kind))
+        img, tck = sv.sweep_fwd_ckpt(cfg, *args)
+        g = (2.0 / img.numel()) * (img - 0.25)
+        before = sv.sweep_bwd.staged_launches
+        sv.sweep_bwd(cfg, *args, g, tck, True, False, False)
+        assert sv.sweep_bwd.staged_launches == before + staged, kind
+        with sk._fetch_path(True):
+            sv.sweep_bwd(cfg, *args, g, tck, True, False, False)
+        assert sv.sweep_bwd.staged_launches == before + staged + 1, kind
+
+
+def test_staged_k5_lut_cotangents_are_reproducible(dev):
+    """Two staged K5 runs give bitwise equal LUT and parameter cotangents."""
+    cfg, vol, rows = _case(dev, "var", torch.float32, (136, 96))
+    args = (vol, rows, *_scalars(dev, "var"))
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
+    g = (2.0 / img.numel()) * (img - 0.25)
+    runs = [sv.sweep_bwd(cfg, *args, g, tck, True, True, True, staged=True)
+            for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert float(runs[0][1].abs().max()) > 0.0
+
+
+def test_footprint_past_the_budget_takes_the_direct_path(dev):
+    """An image much coarser than the volume: the footprint's tile does not
+    fit the staged budget, so the launch goes direct (``.staged_launches``
+    unchanged) and is still right; forcing the staged path raises."""
+    planes = torch.from_numpy(gaussian_blob_volume((8, 512, 512), seed=1)).to(
+        dev)
+    zs = np.linspace(0.875, -0.875, 8).astype(np.float32)
+    slopes = sk.pixel_slope_params(16, 16)
+    cfg = sv.planes_config(zs, O, slopes, width=16, height=16, n_planes=8)
+    args = (planes, None, torch.tensor(TF, device=dev),
+            torch.tensor(0.8, device=dev), torch.tensor(0.0, device=dev),
+            torch.tensor(1.0, device=dev))
+    bound = sk.stage_bound(cfg.params(planes, None, 0.8, 0.0, 1.0), zs,
+                           (32, 8))
+    assert sk.stage_smem_bytes(*bound, n_bins=1, elem_size=4, n_lut=9,
+                               row_floats=0) > sk._STAGE_BUDGET
+    before = (sv.sweep_fwd.launches, sv.sweep_fwd.staged_launches)
+    got = sv.sweep_fwd(cfg, *args)
+    assert (sv.sweep_fwd.launches, sv.sweep_fwd.staged_launches) == (
+        before[0] + 1, before[1])
+    _close(got, sv.sweep_fwd_reference(cfg, *[a if a is None else a.cpu()
+                                              for a in args]).to(dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        sv.sweep_fwd(cfg, *args, staged=True)

@@ -69,12 +69,18 @@ __device__ __forceinline__ Ray make_ray(const SweepParams& p, int i, int j) {
 // Two tent taps of one axis (slice_kernel.py _tent_weights): q is the
 // clamped filter coordinate, w0/w1 the weights of texels i0 and i1 = i0 + 1
 // (w1 == 0 when i0 is the last texel); returns the coverage predicate.
+// The coordinate's position in the box, [0, 1] inside: a chain of correctly
+// rounded operations, monotone in the coordinate.
+__device__ __forceinline__ float axis_p01(float coord, float lo, float hi) {
+  return __fdiv_rn(__fsub_rn(coord, lo), __fsub_rn(hi, lo));
+}
+
 __device__ __forceinline__ bool axis_taps(float coord, int n, float lo,
                                           float hi, float scale,
                                           float tex_offset, bool linear,
                                           int& i0, int& i1, float& w0,
                                           float& w1) {
-  const float p01 = __fdiv_rn(__fsub_rn(coord, lo), __fsub_rn(hi, lo));
+  const float p01 = axis_p01(coord, lo, hi);
   float q = __fsub_rn(__fmul_rn(p01, __fmul_rn((float)n, scale)), tex_offset);
   q = fminf(fmaxf(q, 0.0f), (float)(n - 1));
   if (!linear) q = floorf(__fadd_rn(q, 0.5f));
@@ -109,76 +115,95 @@ __device__ __forceinline__ bool plane_taps(const SweepParams& p, float z,
   return in_x && in_y;
 }
 
-// Variance decode of one voxel, rows [m, s*e, s*e^2, s]:
+// Variance decode of one voxel whose bin b is h(b), rows [m, s*e, s*e^2, s]:
 // dec = C2 - 2 m C1 + m^2 C0, with the moments m, C1, C0 handed back for
 // the backward's chain (d h_b = rows2 - 2m rows1 + m^2 rows3 + 2(mC0-C1) rows0).
-template <typename T>
-__device__ __forceinline__ float voxel_var(const T* __restrict__ v,
-                                           size_t bstride, int B,
-                                           const float* __restrict__ rows,
-                                           float& m, float& c1, float& c0) {
+template <typename Get>
+__device__ __forceinline__ float decode_var(Get h, int B,
+                                            const float* __restrict__ rows,
+                                            float& m, float& c1, float& c0) {
   float c2 = 0.0f;
   m = c1 = c0 = 0.0f;
   for (int b = 0; b < B; ++b) {
-    const float h = widen(v[b * bstride]);
-    m = __fmaf_rn(rows[b], h, m);
-    c1 = __fmaf_rn(rows[B + b], h, c1);
-    c2 = __fmaf_rn(rows[2 * B + b], h, c2);
-    c0 = __fmaf_rn(rows[3 * B + b], h, c0);
+    const float hb = h(b);
+    m = __fmaf_rn(rows[b], hb, m);
+    c1 = __fmaf_rn(rows[B + b], hb, c1);
+    c2 = __fmaf_rn(rows[2 * B + b], hb, c2);
+    c0 = __fmaf_rn(rows[3 * B + b], hb, c0);
   }
   return __fadd_rn(__fsub_rn(c2, __fmul_rn(__fmul_rn(2.0f, m), c1)),
                    __fmul_rn(__fmul_rn(m, m), c0));
 }
 
-// The scalar value of one voxel: the plane value itself, or the decode of
-// its B bins (bins-major: bin b sits bstride elements after bin b - 1).
-template <int MODE, typename T>
-__device__ __forceinline__ float voxel(const T* __restrict__ v,
-                                       size_t bstride, int B,
-                                       const float* __restrict__ rows) {
-  if (MODE == kNone) return widen(v[0]);
+// The scalar value of one voxel whose bin b is h(b) (widened to f32): the
+// plane value itself, or the decode of its B bins. The one decode chain of
+// every kernel, whether the bins come from device memory (tap) or from a
+// staged tile in shared memory (stage_tile.cuh): K5's replay rebuilds K4's
+// freeze masks from it bitwise. A length-B dot product of __fmaf_rn, on the
+// FP32 units: a tensor-core product would round it otherwise.
+template <int MODE, typename Get>
+__device__ __forceinline__ float decode(Get h, int B,
+                                        const float* __restrict__ rows) {
+  if (MODE == kNone) return h(0);
   if (MODE == kLinear) {
-    float acc = __fmul_rn(rows[0], widen(v[0]));
-    for (int b = 1; b < B; ++b) acc = __fmaf_rn(rows[b], widen(v[b * bstride]), acc);
+    float acc = __fmul_rn(rows[0], h(0));
+    for (int b = 1; b < B; ++b) acc = __fmaf_rn(rows[b], h(b), acc);
     return acc;
   }
   if (MODE == kVar) {
     float m, c1, c0;
-    return voxel_var(v, bstride, B, rows, m, c1, c0);
+    return decode_var(h, B, rows, m, c1, c0);
   }
   // entropy: rows[0] = 1 / log2(B); exactly 0 at h == 0
   float acc = 0.0f;
   for (int b = 0; b < B; ++b) {
-    const float h = widen(v[b * bstride]);
-    acc = __fmaf_rn(-h, log2f(fmaxf(h, kEntTiny)), acc);
+    const float hb = h(b);
+    acc = __fmaf_rn(-hb, log2f(fmaxf(hb, kEntTiny)), acc);
   }
   return __fmul_rn(rows[0], acc);
 }
 
-// One tap voxel at element offset `off` of layer `layer`. With MOM (the
-// backward, variance mode) it also writes the voxel's chain moments
-// [m, 2(mC0 - C1)] to mom (nz, 2, ny, nx): every thread that decodes a
-// voxel writes the same two values, so the race is benign.
+// The chain moments [m, 2(mC0 - C1)] of a variance decode.
+__device__ __forceinline__ float chain_e(float m, float c1, float c0) {
+  return __fmul_rn(2.0f, __fsub_rn(__fmul_rn(m, c0), c1));
+}
+
+// One tap voxel at element offset `off` of layer `layer` (bins-major: bin b
+// sits plane_elems elements after bin b - 1). With MOM (the backward,
+// variance mode) it also writes the voxel's chain moments to mom (nz, 2, ny,
+// nx): every thread that decodes a voxel writes the same two values, so the
+// race is benign.
 template <int MODE, typename T, bool MOM>
 __device__ __forceinline__ float tap(const SweepParams& p,
                                      const T* __restrict__ base, size_t off,
                                      size_t plane_elems, int B,
                                      const float* __restrict__ rows,
                                      int layer, float* __restrict__ mom) {
+  const T* v = base + off;
+  auto h = [&](int b) { return widen(v[(size_t)b * plane_elems]); };
   if (MOM && MODE == kVar) {
     float m, c1, c0;
-    const float dec = voxel_var(base + off, plane_elems, B, rows, m, c1, c0);
+    const float dec = decode_var(h, B, rows, m, c1, c0);
     float* mp = mom + (size_t)layer * 2 * plane_elems + off;
     mp[0] = m;
-    mp[plane_elems] = __fmul_rn(2.0f, __fsub_rn(__fmul_rn(m, c0), c1));
+    mp[plane_elems] = chain_e(m, c1, c0);
     return dec;
   }
-  return voxel<MODE, T>(base + off, plane_elems, B, rows);
+  return decode<MODE>(h, B, rows);
 }
 
-// Bilinear resample of layer `layer` at the taps, y first, then x (the
-// order of the plain version's two matmuls). Decode modes decode each tap
-// voxel from its bins first: variance and entropy are nonlinear.
+// The bilinear combination of four tap values, y first, then x (the order
+// of the plain version's two matmuls).
+__device__ __forceinline__ float bilerp(const Taps& t, float v00, float v01,
+                                        float v10, float v11) {
+  const float c0 = __fmaf_rn(t.wy1, v10, __fmul_rn(t.wy0, v00));
+  const float c1 = __fmaf_rn(t.wy1, v11, __fmul_rn(t.wy0, v01));
+  return __fmaf_rn(c1, t.wx1, __fmul_rn(c0, t.wx0));
+}
+
+// Bilinear resample of layer `layer` at the taps, fetching each tap from
+// device memory (the direct path). Decode modes decode each tap voxel from
+// its bins first: variance and entropy are nonlinear.
 template <int MODE, typename T, bool MOM = false>
 __device__ __forceinline__ float resample(const SweepParams& p,
                                           const T* __restrict__ vol,
@@ -197,9 +222,7 @@ __device__ __forceinline__ float resample(const SweepParams& p,
       tap<MODE, T, MOM>(p, base, r1 + t.x0, plane_elems, B, rows, layer, mom);
   const float v11 =
       tap<MODE, T, MOM>(p, base, r1 + t.x1, plane_elems, B, rows, layer, mom);
-  const float c0 = __fmaf_rn(t.wy1, v10, __fmul_rn(t.wy0, v00));
-  const float c1 = __fmaf_rn(t.wy1, v11, __fmul_rn(t.wy0, v01));
-  return __fmaf_rn(c1, t.wx1, __fmul_rn(c0, t.wx0));
+  return bilerp(t, v00, v01, v10, v11);
 }
 
 // Clamped linear LUT lookup in the tent basis: two nonzero taps l0, l1

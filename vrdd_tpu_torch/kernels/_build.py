@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "slice_sweep.cu", CSRC / "slice_vjp.cu",
-           CSRC / "ess_bitmap.cu")
+           CSRC / "slice_vjp_staged.cu", CSRC / "ess_bitmap.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,7 +51,7 @@ class SweepParams(ctypes.Structure):
 
 
 class BwdParams(ctypes.Structure):
-    """Mirror of ``struct BwdParams`` in ``csrc/slice_vjp.cu``: the
+    """Mirror of ``struct BwdParams`` in ``csrc/bwd_common.cuh``: the
     checkpoint stride (4 or 8), the number of checkpoint rows, and which
     cotangents the reverse sweep computes."""
 
@@ -143,16 +143,17 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fwd = lib.vrdd_slice_sweep
     # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, ess,
-    # ess_chunk, seed, tile_w, tile_h, stream
+    # ess_chunk, seed, tile_w, tile_h, stage_w, stage_h, stream
     fwd.argtypes = [ctypes.POINTER(SweepParams), i32, i32, ptr, ptr, ptr,
-                    ptr, ptr, i32, ptr, ptr, i32, ptr, i32, i32, ptr]
+                    ptr, ptr, i32, ptr, ptr, i32, ptr, i32, i32, i32, i32,
+                    ptr]
     fwd.restype = i32
     bwd = lib.vrdd_slice_bwd
     # params, bwd params, mode, bf16, vol, zs, lut, rows, g, tck,
-    # d_planes, partials, mom, s_out, stream
+    # d_planes, partials, mom, s_out, stage_w, stage_h, stream
     bwd.argtypes = [ctypes.POINTER(SweepParams), ctypes.POINTER(BwdParams),
                     i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                    ptr, ptr]
+                    ptr, i32, i32, ptr]
     bwd.restype = i32
     ess = lib.vrdd_ess_bitmap
     # params, pmin, pmax, zs, lut, out, stream

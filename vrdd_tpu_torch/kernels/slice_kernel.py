@@ -21,7 +21,8 @@ plain version. Each wrapper counts its kernel launches in a plain int
 attribute, ``sweep_preblended_planes.launches`` and
 ``pallas_hist_render.launches``; ``sweep_preblended_planes.ess_launches``
 counts those of them that culled by an ESS bitmap, ``.seed_launches`` those
-that resumed from a seed.
+that resumed from a seed, ``.staged_launches`` those that took the staged
+fetch path (below).
 
 **Empty-space skipping** (``empty_space_skip``, ``ess_stats``) is K1's
 exact TF-interval culling: :func:`ess_bitmap` marks each (tile, chunk) —
@@ -41,6 +42,19 @@ on the card passed to the kernel as its ``seed`` pointer (null: unseeded).
 Brightness scales seed and sweep together. Seed and ESS together raise, as
 JAX asserts.
 
+**Two fetch paths** in every sweep kernel (K1-K5): *staged*, where each
+block copies its footprint on a plane (the tap rectangle of its corner rays)
+into shared memory and decodes each voxel there once, and *direct*, where
+every sample fetches its four taps from device memory. Both give the same
+images, checkpoints and LUT cotangents bit for bit (K5's plane cotangent,
+summed with atomics, to rounding). :func:`stage_bound` bounds the footprint over the launch on the host;
+the launch takes the staged path whenever that bound's tile fits
+:data:`_STAGE_BUDGET` bytes of shared memory (:func:`stage_smem_bytes`), the
+direct path otherwise (an image much coarser than the volume). Every wrapper
+counts its staged launches in ``.staged_launches``. The internal ``staged``
+argument of ``_launch`` and of the K3-K5 wrappers, and :func:`_fetch_path`
+around a public call, force either path (tests and ``chip_smoke.py``).
+
 Not ported yet (it raises ``NotImplementedError``): ``precision='bf16'``
 (ROADMAP.md queue 2 item 2). The kernels take any image size, so the TPU's
 padding, banding and VMEM budgets have no counterpart here.
@@ -48,6 +62,8 @@ padding, banding and VMEM budgets have no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Tuple
 
 import numpy as np
@@ -82,6 +98,111 @@ _ESS_YB = _ESS_XB = 8
 _ESS_Q_MARGIN = 1e-3
 #: LUT knots the bitmap tests at once (one broadcast per group)
 _ESS_KNOTS = 16
+
+
+#: dynamic shared memory (bytes) the staged path may take per block: two
+#: forward blocks of 256 threads or K5 blocks of 128 fit on one SM's 227 KB
+_STAGE_BUDGET = 100 * 1024
+#: the most dynamic shared memory one block can take on an H100
+_SMEM_MAX = 227 * 1024
+#: K5's block in rays, (columns, rows): csrc/bwd_common.cuh kBwdX, kBwdY
+BWD_BLOCK = (32, 4)
+#: a staged path forced by :func:`_fetch_path` (None: by geometry)
+_FORCED_PATH = None
+
+
+def stage_bound(params: dict, zs, block) -> Tuple[int, int]:
+    """``(tw, th)``: an upper bound, in voxels, of the tap rectangle of any
+    block of ``block = (columns, rows)`` rays on any plane at depths ``zs``
+    of a launch with the kernels' ``params`` (:func:`_sweep_params`).
+
+    A ray's filter coordinate on an axis is ``q = (o + dz m - lo) / (hi -
+    lo) * n * scale - tex_offset``, monotone in its slope ``m``; the block's
+    corner rays are ``(columns - 1) |dm|`` apart in slope, so their
+    coordinates differ by at most ``dq = |dz|max (columns - 1) |dm| n scale
+    / |hi - lo|`` (clamping to the grid only shrinks it). The rectangle's
+    first taps then differ by at most ``floor(dq) + 1`` (also for nearest
+    filtering, which rounds both the same way) and the second tap adds one:
+    ``floor(dq + margin) + 3`` voxels, capped at ``n``. The margin covers the
+    kernels' float32 rounding of the slopes and coordinates: 1e-4 relative
+    to the magnitudes they pass through, some 800 times their rounding.
+    Holds for either ``dz_sign``, any walk order and a camera inside the
+    box: ``|dz|`` is the largest over all the planes."""
+    cols, rows = block
+    oz = params["oz"]
+    d_max = float(np.max(np.abs(np.asarray(zs, np.float64) - oz)))
+
+    def axis(o, m0, dm, extent, rays, n, lo, hi, scale):
+        k = n * scale / abs(hi - lo)
+        m_max = max(abs(m0), abs(m0 + dm * (extent - 1)))
+        dq = d_max * abs(dm) * (min(rays, extent) - 1) * k
+        margin = 1e-4 * (1.0 + k * (abs(o) + d_max * m_max + abs(lo)
+                                    + abs(hi)))
+        return int(min(n, math.floor(dq + margin) + 3))
+
+    tw = axis(params["ox"], params["mx0"], params["dmx"], params["width"],
+              cols, params["nx"], params["xlo"], params["xhi"], params["sx"])
+    th = axis(params["oy"], params["my0"], params["dmy"], params["height"],
+              rows, params["ny"], params["ylo"], params["yhi"], params["sy"])
+    return tw, th
+
+
+def stage_smem_bytes(tw: int, th: int, *, n_bins: int, elem_size: int,
+                     n_lut: int, row_floats: int, slots: int = 2,
+                     bwd_ck: int = 0, g_planes: bool = False,
+                     momt: bool = False, g_small: bool = False) -> int:
+    """Dynamic shared memory of a staged launch with ``tw`` x ``th``-voxel
+    footprints: ``slots`` ring slots of raw rows (each bin of each voxel row
+    in 16-byte chunks from the 16-byte boundary below it; the forward takes
+    three for scalar planes, two otherwise), the LUT, the decode rows
+    (``row_floats``), the decoded tile and the slots' row offsets;
+    K5 (``bwd_ck``, its chunk of planes) adds the per-ray caches of a
+    chunk, two d tiles (``g_planes``), the variance moments and touch flags
+    (``momt``) and the per-thread LUT columns (``g_small``). Mirrors
+    ``stage_layout`` (csrc/stage_tile.cuh) and ``bwd_extra``
+    (csrc/slice_vjp_staged.cu)."""
+    rc = (tw * elem_size + 30) // 16
+    tile = tw * th
+    threads = BWD_BLOCK[0] * BWD_BLOCK[1]
+    total = (slots * th * n_bins * rc * 16
+             + 4 * (4 * n_lut + row_floats + tile) + 4 * slots * th * n_bins)
+    if bwd_ck:
+        total += 4 * (3 * bwd_ck * threads + (2 * tile if g_planes else 0)
+                      + (3 * tile if momt else 0)
+                      + ((4 * n_lut + 3) * threads if g_small else 0))
+    return total
+
+
+def _stage_dims(staged, bound, smem: int, prefer: bool = True):
+    """The kernels' ``(stage_w, stage_h)``: the bound on the staged path,
+    ``(0, 0)`` on the direct path. ``staged=None`` chooses by geometry
+    (staged when ``prefer`` and the tile fits :data:`_STAGE_BUDGET`, unless
+    :func:`_fetch_path` forces a path); True forces the staged path, which
+    raises when no block can hold the tile."""
+    if staged is None:
+        staged = (_FORCED_PATH if _FORCED_PATH is not None
+                  else prefer and smem <= _STAGE_BUDGET)
+    if not staged:
+        return 0, 0
+    if smem > _SMEM_MAX:
+        raise ValueError(
+            f"a {bound[0]} x {bound[1]}-voxel footprint needs {smem} bytes of "
+            f"shared memory, more than a block has ({_SMEM_MAX})"
+        )
+    return bound
+
+
+@contextlib.contextmanager
+def _fetch_path(staged):
+    """Force every sweep launch inside the block onto the staged (True) or
+    the direct (False) fetch path, through public entry points that take no
+    ``staged`` argument (chip_smoke.py times both)."""
+    global _FORCED_PATH
+    prev, _FORCED_PATH = _FORCED_PATH, staged
+    try:
+        yield
+    finally:
+        _FORCED_PATH = prev
 
 
 def _smem_ok(n_lut: int, row_elems: int) -> bool:
@@ -394,15 +515,18 @@ def _check_seed(acc_init, empty_space_skip):
 
 def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             params: dict, ck_stride: int = 0, ess=None, ess_chunk: int = 0,
-            seed=None):
+            seed=None, staged=None, zs_host=None):
     """Validate, allocate the (H, W, 4) output and launch the CUDA kernel on
     the current stream of the volume's device, in blocks of
     :data:`ESS_TILE` pixels. ``ck_stride > 0`` also writes the transmittance
-    checkpoints (K4) and returns ``(out, tck)``. ``ess``: the uint8
+    checkpoints (K4): the result is then ``(out, tck)``. ``ess``: the uint8
     ``(n_chunks, n_tile_rows, n_tile_cols)`` bitmap of :func:`ess_bitmap`
     over chunks of ``ess_chunk`` planes (None: no culling). ``seed``: the
     ``(H, W, 4)`` image the sweep resumes from (None: unseeded); host data
-    goes up through :func:`_device_f32`."""
+    goes up through :func:`_device_f32`. ``staged``: the fetch path (None:
+    by geometry, :func:`_stage_dims`); ``zs_host``: the depths on the host
+    for the footprint bound, when ``zs`` is already on the card. Returns
+    ``(result, staged)``, the second saying which path the launch took."""
     from vrdd_tpu_torch.kernels import _build
 
     if vol.dtype not in (torch.float32, torch.bfloat16):
@@ -410,6 +534,9 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     if not vol.is_contiguous():
         raise ValueError("the volume must be contiguous")
     dev = vol.device
+    if zs_host is None:
+        zs_host = (zs.detach().cpu().numpy() if isinstance(zs, torch.Tensor)
+                   else zs)
 
     zs_t, lut_t = _device_f32(zs, dev), _device_f32(tf_lut, dev)
     # K1 reads no decode rows
@@ -435,7 +562,14 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     if ck_stride:
         n_chunks = -(-params["n_planes"] // ck_stride)
         tck = torch.empty((n_chunks, H, W), dtype=torch.float32, device=dev)
-    p = _build.SweepParams(n_lut=lut_t.shape[0], **params)
+    n_lut = lut_t.shape[0]
+    n_bins = params.get("n_bins", 1) if mode != "none" else 1
+    bound = stage_bound(params, zs_host, (ESS_TILE[1], ESS_TILE[0]))
+    stage = _stage_dims(staged, bound, stage_smem_bytes(
+        *bound, n_bins=n_bins, elem_size=vol.element_size(), n_lut=n_lut,
+        row_floats=0 if rows_t is None else rows_t.numel(),
+        slots=3 if mode == "none" else 2))
+    p = _build.SweepParams(n_lut=n_lut, **params)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -446,11 +580,11 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             ck_stride, None if tck is None else tck.data_ptr(),
             None if ess is None else ess.data_ptr(), int(ess_chunk),
             None if seed_t is None else seed_t.data_ptr(),
-            ESS_TILE[1], ESS_TILE[0], stream,
+            ESS_TILE[1], ESS_TILE[0], *stage, stream,
         )
     if rc != 0:
         raise RuntimeError(f"vrdd_slice_sweep launch failed: CUDA error {rc}")
-    return (out, tck) if ck_stride else out
+    return ((out, tck) if ck_stride else out), stage[0] > 0
 
 
 def _sweep_params(origin, slopes, density, brightness, transfer_offset,
@@ -791,6 +925,8 @@ def sweep_preblended_planes(
     n_planes, ny, nx = planes_all.shape
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
+    zs_host = (zs.detach().cpu().numpy() if isinstance(zs, torch.Tensor)
+               else np.asarray(zs, np.float32))
     if _on_card(planes_all):  # one upload each for the bitmap and K1
         zs = _device_f32(zs, planes_all.device)
         tf_lut = _device_f32(tf_lut, planes_all.device)
@@ -824,15 +960,19 @@ def sweep_preblended_planes(
         tex_offset=tex_offset, axis_scale=axis_scale,
         filter_linear=filter_linear,
     )
-    out = _launch(planes_all, "none", zs, tf_lut, None, params, ess=ess,
-                  ess_chunk=plane_chunk, seed=acc_init)
+    out, staged = _launch(planes_all, "none", zs, tf_lut, None, params,
+                          ess=ess, ess_chunk=plane_chunk, seed=acc_init,
+                          zs_host=zs_host)
     sweep_preblended_planes.launches += 1
+    sweep_preblended_planes.staged_launches += staged
     sweep_preblended_planes.ess_launches += ess is not None
     sweep_preblended_planes.seed_launches += acc_init is not None
     return out
 
 
 sweep_preblended_planes.launches = 0
+#: the launches among ``launches`` that took the staged fetch path
+sweep_preblended_planes.staged_launches = 0
 #: the launches among ``launches`` that culled by an ESS bitmap
 sweep_preblended_planes.ess_launches = 0
 #: the launches among ``launches`` that resumed from a seed
@@ -1072,9 +1212,11 @@ def pallas_hist_render(
         axis_scale=(1.0, 1.0), filter_linear=True, n_bins=B,
         n_rows=rows.shape[0],
     )
-    out = _launch(hist_bm, stat, zs, tf_lut, rows, params)
+    out, staged = _launch(hist_bm, stat, zs, tf_lut, rows, params)
     pallas_hist_render.launches += 1
+    pallas_hist_render.staged_launches += staged
     return out
 
 
 pallas_hist_render.launches = 0
+pallas_hist_render.staged_launches = 0

@@ -23,7 +23,12 @@ the analytic VJP of ``march/slice.py`` and its ``P_total``). Each counts
 its kernel launches in ``.launches``; K3's and K4's ``.ess_launches`` count
 those of them that culled by an ESS bitmap, every wrapper's
 ``.seed_launches`` those that resumed from a seed (K5: that wrote ``S``),
-and ``.size_launches`` (a Counter) its launches per image ``(H, W)``.
+``.staged_launches`` those that took the staged fetch path (each block's
+plane footprint decoded once in shared memory; see ``slice_kernel``), and
+``.size_launches`` and ``.size_staged_launches`` (Counters) its launches
+and staged launches per image ``(H, W)``. Each wrapper takes an internal
+``staged`` argument that forces a fetch path; K5 stages by default only in
+the decode modes (on scalar planes the direct path measured faster).
 
 Brightness is folded outside the kernels (they run at brightness 1 and the
 image is scaled in torch), so it stays differentiable. In the histogram
@@ -66,12 +71,12 @@ from vrdd_tpu_torch.march.slice import (
     transmittance_checkpoints,
 )
 from vrdd_tpu_torch.kernels.slice_kernel import (
-    ESS_TILE, _MODES, _SMEM_FLOATS, _check_unported, _decode_plain,
-    _decode_rows, _decode_rows_grad, _device_f32, _hist_geometry,
-    _host_floats, _launch, _on_card, _pixel_slopes, _resolve_ess,
-    _slope_grids, _sweep_params, _uniform_grid_params, decode_chain,
-    decode_with_rows,
-    hist_render_supported, pallas_supported,
+    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, _check_unported,
+    _decode_plain, _decode_rows, _decode_rows_grad, _device_f32,
+    _hist_geometry, _host_floats, _launch, _on_card, _pixel_slopes,
+    _resolve_ess, _slope_grids, _stage_dims, _sweep_params,
+    _uniform_grid_params, decode_chain, decode_with_rows,
+    hist_render_supported, pallas_supported, stage_bound, stage_smem_bytes,
     sweep_preblended_planes_reference,
 )
 from vrdd_tpu_torch.utils.config import MarchConfig
@@ -89,9 +94,8 @@ __all__ = [
 #: checkpoint strides K5 is compiled for (csrc/slice_vjp.cu dispatch_ck)
 CK_STRIDES = (4, 8)
 #: threads per K5 block; each keeps its own column of LUT/param cotangents
-#: in shared memory (csrc/slice_vjp.cu kBwdThreads)
-_BWD_THREADS = 128
-_BWD_BLOCK = (32, 4)
+#: in shared memory (csrc/bwd_common.cuh kBwdThreads)
+_BWD_THREADS = BWD_BLOCK[0] * BWD_BLOCK[1]
 #: the TPU's HBM budget in JAX's route='auto' rule (slice_vjp.py:1396): a
 #: 16 GB chip's; kept verbatim until the H100 policy is measured
 _TPU_AUTO_BUDGET = 13 * 1024 ** 3
@@ -249,28 +253,35 @@ def sweep_fwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
                                    tscl, acc0=acc0)
 
 
-def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, acc0=None):
+def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, acc0=None,
+              staged=None):
     """K3: the differentiable sweep's primal without checkpoints, for calls
     where no input needs a gradient, resumed from the seed ``acc0 (H, W, 4)``
-    when given. Returns ``(H, W, 4)`` at brightness 1."""
+    when given. ``staged`` forces a fetch path (None: by geometry). Returns
+    ``(H, W, 4)`` at brightness 1."""
     if not _on_card(vol):
         return sweep_fwd_reference(cfg, vol, rows, lut, density, toff, tscl,
                                    acc0)
     cfg.check(vol, lut)
-    out = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
-                  cfg.params(vol, rows, density, toff, tscl), ess=cfg.ess,
-                  ess_chunk=cfg.ck_stride, seed=acc0)
+    out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
+                      cfg.params(vol, rows, density, toff, tscl),
+                      ess=cfg.ess, ess_chunk=cfg.ck_stride, seed=acc0,
+                      staged=staged)
     sweep_fwd.launches += 1
+    sweep_fwd.staged_launches += st
     sweep_fwd.ess_launches += cfg.ess is not None
     sweep_fwd.seed_launches += acc0 is not None
     sweep_fwd.size_launches[(cfg.height, cfg.width)] += 1
+    sweep_fwd.size_staged_launches[(cfg.height, cfg.width)] += st
     return out
 
 
 sweep_fwd.launches = 0
+sweep_fwd.staged_launches = 0
 sweep_fwd.ess_launches = 0
 sweep_fwd.seed_launches = 0
 sweep_fwd.size_launches = collections.Counter()
+sweep_fwd.size_staged_launches = collections.Counter()
 
 
 # ---- K4 ----------------------------------------------------------------
@@ -301,30 +312,35 @@ def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
 
 
 def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
-                   acc0=None):
+                   acc0=None, staged=None):
     """K4: the primal plus ``tck (n_chunks, H, W)``, the transmittance at
     the start of every block of ``cfg.ck_stride`` planes under the
     backward's recursion ``T <- T - [T >= 1-thr] T a``, from ``1 - seed_a``
-    for a seed ``acc0``. K4's image is bitwise K3's."""
+    for a seed ``acc0``. K4's image is bitwise K3's. ``staged`` forces a
+    fetch path (None: by geometry)."""
     if not _on_card(vol):
         return sweep_fwd_ckpt_reference(cfg, vol, rows, lut, density, toff,
                                         tscl, acc0)
     cfg.check(vol, lut)
-    out = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
-                  cfg.params(vol, rows, density, toff, tscl),
-                  ck_stride=cfg.ck_stride, ess=cfg.ess,
-                  ess_chunk=cfg.ck_stride, seed=acc0)
+    out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
+                      cfg.params(vol, rows, density, toff, tscl),
+                      ck_stride=cfg.ck_stride, ess=cfg.ess,
+                      ess_chunk=cfg.ck_stride, seed=acc0, staged=staged)
     sweep_fwd_ckpt.launches += 1
+    sweep_fwd_ckpt.staged_launches += st
     sweep_fwd_ckpt.ess_launches += cfg.ess is not None
     sweep_fwd_ckpt.seed_launches += acc0 is not None
     sweep_fwd_ckpt.size_launches[(cfg.height, cfg.width)] += 1
+    sweep_fwd_ckpt.size_staged_launches[(cfg.height, cfg.width)] += st
     return out
 
 
 sweep_fwd_ckpt.launches = 0
+sweep_fwd_ckpt.staged_launches = 0
 sweep_fwd_ckpt.ess_launches = 0
 sweep_fwd_ckpt.seed_launches = 0
 sweep_fwd_ckpt.size_launches = collections.Counter()
+sweep_fwd_ckpt.size_staged_launches = collections.Counter()
 
 
 # ---- K5 ----------------------------------------------------------------
@@ -376,7 +392,8 @@ def sweep_bwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g,
 
 
 def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
-              g_planes: bool, g_lut: bool, g_params: bool, acc0=None):
+              g_planes: bool, g_lut: bool, g_params: bool, acc0=None,
+              staged=None):
     """K5: one reverse sweep from K4's checkpoints. Returns ``(d_planes,
     small, mom, s_img)``: the plane (or decoded-plane) cotangent
     ``(n_layers, ny, nx)`` float32 in storage layer order (None unless
@@ -384,7 +401,8 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     scale cotangents (zeros where pruned), in variance mode the per-voxel
     chain moments ``(n_layers, 2, ny, nx)``, and for a seeded sweep
     (``acc0``, the seed K4 ran from) each ray's ``P_total`` ``(H, W)`` that
-    the seed cotangent needs (else None)."""
+    the seed cotangent needs (else None). ``staged`` forces a fetch path
+    (None: by geometry)."""
     if not _on_card(vol):
         return sweep_bwd_reference(cfg, vol, rows, lut, density, toff, tscl,
                                    g, g_planes, g_lut, g_params, acc0)
@@ -408,7 +426,7 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     rows_t = None if rows is None else rows.detach().contiguous()
     d_planes = (torch.zeros((n_layers, ny, nx), dtype=torch.float32,
                             device=dev) if g_planes else None)
-    n_blocks = (-(-W // _BWD_BLOCK[0])) * (-(-H // _BWD_BLOCK[1]))
+    n_blocks = (-(-W // BWD_BLOCK[0])) * (-(-H // BWD_BLOCK[1]))
     partials = (torch.empty((n_blocks, 4 * n_lut + 3), dtype=torch.float32,
                             device=dev)
                 if (g_lut or g_params) else None)
@@ -420,6 +438,17 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    hist = cfg.mode != "none"
+    bound = stage_bound(params, cfg.zs, BWD_BLOCK)
+    # by default only the decode modes stage: on scalar planes a voxel is
+    # one load and the staged K5 measured slower than the direct one on an
+    # H100 (PERF.md)
+    stage = _stage_dims(staged, bound, stage_smem_bytes(
+        *bound, n_bins=params["n_bins"] if hist else 1,
+        elem_size=vol.element_size(), n_lut=n_lut,
+        row_floats=rows_t.numel() if hist else 0, bwd_ck=cfg.ck_stride,
+        g_planes=g_planes, momt=mom is not None,
+        g_small=partials is not None), prefer=hist)
     p = _build.SweepParams(n_lut=n_lut, **params)
     bp = _build.BwdParams(ck_stride=cfg.ck_stride, n_chunks=cfg.n_chunks,
                           g_planes=int(g_planes), g_lut=int(g_lut),
@@ -431,21 +460,25 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
             p, bp, _MODES[cfg.mode], int(vol.dtype == torch.bfloat16),
             vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(), ptr(rows_t),
             g.data_ptr(), tck.data_ptr(), ptr(d_planes), ptr(partials),
-            ptr(mom), ptr(s_img), stream,
+            ptr(mom), ptr(s_img), *stage, stream,
         )
     if rc != 0:
         raise RuntimeError(f"vrdd_slice_bwd launch failed: CUDA error {rc}")
     sweep_bwd.launches += 1
+    sweep_bwd.staged_launches += stage[0] > 0
     sweep_bwd.seed_launches += acc0 is not None
     sweep_bwd.size_launches[(H, W)] += 1
+    sweep_bwd.size_staged_launches[(H, W)] += stage[0] > 0
     small = (partials.sum(0) if partials is not None
              else torch.zeros(4 * n_lut + 3, dtype=torch.float32, device=dev))
     return d_planes, small, mom, s_img
 
 
 sweep_bwd.launches = 0
+sweep_bwd.staged_launches = 0
 sweep_bwd.seed_launches = 0
 sweep_bwd.size_launches = collections.Counter()
+sweep_bwd.size_staged_launches = collections.Counter()
 
 
 # ---- autograd ------------------------------------------------------------
