@@ -84,7 +84,43 @@ Phases (each prints its lines; any failure exits non-zero):
        (principal axes z, x and y; d_z of both signs), which must resolve
        to shear-warp and launch K3 once a frame; each frame against the
        ``'xla'`` shear-warp at the image tolerance, frame ms and MTexels/s,
-       K3 on the 2048^2 m-grid timed against its plain version.
+       K3 on the 2048^2 m-grid timed against its plain version;
+9. the fractal and flexible-block render at full size:
+   9a. a fractal volume of 256^3 blocks x 32 bins (16 templates, up to 8
+       sparse errors; made on the card from a seed): the decode timed and
+       held against the per-voxel oracle on 4096 voxels (1e-6 abs), then
+       queries 4/5/6 to 1024^2 through ``renderer='auto'``, which must
+       resolve to K1 with ESS (counters reset before, read after), each
+       frame bitwise on the direct path and without ESS and against the
+       plain ``slice`` renderer at the image tolerance; one rotated view
+       (30, 20) through shear-warp, which must launch K3 once, against the
+       ``'xla'`` shear-warp;
+   9b. the flexible blocks of an Isabel-sized raw volume (500 x 500 x 100
+       float32, smooth seeded blobs over [0, 255], made on the card):
+       ``from_raw`` with blocks of 4 (125 x 125 x 25 x 64 bins), each stage
+       timed and the peak memory printed; its integral-histogram counts
+       against a direct per-block count (the largest count error printed;
+       blocks whose prefix boxes hold at most 2^24 voxels must be exact)
+       and its stats against the direct count's; queries 8/9/0 (normalized)
+       to 1024^2 as in 9a (K1 on the zero-padded 126 x 126 x 26 grid with
+       axis scale (125/126, 125/126, 25/26), ESS at that z scale; the
+       504-byte rows take the staged copy's per-row offsets), query 9
+       rotated through shear-warp K3; K1 on the grid with and without ESS
+       and K3 on the rotated view's m-grid timed on both fetch paths
+       against their plain versions;
+   9c. ``from_codebooks`` at the reference's Fuel scale (64^3, the full
+       262,144-span Fenwick universe, blocks of 6) on the card against
+       ``from_raw`` of the same raw volume (1e-4 relative and absolute);
+   9d. ``python -m vrdd_tpu_torch.cli render --file none --query 9`` at its
+       defaults and with ``--renderer auto --flex-normalize``;
+10. ``fit-tf --blocks 50 50 10 --size 512 --iters 5 --renderer auto`` (the
+    Isabel geometry): it must take the fused kernels, launch K3 for its
+    target and K4 + K5 (``wrt=('lut',)``) once a step (counters reset before,
+    read after), and its loss must be finite and fall; K4 and K5 at that
+    shape timed on both fetch paths against their plain versions (K5's LUT
+    cotangents within 1e-3 relative L2, bitwise across paths); ``encode``
+    at its defaults on the card, byte for byte the file it writes with
+    ``--device cpu``.
 
 Every sweep kernel runs by default on the fetch path its wrapper chooses
 (staged where the footprint fits shared memory, K5 on scalar planes
@@ -289,7 +325,8 @@ def bound(n_bytes, n_ops):
 
 def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
                  reverse=False, ess=None, chunk=8, tex_offset=0.5,
-                 origin=ORIGIN, dz_sign=-1, seed_alpha=None):
+                 origin=ORIGIN, dz_sign=-1, seed_alpha=None,
+                 axis_scale=(1.0, 1.0)):
     """``(samples, texels)``: the samples the sweep kernels evaluate on
     these inputs, and the distinct plane texels those samples read. A sample
     is evaluated where the plane is in front of the camera, the ray inside
@@ -299,7 +336,7 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     front to back (``reverse``: the stack is stored z-ascending), from the
     camera at ``origin`` whose rays have d_z of sign ``dz_sign``, the
     accumulated alpha starting at ``seed_alpha`` (H, W) for a seeded
-    sweep."""
+    sweep, on the filter grid scaled by ``axis_scale`` (flexible blocks)."""
     import torch
 
     from vrdd_tpu_torch.kernels import slice_kernel as sk
@@ -311,8 +348,8 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     P, ny, nx = planes.shape
     mx, my = sk._slope_grids(slopes, W, H)
     rgba = _chunk_rgba_fn(P, ny, nx, zs, torch.tensor(origin), mx, my, march,
-                          dz_sign, None, True, tex_offset, (1.0, 1.0), True,
-                          dev)
+                          dz_sign, None, True, tex_offset, tuple(axis_scale),
+                          True, dev)
     mx_t, my_t = torch.as_tensor(mx, device=dev), torch.as_tensor(my, device=dev)
     th, tw = sk.ESS_TILE
     ti = torch.arange(H, device=dev) // th
@@ -322,9 +359,10 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     (xlo, ylo, _), (xhi, yhi, _) = march.box_min, march.box_max
     thr = march.opacity_threshold
 
-    def taps(w, lo, hi, n):
+    def taps(w, lo, hi, n, scale):
         """(rays, n) 0/1 matrix of the texels each ray's resample reads."""
-        q = ((w - lo) / (hi - lo) * n - tex_offset).clamp(0.0, n - 1.0)
+        q = ((w - lo) / (hi - lo) * (n * scale) - tex_offset).clamp(0.0,
+                                                                    n - 1.0)
         i0 = torch.floor(q).long()
         m = torch.zeros((w.shape[0], n), device=dev)
         rows = torch.arange(w.shape[0], device=dev)
@@ -350,8 +388,9 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
                     if ess is not None:
                         live &= ess[(c0 + k) // chunk][ti][:, tj] != 0
                     count += live.sum()
-                    read = (taps(yw, ylo, yhi, ny).T @ live.float()
-                            @ taps(xw, xlo, xhi, nx))
+                    read = (taps(yw, ylo, yhi, ny, axis_scale[1]).T
+                            @ live.float()
+                            @ taps(xw, xlo, xhi, nx, axis_scale[0]))
                     texels += (read > 0).sum()
                 acc = torch.where(acc > thr, acc, acc + a[k] * (1.0 - acc))
     return int(count), int(texels)
@@ -1342,10 +1381,12 @@ def profile_step(step, what, top=8):
               f"x{e.count:<4d} {e.key[:70]}")
 
 
-def shearwarp_setup(vol, view, W, n_planes):
+def shearwarp_setup(vol, view, W, n_planes, axis_scale=(1.0, 1.0, 1.0)):
     """The fused sweep of one rotated shear-warp frame, as
     ``shearwarp_render_image(backend='pallas')`` builds it: ``(cfg, planes,
-    wi, origin, dz_sign)`` for K3/K4/K5 and their plain versions."""
+    wi, origin, dz_sign, axis)`` for K3/K4/K5 and their plain versions;
+    ``axis_scale`` are per-world-axis filter-grid scales, permuted with the
+    volume (``cfg.axis_scale`` holds the permuted x and y ones)."""
     from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
     from vrdd_tpu_torch.kernels import slice_vjp as sv
     from vrdd_tpu_torch.march import shearwarp as sw
@@ -1357,12 +1398,14 @@ def shearwarp_setup(vol, view, W, n_planes):
     axis, (px, py, pz), dz_sign, ok, b = sw.slope_corner_bounds(iv, W, W)
     wi = -(-2 * W // 128) * 128
     mgrid = (*sw.mgrid_params(b[0], b[1], wi), *sw.mgrid_params(b[2], b[3], wi))
+    ascale = tuple(float(axis_scale[i]) for i in (px, py, pz))
     vol_p = vol.permute(2 - pz, 2 - py, 2 - px).contiguous()
     planes, zs = preblend_planes(vol_p, n_planes, march.box_min,
-                                 march.box_max, dz_sign)
+                                 march.box_max, dz_sign, z_scale=ascale[2])
     origin = tuple(float(iv[i, 3]) for i in (px, py, pz))
     cfg = sv.planes_config(zs, origin, mgrid, dz_sign=dz_sign, width=wi,
-                           height=wi, n_planes=n_planes, plane_chunk=4)
+                           height=wi, n_planes=n_planes, plane_chunk=4,
+                           axis_scale=ascale[:2])
     return cfg, planes, wi, origin, dz_sign, axis
 
 
@@ -1557,6 +1600,571 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
              f"{seen_axes}")
     del pipe, hist, vol
     torch.cuda.empty_cache()
+    return records
+
+
+def render_cfg(q, W, density=0.05, tf_scale=1.0):
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig, TransferFunctionConfig)
+
+    return RenderConfig(camera=CameraConfig(width=W, height=W),
+                        density=density, query_method=QueryMethod(q),
+                        tf=TransferFunctionConfig(scale=tf_scale))
+
+
+def check_frame(img, what, W):
+    import torch
+
+    if tuple(img.shape) != (W, W, 4) or not torch.isfinite(img).all():
+        fail(f"{what}: bad output")
+    if float(img[..., 3].max()) <= 0.0:
+        fail(f"{what}: empty image")
+
+
+def auto_frames(pipe, cfgs, W, tag):
+    """The unrotated main-path run of ``cfgs`` (query -> config) through
+    ``renderer='auto'``, which must resolve to K1 with ESS: the launch
+    counters (K1, its ESS and staged launches, the bitmap kernel) reset
+    before and read after. Then per query: the frame bitwise on the direct
+    fetch path and without ESS, against the plain 'slice' renderer at the
+    image tolerance, and its ms (host clock, median of 5). Returns the
+    per-query launches ``(K1, with ESS, bitmap, staged)`` of the main-path
+    run."""
+    import torch
+
+    from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+
+    k1, bm = sk.sweep_preblended_planes, sk.ess_bitmap
+    iv = default_benchmark_inv_view()
+    for q, cfg in cfgs.items():
+        if pipe.resolve_renderer("auto", iv, cfg) != "pallas":
+            fail(f"{tag} q{q}: 'auto' did not resolve to the fused kernel")
+
+    def counts():
+        return (k1.launches, k1.ess_launches, bm.launches, k1.staged_launches)
+
+    k1.launches = k1.ess_launches = k1.staged_launches = bm.launches = 0
+    images, launches = {}, {}
+    for q, cfg in cfgs.items():
+        before = counts()
+        images[q] = pipe.render(iv, cfg, "auto")
+        launches[q] = tuple(c - b for c, b in zip(counts(), before))
+    torch.cuda.synchronize()
+    print(f"  [{tag}] launches in the main-path run (per query, K1 / with "
+          f"ESS / bitmap / staged): {launches}")
+    if any(v != (1, 1, 1, 1) for v in launches.values()):
+        fail(f"{tag}: each frame must launch the bitmap and K1 with ESS once, "
+             f"on the staged path: {launches}")
+    for q, cfg in cfgs.items():
+        img = images[q]
+        check_frame(img, f"{tag} q{q}", cfg.camera.width)
+        bitwise(on_path(False, lambda cfg=cfg: pipe.render(iv, cfg, "auto"))(),
+                img, f"{tag} q{q}: K1+ESS staged vs direct")
+        pipe.empty_space_skip = False
+        bitwise(pipe.render(iv, cfg, "pallas"), img,
+                f"{tag} q{q}: K1 with ESS vs without")
+        pipe.empty_space_skip = True
+        slice_ms, ref = timed_once(lambda cfg=cfg: pipe.render(iv, cfg,
+                                                               "slice"))
+        compare(img, ref, f"[{tag} q{q}] auto (K1+ESS) vs slice")
+        frame_ms = host_ms(lambda cfg=cfg: pipe.render(iv, cfg, "auto"), 5)
+        print(f"  [{tag} q{q}] frame {frame_ms:.3f} ms "
+              f"({W * W / frame_ms / 1e3:.2f} MTexels/s), plain slice "
+              f"{slice_ms:.3f} ms")
+        del ref
+    return launches
+
+
+def rotated_frame(pipe, cfg, view, tag):
+    """One rotated frame through 'auto', which must resolve to shear-warp
+    and launch K3 once; against the 'xla' shear-warp (same channel, scales
+    and plane count) at the image tolerance. Returns ``(launches, staged)``
+    of K3."""
+    import torch
+
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march import shearwarp as sw
+
+    W = cfg.camera.width
+    iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
+    if pipe.resolve_renderer("auto", iv, cfg) != "shearwarp":
+        fail(f"{tag} {view}: 'auto' did not resolve to shear-warp")
+    k3 = sv.sweep_fwd
+    k3.launches = k3.staged_launches = 0
+    img = pipe.render(iv, cfg, "auto")
+    torch.cuda.synchronize()
+    launches, staged = k3.launches, k3.staged_launches
+    if launches != 1:
+        fail(f"{tag} {view}: the frame launched K3 {launches} times")
+    check_frame(img, f"{tag} {view}", W)
+    q = cfg.query_method
+    vol = pipe._stats_channel(q)
+    xla_ms, ref = timed_once(lambda: sw.shearwarp_render_image(
+        vol, iv, W, W, pipe.tf_lut, cfg.density, cfg.brightness,
+        cfg.tf.offset, cfg.tf.scale, march=cfg.march,
+        n_planes=max(64, 2 * vol.shape[0]), tex_offset=pipe._tex_offset(q),
+        axis_scale=pipe._flex_axis_scale(q), backend="xla"))
+    compare(img, ref, f"[{tag} {view}] auto (K3) vs 'xla' shear-warp")
+    frame_ms = host_ms(lambda: pipe.render(iv, cfg, "auto"), 5)
+    print(f"  [{tag} {view}] shear-warp frame {frame_ms:.3f} ms "
+          f"({W * W / frame_ms / 1e3:.2f} MTexels/s), K3 launches {launches} "
+          f"(staged {staged}), 'xla' frame {xla_ms:.3f} ms")
+    return launches, staged
+
+
+def fractal_decode_oracle(t, cb, eb, ev, idx):
+    """The decode of voxels ``idx`` by the reference's per-voxel steps, in
+    numpy (the loop of io/synthetic.synthetic_fractal_volume): template,
+    flip, shift, each error added with a clamp after it, renormalize."""
+    import numpy as np
+
+    t = t.cpu().numpy()
+    cb, eb, ev = (a.reshape(-1, a.shape[-1])[idx].cpu().numpy()
+                  for a in (cb, eb, ev))
+    n_bins = t.shape[1]
+    out = np.zeros((len(idx), n_bins), np.float32)
+    for i, (tid, shift, flip, ne) in enumerate(cb):
+        tt = t[tid][::-1] if flip else t[tid]
+        dec = np.roll(tt, shift).astype(np.float32)
+        for b, v in zip(eb[i, :ne], ev[i, :ne]):
+            dec[b] = max(np.float32(0.0), dec[b] + v)
+        s = dec.sum()
+        out[i] = dec / s if s > 0 else dec
+    return out
+
+
+def flex_counts(raw, block, n_bins, vmax):
+    """``(integral-histogram counts, direct counts)`` of every block of a
+    volume that tiles: the 8-corner query of ``integral_histogram`` (the
+    stages of ``from_raw``) and a direct per-block count of the voxels'
+    bins, each ``(Zb, Yb, Xb, n_bins)`` float32."""
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch.ops.integral import (
+        divide_blocks, integral_histogram, query_block_histogram)
+
+    nz, ny, nx = raw.shape
+    zb, yb, xb = nz // block, ny // block, nx // block
+    sat = integral_histogram(raw, n_bins, 0.0, vmax)
+    spans = divide_blocks((nx, ny, nz), block)
+    low = np.stack([spans[:, 2], spans[:, 1], spans[:, 0]], -1) - 1
+    high = np.stack([spans[:, 5], spans[:, 4], spans[:, 3]], -1) - 1
+    counts = query_block_histogram(sat, low, high).reshape(zb, yb, xb, n_bins)
+    del sat
+    bins = torch.clamp((raw / vmax * n_bins).to(torch.int32), 0, n_bins - 1)
+    blocks = bins.reshape(zb, block, yb, block, xb, block).permute(
+        0, 2, 4, 1, 3, 5).reshape(zb, yb, xb, -1).long()
+    direct = torch.zeros((zb, yb, xb, n_bins), dtype=torch.float32,
+                         device=raw.device)
+    direct.scatter_add_(-1, blocks, torch.ones_like(blocks,
+                                                    dtype=torch.float32))
+    return counts, direct
+
+
+def flex_k1_records(pipe, tf, q, W):
+    """K1 on query ``q``'s zero-padded flex grid with its filter-grid scales
+    (the pipeline's own channel), with ESS (the bitmap kernel from cached
+    plane stats at the grid's z scale) and without: each timed on both
+    fetch paths, held against its plain version and bitwise across paths;
+    bounds from this run's live samples. Returns two records."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.march.slice import preblend_planes
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    march = MarchConfig()
+    k1, bm = sk.sweep_preblended_planes, sk.ess_bitmap
+    vol = pipe._stats_channel(q)
+    nz, ny, nx = vol.shape
+    sx, sy, sz = pipe._flex_axis_scale(q)
+    P = max(64, 2 * nz)
+    slopes = sk.pixel_slope_params(W, W)
+    planes, zs = preblend_planes(vol, P, march.box_min, march.box_max, -1,
+                                 0.5, z_scale=sz)
+    stats = sk.precompute_ess_stats(vol, n_planes=P, march=march,
+                                    z_scale=sz)
+    bkw = dict(width=W, height=W, ny=ny, nx=nx, plane_chunk=8, march=march,
+               axis_scale=(sx, sy))
+    ess = bm(stats, zs, ORIGIN, slopes, tf, 0.0, 1.0, **bkw)
+    ess_ref = sk.ess_bitmap_reference(stats, zs, ORIGIN, slopes, tf, 0.0,
+                                      1.0, **bkw)
+    if not torch.equal(ess, ess_ref):
+        fail(f"flex q{q}: the ESS bitmap kernel differs from its plain version")
+
+    def run(culled):
+        return k1(planes, zs, ORIGIN, slopes, tf, 0.05, 1.0, 0.0, 1.0,
+                  width=W, height=W, axis_scale=(sx, sy),
+                  empty_space_skip=culled,
+                  ess_stats=stats if culled else None)
+
+    img_bytes = W * W * 16
+    stats_bytes = 2 * stats[0].numel() * 4
+    bitmap_ops = ess.numel() * ess_pair_ops(8, len(tf))
+    records = []
+    for culled in (True, False):
+        ms, direct_ms = paths_ms(lambda st: on_path(st, lambda: run(culled)))
+        got = run(culled)
+        bitwise(on_path(False, lambda: run(culled))(), got,
+                f"flex q{q} K1{'+ESS' if culled else ''} staged vs direct")
+        p_ms, ref = timed_once(lambda: sk.sweep_preblended_planes_reference(
+            planes, zs, ORIGIN, slopes, tf, 0.05, 1.0, 0.0, 1.0, width=W,
+            height=W, axis_scale=(sx, sy), ess=ess_ref if culled else None))
+        e = compare(got, ref, f"[9 flex q{q}] K1{'+ESS' if culled else ''} "
+                    "vs plain")
+        n_live, tex = live_samples(planes, zs, slopes, tf, 0.05, 0.0, 1.0, W,
+                                   W, ess=ess if culled else None,
+                                   axis_scale=(sx, sy))
+        bd = (bound(tex * 4 + stats_bytes + img_bytes,
+                    n_live * SAMPLE_OPS + bitmap_ops) if culled
+              else bound(tex * 4 + img_bytes, n_live * SAMPLE_OPS))
+        print(f"  [9 flex q{q}] K1{' with ESS (and its bitmap)' if culled else ''}"
+              f" on the {nz} x {ny} x {nx} padded grid, axis scale "
+              f"({sx:.6f}, {sy:.6f}, {sz:.6f}), {P} planes: staged "
+              f"{ms:.3f} ms, direct {direct_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_live} "
+              f"evaluated samples, {tex} texels read); culled "
+              f"{float((ess == 0).float().mean()):.4f} of (tile, chunk) pairs")
+        records.append({
+            "name": f"sweep_preblended_planes[{'ess,' if culled else ''}"
+                    f"flex,q{q}]",
+            "route": "cuda", "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
+            "max_abs_err": e, "ms": ms, "direct_ms": direct_ms,
+            "plain_ms": p_ms, **bd,
+        })
+        del got, ref
+    return records
+
+
+def flex_shearwarp_record(pipe, tf, q, view, W):
+    """K3 on the m-grid of query ``q``'s rotated flex view, the grid's
+    filter scales permuted with its axes: timed on both fetch paths, held
+    against its plain version and bitwise across paths. Returns a record."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    vol = pipe._stats_channel(q)
+    P = max(64, 2 * vol.shape[0])
+    cfg, planes, wi, origin, dz_sign, axis = shearwarp_setup(
+        vol, view, W, P, pipe._flex_axis_scale(q))
+    dev = vol.device
+    args = (cfg, planes, None, torch.as_tensor(tf, device=dev),
+            *[torch.tensor(v, device=dev) for v in (0.05, 0.0, 1.0)])
+    ms, direct_ms = paths_ms(lambda st: lambda: sv.sweep_fwd(*args,
+                                                            staged=st))
+    p_ms, ref = timed_once(lambda: sv.sweep_fwd_reference(*args))
+    got = sv.sweep_fwd(*args)
+    e = compare(got, ref, f"[9 flex q{q} {view}] K3 on the {wi}^2 m-grid "
+                "vs plain")
+    bitwise(got, sv.sweep_fwd(*args, staged=False),
+            f"flex q{q} {view}: K3 staged vs direct")
+    n_live, tex = live_samples(planes, cfg.zs, cfg.slopes, tf, 0.05, 0.0,
+                               1.0, wi, wi, chunk=4, origin=origin,
+                               dz_sign=dz_sign, axis_scale=cfg.axis_scale)
+    bd = bound(tex * 4 + wi * wi * 16, n_live * SAMPLE_OPS)
+    print(f"  [9 flex q{q} {view}] principal axis {axis}, permuted scales "
+          f"{cfg.axis_scale}: K3 staged {ms:.3f} ms, direct {direct_ms:.3f} "
+          f"ms, plain {p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}; {n_live} evaluated samples, {tex} texels "
+          "read)")
+    return {
+        "name": f"sweep_fwd[shearwarp,flex,q{q},{view[0]:g},{view[1]:g}]",
+        "route": "cuda", "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+        "replaces": "vrdd_tpu/pallas/slice_vjp.py:698", "max_abs_err": e,
+        "ms": ms, "direct_ms": direct_ms, "plain_ms": p_ms, **bd,
+    }
+
+
+def cli_lines(argv, tag):
+    """Run the port's CLI in this process; prints and returns its stdout."""
+    import contextlib
+    import io
+
+    from vrdd_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    print(f"[{tag}] {' '.join(argv)}: rc {rc}")
+    for line in text.splitlines():
+        print(f"  {line}")
+    if rc != 0:
+        fail(f"{tag}: rc {rc}")
+    return text
+
+
+def phase_9(dev, card, smi, tf, work):
+    """Fractal and flexible-block render at full size: queries 4/5/6 on a
+    256^3-block x 32-bin fractal volume and 8/9/0 on the flexible blocks of
+    an Isabel-sized raw volume, to 1024^2 through 'auto' (K1 + ESS) and one
+    rotated view each (shear-warp, K3); ``from_raw`` against the direct
+    block count; ``from_codebooks`` at the Fuel scale; the render CLI on
+    query 9. Returns the kernel records."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch.io.synthetic import (
+        fractal_volume_on_device, gaussian_blob_volume,
+        synthetic_flexible_dataset)
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.models.flexible import FlexibleBlockVolume
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import FractalHistogramVolume
+    from vrdd_tpu_torch.ops.histogram import (
+        flex_block_stats, normalize_histogram)
+
+    W = 1024
+    records = []
+    # ---- 9a: the fractal family, 256^3 blocks x 32 bins
+    n, B = 256, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t, cb, eb, ev = fractal_volume_on_device((n, n, n), B, 16, 8, seed=11,
+                                             device=dev)
+    frac = FractalHistogramVolume(cb, eb, ev, t)
+    nbytes = sum(a.numel() * a.element_size() for a in (t, cb, eb, ev))
+    print(f"[9a] fractal volume {n}^3 blocks x {B} bins, 16 templates, 8 "
+          f"errors ({nbytes / 1e9:.2f} GB codebook) -> {W}^2, on {card} "
+          f"({smi})")
+    dec_ms, dec = timed_once(frac.decode)
+    idx = np.random.default_rng(0).choice(n ** 3, 4096, replace=False)
+    oracle = fractal_decode_oracle(t, cb, eb, ev, idx)
+    got = dec.reshape(-1, B)[torch.as_tensor(idx, device=dev)].cpu().numpy()
+    err = float(np.abs(got - oracle).max())
+    print(f"  decode {dec_ms:.3f} ms ({dec.numel() * 4 / 1e9:.2f} GB, CUDA "
+          f"events); 4096 voxels against the per-voxel oracle: max abs err "
+          f"{err:.3e}")
+    if err > 1e-6 or not torch.isfinite(dec).all():
+        fail(f"9a: the fractal decode is {err:.3e} from the oracle")
+    del dec
+    pipe = RenderPipeline(fractal=frac)
+    print(f"  stats decode (basic_data_processing/fractal) "
+          f"{1e3 * pipe.timings['basic_data_processing/fractal']:.3f} ms "
+          "(host clock, synchronized); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    cfgs = {q: render_cfg(q, W, tf_scale=0.25 if q == 5 else 1.0)
+            for q in (4, 5, 6)}
+    auto_frames(pipe, cfgs, W, "9a")
+    rotated_frame(pipe, cfgs[4], (30.0, 20.0), "9a q4")
+    del pipe, frac, t, cb, eb, ev
+    torch.cuda.empty_cache()
+
+    # ---- 9b: the flexible blocks of an Isabel-sized raw volume
+    raw = gaussian_blob_volume((100, 500, 500), seed=7, device=dev) * 255.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    flex = FlexibleBlockVolume.from_raw(raw, block_size=4, vmax=256.0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[9b] from_raw: raw {tuple(raw.shape)} float32 (Isabel's "
+          f"500 x 500 x 100), blocks of 4 -> {flex.n_blocks} x 64 bins: "
+          + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in
+                      flex.timings.items())
+          + f" (host clock, synchronized); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the raw "
+          "volume)")
+    counts, direct = flex_counts(raw, 4, 64, 256.0)
+    cerr = (counts - direct).abs().amax(dim=-1)
+    zb, yb, xb = cerr.shape
+    # a block whose high corner's prefix box holds at most 2^24 voxels has
+    # exact float32 prefix counts: its counts must be exact
+    ext = (torch.arange(1, zb + 1, device=dev)[:, None, None] * 4
+           * (torch.arange(1, yb + 1, device=dev)[None, :, None] * 4)
+           * (torch.arange(1, xb + 1, device=dev)[None, None, :] * 4))
+    small = ext <= (1 << 24)
+    print(f"  integral-histogram counts vs the direct per-block count: max "
+          f"abs error {float(cerr.max()):g} counts, {int((cerr > 0).sum())} "
+          f"of {cerr.numel()} blocks off; where the prefix box holds <= 2^24 "
+          f"voxels ({int(small.sum())} blocks): max {float(cerr[small].max()):g}")
+    if float(cerr[small].max()) != 0.0:
+        fail("9b: integral-histogram counts are off where float32 is exact")
+    sdirect = flex_block_stats(normalize_histogram(direct)[0])
+    serr = (flex.stats_grid - sdirect).abs().reshape(-1, 3).amax(0).tolist()
+    print(f"  stats vs those of the direct count: max abs error mean "
+          f"{serr[0]:.3e}, variance {serr[1]:.3e}, entropy {serr[2]:.3e} "
+          f"(of ranges {[round(float(v), 3) for v in flex.stat_ranges()[:, 1]]})")
+    if not torch.isfinite(flex.stats_grid).all():
+        fail("9b: non-finite flexible stats")
+    del counts, direct, cerr, sdirect, raw
+    torch.cuda.empty_cache()
+    pipe = RenderPipeline(flexible=flex.normalized())
+    cfgs = {q: render_cfg(q, W) for q in (8, 9, 0)}
+    launches = auto_frames(pipe, cfgs, W, "9b")
+    sw_launches, sw_staged = rotated_frame(pipe, cfgs[9], (30.0, 20.0),
+                                           "9b q9")
+    for r, culled in zip(flex_k1_records(pipe, tf, 9, W), (True, False)):
+        # launches: with ESS, query 9's frame of the main-path run; the main
+        # path always takes ESS on the flex grid, so K1 without it has none
+        r["launches"], r["staged_launches"] = (
+            (launches[9][1], launches[9][3]) if culled else (None, None))
+        records.append(r)
+    r = flex_shearwarp_record(pipe, tf, 9, (30.0, 20.0), W)
+    r["launches"], r["staged_launches"] = sw_launches, sw_staged
+    records.append(r)
+    del pipe, flex
+    torch.cuda.empty_cache()
+
+    # ---- 9c: from_codebooks at the reference's Fuel scale
+    t0 = time.perf_counter()
+    ds = synthetic_flexible_dataset(dims=(64, 64, 64), n_bins=64, seed=5)
+    gen_s = time.perf_counter() - t0
+    keys = ("fractal_spans", "fractal_codebook", "fractal_error_bins",
+            "fractal_error_values", "templates", "simple_spans",
+            "simple_bin_ids", "simple_freqs", "simple_counts")
+    fb = FlexibleBlockVolume.from_codebooks(
+        volume_dim=ds["volume_dim"], block_size=6, device=dev,
+        **{k: ds[k] for k in keys})
+    via_raw = FlexibleBlockVolume.from_raw(
+        torch.from_numpy(ds["raw"]).to(dev), block_size=6, vmax=256.0)
+    d = (fb.stats_grid - via_raw.stats_grid).abs()
+    rel = d / via_raw.stats_grid.abs().clamp(min=1e-30)
+    ok = bool((d <= 1e-4 + 1e-4 * via_raw.stats_grid.abs()).all())
+    print(f"[9c] from_codebooks, Fuel 64^3 (the {64 ** 3} spans of the "
+          f"Fenwick universe; dataset made on the host in {gen_s:.1f} s), "
+          f"blocks of 6 -> {fb.n_blocks}: "
+          + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in fb.timings.items())
+          + f"; against from_raw: max abs {float(d.max()):.3e}, max rel "
+          f"{float(rel.max()):.3e}")
+    if not ok or fb.n_blocks != tuple(-(-d // 6)
+                                      for d in ds["volume_dim"][::-1]):
+        fail("9c: from_codebooks disagrees with from_raw (rtol 1e-4, atol "
+             "1e-4)")
+    del fb, via_raw, ds
+
+    # ---- 9d: the render CLI on query 9 at its defaults
+    for extra in ([], ["--renderer", "auto", "--flex-normalize"]):
+        text = cli_lines(["render", "--file", "none", "--query", "9", "-o",
+                          str(work / "q9.ppm"), *extra], "9d")
+        if not re.search(r"Throughput = \S+ MTexels/s", text):
+            fail(f"9d: render --query 9 {extra} printed no throughput")
+    return records
+
+
+def phase_10(dev, card, smi, work):
+    """fit-tf at the Isabel geometry through 'auto' (K3 target, K4 + K5 per
+    step with wrt=('lut',)) and encode on the card against the CPU; K4 and
+    K5 at fit-tf's shape timed against their plain versions. Returns the
+    kernel records."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch.core.transfer import (
+        default_transfer_function, grayscale_ramp)
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march.slice import preblend_planes
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    S, iters = 512, 5
+    counters = diff_counters()
+    for c in counters:
+        c.launches = c.staged_launches = 0
+        c.size_launches.clear()
+        c.size_staged_launches.clear()
+    print(f"[10] fit-tf, 50 x 50 x 10 blocks -> {S}^2, on {card} ({smi})")
+    text = cli_lines(["fit-tf", "--blocks", "50", "50", "10", "--size",
+                      str(S), "--iters", str(iters), "--renderer", "auto",
+                      "--checkpoint", str(work / "tf.npz")], "10 fit-tf")
+    torch.cuda.synchronize()
+    losses = [float(v) for v in re.findall(r"step \d+: loss (\S+)", text)]
+    launches = {c.__name__: c.size_launches[(S, S)] for c in counters}
+    staged = {c.__name__: c.size_staged_launches[(S, S)] for c in counters}
+    print(f"  launches at {S}^2: {launches}, staged {staged}; losses "
+          f"{losses}")
+    if "renderer: pallas" not in text:
+        fail("10: fit-tf --renderer auto did not take the fused kernels")
+    if (launches["sweep_fwd"] < 1 or launches["sweep_fwd_ckpt"] != iters
+            or launches["sweep_bwd"] != iters):
+        fail(f"10: fit-tf did not run K3 and K4/K5 once a step: {launches}")
+    if (len(losses) != iters or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]):
+        fail(f"10: fit-tf's loss is not finite and falling: {losses}")
+
+    # K4 / K5 at fit-tf's shape: the raw mean channel, 64 planes -> 512^2
+    hist = random_histogram_volume((10, 50, 50), n_bins=32, seed=0)
+    vol = RawHistogramVolume(torch.from_numpy(hist).to(dev)).stats_volume()[
+        ..., 0].contiguous()
+    march = MarchConfig()
+    P = max(64, 2 * vol.shape[0])
+    planes, zs = preblend_planes(vol, P, march.box_min, march.box_max, -1)
+    slopes = sk.pixel_slope_params(S, S)
+    cfg = sv.planes_config(zs, ORIGIN, slopes, width=S, height=S, n_planes=P,
+                           plane_chunk=4)
+    gray = grayscale_ramp(9)
+    scal = [torch.tensor(v, device=dev) for v in (0.05, 0.0, 1.0)]
+    args = (cfg, planes, None, torch.as_tensor(gray, device=dev), *scal)
+    target = sv.sweep_fwd(cfg, planes, None, torch.as_tensor(
+        default_transfer_function(), device=dev), *scal)
+    img4, tck = sv.sweep_fwd_ckpt(*args)
+    g = (2.0 / img4.numel()) * (img4 - target)
+    n_live, tex = live_samples(planes, zs, slopes, gray, 0.05, 0.0, 1.0, S,
+                               S, chunk=4)
+    ops = n_live * SAMPLE_OPS
+    img_b, tck_b = S * S * 16, cfg.n_chunks * S * S * 4
+    records = []
+    n_lut = len(gray)
+    for name, fn, ref_fn, bd, line in (
+            ("sweep_fwd_ckpt", lambda st: sv.sweep_fwd_ckpt(*args, staged=st),
+             lambda: sv.sweep_fwd_ckpt_reference(*args),
+             bound(tex * 4 + img_b + tck_b, ops), 714),
+            ("sweep_bwd",
+             lambda st: sv.sweep_bwd(*args, g, tck, False, True, False,
+                                     staged=st),
+             lambda: sv.sweep_bwd_reference(*args, g, False, True, False),
+             bound(tex * 4 + tck_b + img_b + (4 * n_lut + 3) * 4,
+                   K5_SAMPLE_FACTOR * ops), 787)):
+        ms, direct_ms = paths_ms(lambda st, fn=fn: lambda: fn(st))
+        p_ms, ref = timed_once(ref_fn)
+        got, direct = fn(None), fn(False)
+        if name == "sweep_bwd":
+            lut_g, lut_ref = got[1][:4 * n_lut], ref[1][:4 * n_lut]
+            rel_l2(lut_g, lut_ref, "[10] K5 wrt=lut LUT cotangents vs plain")
+            bitwise(got[1], fn(True)[1], "[10] K5 LUT cotangents staged vs "
+                    "direct")
+            e = float((lut_g - lut_ref).abs().max())
+        else:
+            e = compare(got[0], ref[0], f"[10] {name} image vs plain")
+            compare(got[1][..., None], ref[1][..., None],
+                    f"[10] {name} checkpoints vs plain")
+            for a, b in zip(got, direct):
+                bitwise(a, b, f"[10] {name} staged vs direct")
+        print(f"  [10] {name} (wrt=lut), {P} planes of {tuple(vol.shape)} -> "
+              f"{S}^2: staged {ms:.3f} ms, direct {direct_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}; {n_live} evaluated samples, {tex} texels "
+              "read)")
+        records.append({
+            "name": f"{name}[fit_tf,lut]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/"
+                      f"{'slice_vjp.cu' if name == 'sweep_bwd' else 'slice_sweep.cu'}",
+            "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
+            "launches": launches[name], "staged_launches": staged[name],
+            "max_abs_err": e, "ms": ms, "direct_ms": direct_ms,
+            "plain_ms": p_ms, **bd,
+        })
+        del got, ref, direct
+
+    # ---- encode on the card against the card's CPU
+    on_card, on_cpu = work / "enc_cuda.bin", work / "enc_cpu.bin"
+    cli_lines(["encode", "-o", str(on_card)], "10 encode")
+    cli_lines(["encode", "-o", str(on_cpu), "--device", "cpu"], "10 encode")
+    a, b = on_card.read_bytes(), on_cpu.read_bytes()
+    print(f"  encode: {len(a)} bytes on the card, {len(b)} on the CPU, "
+          f"equal {a == b}")
+    if a != b or not a:
+        fail("10: encode on the card wrote another file than on the CPU")
     return records
 
 
@@ -1815,6 +2423,12 @@ def main() -> int:
 
     # ---- 8. BASELINE config 3 (fit-voxels) and rotated views
     records += phase_8(dev, card, smi, tf, work)
+
+    # ---- 9. fractal and flexible-block render at full size
+    records += phase_9(dev, card, smi, tf, work)
+
+    # ---- 10. fit-tf and encode
+    records += phase_10(dev, card, smi, work)
     shutil.rmtree(work)
 
     # ---- result

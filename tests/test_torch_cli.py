@@ -1,6 +1,7 @@
-"""The whole forward slice: ``render-hist`` of the port against the JAX
-package's, on the same histogram file (JAX on the CPU takes its
-materialized-decode branch; the port takes its plain torch version)."""
+"""The port's CLI against the JAX package's on the CPU: ``render-hist`` on
+the same histogram file (JAX takes its materialized-decode branch; the port
+its plain torch version), ``render`` for queries 0-9 on the seeded
+synthetic families, ``encode`` byte for byte, and ``fit-voxels``."""
 
 import itertools
 
@@ -145,24 +146,72 @@ def test_render_volume_file(tmp_path):
     np.testing.assert_array_equal(formats.read_ppm(str(out)), ref)
 
 
-def test_render_unported_raise(tmp_path):
-    out = tmp_path / "o.ppm"
-    for extra, match in ((("--query", "4"), "fractal"),
-                         (("--query", "9"), "flexible"),
-                         (("--flex-normalize",), "flexible")):
-        with pytest.raises(NotImplementedError, match=match):
-            tcli.main(_render_args(out, "--device", "cpu", *extra))
+#: every query of the synthetic pipeline (raw, fractal, flexible blocks),
+#: with the flags that put its values on the LUT: the variances are wide,
+#: the flexible mean and variance in raw bin-domain units unless
+#: --flex-normalize maps them
+QUERY_CASES = [(q, ("--tf-scale", "0.25") if q in (2, 5) else ())
+               for q in range(1, 9)] + [
+    (9, ("--flex-normalize",)), (0, ("--flex-normalize",)),
+    (9, ("--tf-scale", "0.004")), (8, ("--flex-block", "3")),
+    (9, ("--flex-block", "5", "--flex-normalize")),
+]
 
 
-def test_render_flex_block_raises_unless_default(tmp_path):
-    """--flex-block sizes the flexible blocks, not ported yet: a value other
-    than the default raises instead of being ignored."""
-    out = tmp_path / "o.ppm"
-    with pytest.raises(NotImplementedError, match="--flex-block"):
-        tcli.main(_render_args(out, "--device", "cpu", "--flex-block", "8"))
-    assert not out.exists()
-    assert tcli.main(_render_args(out, "--device", "cpu", "--flex-block",
-                                  "4")) == 0
+def _same_image(ref_out, got_out, flips=1e-3):
+    ref = formats.read_ppm(str(ref_out)).astype(np.int32)
+    got = formats.read_ppm(str(got_out)).astype(np.int32)
+    assert got.shape == ref.shape == (32, 32, 3)
+    assert ref.max() > 0, "vacuous comparison: image is black"
+    level = np.abs(got - ref).max(axis=-1)
+    # the uint8 truncation flips a level on a few pixels; a sample at the
+    # opacity cutoff may flip on one (0.1% of the 32^2 pixels)
+    assert np.mean(level > 1) <= flips and np.mean(level > 0) <= 1e-2, (
+        np.mean(level > 1), np.mean(level > 0))
+
+
+@pytest.mark.parametrize("query,extra", QUERY_CASES,
+                         ids=[f"q{q}{''.join(e)}" for q, e in QUERY_CASES])
+def test_render_queries_match_jax(tmp_path, query, extra):
+    """``render --query 0-9`` through 'auto' (the plain sweep on the CPU,
+    JAX's 'slice' off the TPU) on the seeded synthetic families, with
+    ``--flex-block`` and ``--flex-normalize``, port vs JAX."""
+    ref_out, got_out = tmp_path / "jax.ppm", tmp_path / "torch.ppm"
+    args = ["--renderer", "auto", "--density", "0.5", "--blocks", "10", "10",
+            "5", "--query", str(query), *extra]
+    assert jcli.main(_render_args(ref_out, *args)) == 0
+    assert tcli.main(_render_args(got_out, *args, "--device", "cpu")) == 0
+    _same_image(ref_out, got_out)
+
+
+@pytest.mark.parametrize("query", [4, 9])
+def test_render_family_scan_matches_jax(tmp_path, query):
+    """The ray marcher on a fractal and a flexible-block query."""
+    ref_out, got_out = tmp_path / "jax.ppm", tmp_path / "torch.ppm"
+    args = ["--renderer", "scan", "--density", "0.5", "--blocks", "10", "10",
+            "5", "--query", str(query), "--flex-normalize"]
+    assert jcli.main(_render_args(ref_out, *args)) == 0
+    assert tcli.main(_render_args(got_out, *args, "--device", "cpu")) == 0
+    _same_image(ref_out, got_out)
+
+
+@pytest.mark.parametrize("extra", [(), ("--dims", "24", "16", "8", "--block",
+                                        "4", "4", "2", "--bins", "16",
+                                        "--seed", "3")])
+def test_encode_is_jax_byte_for_byte(tmp_path, capsys, extra):
+    ref, got = tmp_path / "jax.bin", tmp_path / "torch.bin"
+    assert jcli.main(["encode", "-o", str(ref), *extra]) == 0
+    assert tcli.main(["encode", "-o", str(got), "--device", "cpu",
+                      *extra]) == 0
+    assert "encoded" in capsys.readouterr().out
+    assert got.read_bytes() == ref.read_bytes() and got.stat().st_size > 0
+
+
+def test_encode_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["encode", "-o", str(tmp_path / "h.bin")])
 
 
 def test_render_cuda_without_gpu_raises(tmp_path):

@@ -910,3 +910,107 @@ def test_footprint_past_the_budget_takes_the_direct_path(dev):
                                               for a in args]).to(dev))
     with pytest.raises(ValueError, match="shared memory"):
         sv.sweep_fwd(cfg, *args, staged=True)
+
+
+# ---- the flexible-block grid and fit-tf on the card ------------------------
+
+def _flex_pipeline(dev):
+    """A RenderPipeline over a 13 x 11 x 7-block (x, y, z) flexible grid
+    (``from_raw`` of a smooth 39 x 33 x 21 volume on the card, blocks of
+    3), normalized: its padded 14-wide rows are 56 bytes, not a multiple of
+    16, and its filter grid is scaled (13/14, 11/12, 7/8)."""
+    from vrdd_tpu_torch.models.flexible import FlexibleBlockVolume
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+
+    raw = gaussian_blob_volume((21, 33, 39), seed=3, device=dev) * 255.0
+    flex = FlexibleBlockVolume.from_raw(raw, block_size=3, vmax=256.0)
+    assert flex.n_blocks == (7, 11, 13)
+    return RenderPipeline(flexible=flex.normalized())
+
+
+@pytest.mark.parametrize("query", [8, 9, 0])
+def test_flex_k1_with_ess_z_scale_on_an_unaligned_grid(dev, query):
+    """Queries 8/9/0 through 'auto': K1 with ESS (plane stats at z scale
+    7/8), staged bitwise direct, ESS bitwise no ESS, within the image
+    tolerance of the plain 'slice' renderer."""
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig)
+
+    p = _flex_pipeline(dev)
+    cfg = RenderConfig(camera=CameraConfig(width=100, height=72),
+                       density=0.5, query_method=QueryMethod(query))
+    k1 = sk.sweep_preblended_planes
+    iv = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 4]], np.float32)
+    assert p.resolve_renderer("auto", iv, cfg) == "pallas"
+    vol = p._stats_channel(query)
+    assert tuple(vol.shape) == (8, 12, 14)
+    assert p._flex_axis_scale(query) == (13 / 14, 11 / 12, 7 / 8)
+    before = (k1.launches, k1.ess_launches, k1.staged_launches)
+    got = p.render(None, cfg, "auto")
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.ess_launches, k1.staged_launches) == tuple(
+        b + 1 for b in before)
+    assert [k[3] for k in p._ess_cache] == [7 / 8]
+    with sk._fetch_path(False):
+        assert torch.equal(p.render(None, cfg, "auto"), got)
+    p.empty_space_skip = False
+    assert torch.equal(p.render(None, cfg, "pallas"), got)
+    assert float(got[..., 3].max()) > 0.0
+    _close(got, p.render(None, cfg, "slice"))
+
+
+def test_flex_shearwarp_k3_permuted_axis_scale(dev):
+    """A rotated flex view through 'auto', for the three principal axes:
+    shear-warp on K3 with the permuted filter-grid scales, against the same
+    path's plain versions on the CPU (the 'xla' backend samples another
+    m-grid, which differs at this image size)."""
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.march.shearwarp import shearwarp_render_image
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig)
+
+    p = _flex_pipeline(dev)
+    cfg = RenderConfig(camera=CameraConfig(width=96, height=80), density=0.5,
+                       query_method=QueryMethod.FLEX_MEAN)
+    for view in ((30.0, 20.0), (0.0, 60.0), (60.0, 0.0)):
+        iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
+        assert p.resolve_renderer("auto", iv, cfg) == "shearwarp"
+        before = sv.sweep_fwd.launches
+        got = p.render(iv, cfg, "auto")
+        torch.cuda.synchronize()
+        assert sv.sweep_fwd.launches == before + 1
+        vol = p._stats_channel(QueryMethod.FLEX_MEAN)
+        ref = shearwarp_render_image(
+            vol.cpu(), iv, 96, 80, p.tf_lut.cpu(), 0.5, n_planes=64,
+            axis_scale=p._flex_axis_scale(QueryMethod.FLEX_MEAN),
+            backend="pallas")
+        assert float(ref[..., 3].max()) > 0.05, "vacuous: empty render"
+        _close(got, ref.to(dev))
+
+
+def test_fit_tf_lut_k4_k5_match_plain(dev):
+    """fit-tf's loss on the card (K3 for the target, K4 + K5 with
+    wrt=('lut',) per step) against the plain sweep's on the same stats:
+    loss within 1e-5 relative, LUT gradient within 1e-3 relative L2."""
+    from vrdd_tpu_torch.cli import fit_tf_problem
+    from vrdd_tpu_torch.core.transfer import grayscale_ramp
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+
+    hist = random_histogram_volume((10, 50, 50), n_bins=32, seed=0)
+    stats = RawHistogramVolume(torch.from_numpy(hist).to(dev)).stats_volume()
+    out = {}
+    counters = (sv.sweep_fwd, sv.sweep_fwd_ckpt, sv.sweep_bwd)
+    for renderer in ("pallas", "slice"):
+        before = [c.launches for c in counters]
+        loss_fn, name = fit_tf_problem(stats, 136, 100, renderer)
+        lut = torch.tensor(grayscale_ramp(9), device=dev, requires_grad=True)
+        loss = loss_fn(lut)
+        (g,) = torch.autograd.grad(loss, [lut])
+        torch.cuda.synchronize()
+        out[renderer] = (float(loss.detach()), g)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([1, 1, 1] if renderer == "pallas" else [0, 0, 0])
+    assert fit_tf_problem(stats, 136, 100, "auto")[1] == "pallas"
+    assert abs(out["pallas"][0] - out["slice"][0]) <= 1e-5 * out["slice"][0]
+    assert _rel_l2(out["pallas"][1], out["slice"][1]) <= 1e-3

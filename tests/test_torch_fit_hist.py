@@ -22,6 +22,17 @@ from vrdd_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 N, IMG, B, LR = 16, 32, 16, 0.05
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch ops on one thread: the suite runs several
+    test processes side by side, and the plain sweep's reductions then
+    keep one order whatever the worker's thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_loss(stat, logits_true, route_rows):
     """cmd_fit_hist's loss off the TPU (vrdd_tpu/cli.py:489-511)."""
     rows, mode = route_rows

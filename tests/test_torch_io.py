@@ -185,3 +185,20 @@ def test_config_matches_jax():
         [int(q) for q in jconfig.QueryMethod]
     for q in (1, 2, 3, 4, 5, 6, 8, 9, 0):
         assert tconfig.query_channel(q) == jconfig.query_channel(q)
+
+
+def test_profiling_trace_and_annotate(tmp_path):
+    """``utils/profiling.py``: a torch.profiler trace of the block, written
+    as a Chrome trace that holds the annotated region; the compilation
+    cache has no torch counterpart and names the kernels' build directory."""
+    from vrdd_tpu_torch.kernels._build import BUILD_DIR
+    from vrdd_tpu_torch.utils.profiling import (
+        annotate, device_trace, enable_compilation_cache)
+
+    with device_trace(str(tmp_path / "trace")) as prof:
+        with annotate("vrdd_region"):
+            torch.ones(8).cumsum(0)
+    text = (tmp_path / "trace" / "trace.json").read_text()
+    assert "vrdd_region" in text
+    assert any(e.key == "vrdd_region" for e in prof.key_averages())
+    assert enable_compilation_cache() == BUILD_DIR

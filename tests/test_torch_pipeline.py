@@ -1,12 +1,14 @@
 """Port parity: vrdd_tpu_torch.models.{volumes,renderer,pipeline} against
-vrdd_tpu.models on the same histograms, on the CPU, plus the raw golden
-fixtures of tests/test_golden.py rendered by the port.
+vrdd_tpu.models on the same volumes, on the CPU, plus the golden fixtures
+of tests/test_golden.py (raw queries and query 9) rendered by the port.
 
-JAX's ``pallas`` renderer runs under the Pallas TPU interpreter, as
-tests/test_golden.py runs it; the port's ``pallas`` renderer takes its
-plain version on the CPU, with empty-space skipping on (the default).
-Images must match within 1e-4 absolute on all but 0.1% of pixels (cutoff
-flips)."""
+Queries 1/2/3/7: JAX's ``pallas`` renderer runs under the Pallas TPU
+interpreter, as tests/test_golden.py runs it. Queries 4/5/6 (fractal) and
+8/9/0 (flexible blocks): JAX's ``scan``, ``slice`` and ``shearwarp``
+renderers, no interpreter; the port's ``pallas`` and ``auto`` (its plain
+version on the CPU, with empty-space skipping on, the default) are held
+against JAX's ``slice``. Images must match within 1e-4 absolute on all but
+0.1% of pixels (cutoff flips)."""
 
 import pathlib
 
@@ -16,19 +18,30 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from vrdd_tpu.io.synthetic import random_histogram_volume
+from vrdd_tpu.io.synthetic import (
+    random_histogram_volume,
+    synthetic_flexible_dataset,
+    synthetic_fractal_volume,
+)
+from vrdd_tpu.models.flexible import FlexibleBlockVolume as JFlex
 from vrdd_tpu.models.pipeline import RenderPipeline as JPipeline
+from vrdd_tpu.models.volumes import FractalHistogramVolume as JFractal
 from vrdd_tpu.models.volumes import RawHistogramVolume as JRaw
 from vrdd_tpu.utils.config import CameraConfig as JCamera
 from vrdd_tpu.utils.config import RenderConfig as JRenderConfig
 from vrdd_tpu.utils.config import TransferFunctionConfig as JTF
-from vrdd_tpu_torch.convert import pipeline_state_from_jax
+from vrdd_tpu_torch.convert import (
+    flexible_state_from_jax,
+    fractal_state_from_jax,
+    pipeline_state_from_jax,
+)
 from vrdd_tpu_torch.core.geometry import (
     default_benchmark_inv_view,
     inv_view_from_rotation_translation,
 )
 from vrdd_tpu_torch.core.image import rgba_to_uint8
 from vrdd_tpu_torch.io import formats
+from vrdd_tpu_torch.models.flexible import FlexibleBlockVolume
 from vrdd_tpu_torch.models.pipeline import RenderPipeline
 from vrdd_tpu_torch.models.volumes import (
     RawHistogramVolume,
@@ -66,8 +79,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+#: TF scales that put each query's values on the LUT's ramp: the raw and
+#: fractal variance is wide; the flexible mean and variance are in raw
+#: bin-domain units (volumeRender_kernel.cu:1091)
+TF_SCALE = {2: 0.25, 5: 0.25, 9: 1.0 / 255.0, 0: 1.0 / 2000.0}
+
+
 def _cfg(query, jax=False, width=W, density=0.5):
-    scale = 0.25 if query == 2 else 1.0
+    scale = TF_SCALE.get(query, 1.0)
     if jax:
         return JRenderConfig(camera=JCamera(width=width, height=width),
                              density=density, query_method=query,
@@ -244,17 +263,156 @@ def test_ess_stats_cache_contract(pipelines):
     assert s3 is not stale and tuple(s3[0].shape) == (64, 8, 8)
 
 
-@pytest.mark.parametrize("query", [0, 4, 5, 6, 8, 9])
-def test_unported_queries_raise(pipelines, query):
-    _, tp, _ = pipelines
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tp.render(None, _cfg(query), "scan")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tp.resolve_renderer("auto", default_benchmark_inv_view(), _cfg(query))
+@pytest.fixture(scope="module")
+def families():
+    """(JAX pipeline, port pipeline) holding a fractal volume (6 x 10 x 10
+    blocks) and a flexible-block volume (blocks of 3 over a 7 x 11 x 13 raw
+    volume: an unaligned 5 x 4 x 3 (z, y, x) grid, zero-padded to 6 x 5 x 4), carried over with
+    convert.py."""
+    t, cb, eb, ev, _ = synthetic_fractal_volume((6, 10, 10), seed=8)
+    ds = synthetic_flexible_dataset(dims=(7, 11, 13), seed=6)
+    jfrac = JFractal(*(jnp.asarray(a) for a in (cb, eb, ev, t)))
+    jflex = JFlex.from_raw(ds["raw"], block_size=3, vmax=256.0)
+    jp = JPipeline(fractal=jfrac, flexible=jflex)
+    tp = RenderPipeline(fractal=fractal_state_from_jax(jfrac, "cpu"),
+                        flexible=flexible_state_from_jax(jflex, "cpu"))
+    return jp, tp
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="fractal"):
-        RenderPipeline(fractal=object())
-    with pytest.raises(NotImplementedError, match="flexible"):
-        RenderPipeline(flexible=object())
+FAMILY_QUERIES = [4, 5, 6, 8, 9, 0]
+
+
+@pytest.fixture(scope="module")
+def family_images(families):
+    jp = families[0]
+    cache = {}
+
+    def get(query, renderer):
+        if (query, renderer) not in cache:
+            iv = ROT if renderer == "shearwarp" else None
+            cache[query, renderer] = np.asarray(
+                jp.render(iv, _cfg(query, jax=True), renderer))
+        return cache[query, renderer]
+
+    return get
+
+
+def test_fractal_stats_match_jax(families):
+    jp, tp = families
+    ref = np.asarray(jp.fractal_stats)
+    np.testing.assert_allclose(tp.fractal_stats.numpy(), ref, rtol=1e-6,
+                               atol=1e-6 * np.abs(ref).max())
+    assert "basic_data_processing/fractal" in tp.timings
+    assert tp.raw_stats is None and tp.raw is None
+
+
+@pytest.mark.parametrize("renderer", ["scan", "slice", "shearwarp", "pallas",
+                                      "auto"])
+@pytest.mark.parametrize("query", FAMILY_QUERIES)
+def test_family_render_matches_jax(families, family_images, query, renderer):
+    _, tp = families
+    iv = ROT if renderer == "shearwarp" else None
+    got = tp.render(iv, _cfg(query), renderer).numpy()
+    ref = family_images(query, renderer if renderer in (
+        "scan", "slice", "shearwarp") else "slice")
+    assert got.shape == ref.shape == (H, W, 4)
+    assert ref[..., 3].max() > 0.01, "vacuous: empty render"
+    bad = (np.abs(got - ref) > 1e-4).any(-1)
+    assert bad.mean() <= 1e-3, (bad.mean(), np.abs(got - ref).max())
+
+
+def test_flex_channel_scale_and_ess_key(families):
+    """The object-order flex channel is the zero-padded grid with JAX's
+    filter-grid scales; its ESS plane stats are keyed and computed with the
+    z scale (a different z scale is a different entry)."""
+    jp, tp = families
+    q = QueryMethod.FLEX_MEAN
+    vol = tp._stats_channel(q)
+    assert tp._stats_channel(q) is vol
+    np.testing.assert_array_equal(vol.numpy(),
+                                  np.asarray(jp._stats_channel(q)))
+    assert tuple(vol.shape) == (6, 5, 4)
+    assert tp._flex_axis_scale(q) == jp._flex_axis_scale(q) == (
+        3 / 4, 4 / 5, 5 / 6)
+    assert tp._flex_axis_scale(QueryMethod.RAW_MEAN) == (1.0, 1.0, 1.0)
+    stats = tp._ess_stats(vol, _cfg(9))
+    keys = [k for k in tp._ess_cache if k[0] == id(vol)]
+    assert [k[3] for k in keys] == [5 / 6]
+    from vrdd_tpu_torch.kernels.slice_kernel import precompute_ess_stats
+
+    unscaled = precompute_ess_stats(vol, n_planes=64, dz_sign=-1)
+    assert not all(torch.equal(a, b) for a, b in zip(stats, unscaled))
+
+
+def test_family_resolve_renderer_and_missing_volumes(families, pipelines):
+    _, tp = families
+    iv = default_benchmark_inv_view()
+    for q in FAMILY_QUERIES:
+        assert tp.resolve_renderer("auto", iv, _cfg(q)) == "slice"  # CPU
+        assert tp.resolve_renderer("auto", ROT, _cfg(q)) == "shearwarp"
+    point = RenderConfig(query_method=QueryMethod.FLEX_MEAN,
+                         filter_linear=False)
+    assert tp.resolve_renderer("auto", ROT, point) == "scan"
+    # flex queries always filter linearly: point filtering changes nothing
+    np.testing.assert_array_equal(
+        tp.render(None, point, "slice").numpy(),
+        tp.render(None, RenderConfig(query_method=QueryMethod.FLEX_MEAN),
+                  "slice").numpy())
+    raw_only = pipelines[1]
+    assert raw_only.resolve_renderer("auto", iv, _cfg(9)) == "scan"
+    for q, what in ((4, "fractal"), (9, "flexible"), (0, "flexible")):
+        with pytest.raises(ValueError, match=what):
+            raw_only.render(None, _cfg(q), "scan")
+        with pytest.raises(ValueError, match=what):
+            raw_only.render(None, _cfg(q), "slice")
+    with pytest.raises(ValueError, match="raw"):
+        tp.render(None, _cfg(1), "scan")
+    with pytest.raises(ValueError, match="query 7"):
+        tp.render(None, _cfg(7), "slice")
+
+
+def test_flexible_pipeline_timings(families):
+    _, tp = families
+    flex = FlexibleBlockVolume.from_raw(torch.from_numpy(
+        synthetic_flexible_dataset(dims=(7, 11, 13), seed=6)["raw"]),
+        block_size=3, vmax=256.0)
+    p = RenderPipeline(flexible=flex)
+    assert {k.split("/")[0] for k in p.timings} == {"data_processing"}
+    assert "data_processing/integral_histogram" in p.timings
+    np.testing.assert_allclose(flex.stats_grid.numpy(),
+                               tp.flexible.stats_grid.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+#: the query-9 fixtures of tests/test_golden.py; the port's 'pallas' is
+#: its plain version here
+GOLDEN_Q9 = [("scan_q9", "scan"), ("pallas_q9", "pallas"),
+             ("shearwarp_q9", "shearwarp")]
+
+
+@pytest.fixture(scope="module")
+def golden_q9_pipeline():
+    """tests/test_golden.py's pipeline, built by the port."""
+    from vrdd_tpu_torch.io.synthetic import synthetic_flexible_dataset as tds
+
+    hist = random_histogram_volume((10, 50, 50), n_bins=32, seed=0)
+    ds = tds(dims=(8, 8, 8), seed=9)
+    return RenderPipeline(
+        raw=RawHistogramVolume(torch.from_numpy(hist)),
+        flexible=FlexibleBlockVolume.from_raw(torch.from_numpy(ds["raw"]),
+                                              block_size=3, vmax=256.0))
+
+
+@pytest.mark.parametrize("name,renderer", GOLDEN_Q9,
+                         ids=[c[0] for c in GOLDEN_Q9])
+def test_golden_q9_fixture(golden_q9_pipeline, name, renderer):
+    cfg = RenderConfig(camera=CameraConfig(width=128, height=128),
+                       density=0.5, query_method=QueryMethod.FLEX_MEAN,
+                       tf=TransferFunctionConfig(scale=1.0 / 255.0))
+    iv = (inv_view_from_rotation_translation(15.0, 10.0, (0.0, 0.0, -4.0))
+          if renderer == "shearwarp" else None)
+    img = golden_q9_pipeline.render(iv, cfg, renderer, as_uint8=True).numpy()
+    assert img[..., :3].max() > 0, "vacuous: black render"
+    ref = formats.read_ppm(str(GOLDEN / f"{name}_128.ppm"))
+    ok, outliers = formats.compare_ppm(img[..., :3], ref)
+    assert ok, f"{name}: {outliers:.1%} pixels beyond epsilon"

@@ -7,9 +7,10 @@ bins-major ``(nz, B, ny, nx)`` histograms, ``(H, W, 4)`` premultiplied RGBA
 images, ``(n_lut, 4)`` LUTs. It imports ``torch`` and numpy, never JAX.
 
 Ported so far: the ``render`` path (``models/pipeline.py`` ``RenderPipeline``
-for queries 1/2/3/7 through the scan marcher, the plain sweep or the fused
-kernel with empty-space skipping), the ``render-hist`` path and the
-``fit-hist`` training path (``cli.py``), with the sweep kernels written in
-CUDA C++ for Hopper (``csrc/``). Importing the package builds nothing; the
+for queries 0-9 over the raw, fractal and flexible-block families, through
+the scan marcher, the plain sweep, the fused kernel with empty-space
+skipping or shear-warp), ``encode``, ``fit-tf``, ``render-hist``,
+``fit-hist`` and ``fit-voxels`` (``cli.py``), with the sweep kernels written
+in CUDA C++ for Hopper (``csrc/``). Importing the package builds nothing; the
 kernels compile at first launch.
 """

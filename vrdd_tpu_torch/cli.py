@@ -2,15 +2,22 @@
 
 Subcommands ported so far:
 
-- ``render``       render a raw block-histogram dataset (a file or the seeded
-                   synthetic one) through ``RenderPipeline`` for queries
-                   1/2/3/7 with the ``scan``, ``slice``, ``pallas``,
+- ``render``       render a dataset (a raw block-histogram file, or the
+                   seeded synthetic raw, fractal and flexible-block volumes)
+                   through ``RenderPipeline`` for queries 0-9 with the
+                   ``scan``, ``slice``, ``pallas``,
                    ``shearwarp`` (rotated views) or ``auto`` renderer, to
                    PPM/NPY; ``--file ref.ppm`` is the
                    benchmark + golden mode of the reference's ``-file`` flag
                    (warm-up, ``--iters`` timed renders, the MTexels/s line,
                    PPM compare with exit code 1 on a fail; ``--file none``
                    skips the compare).
+- ``encode``       raw scalar volume -> block-histogram file (the
+                   reference's raw blob), byte for byte JAX's.
+- ``fit-tf``       fit the transfer-function LUT to the render of the raw
+                   mean channel with Adam (``pallas_slice_render_diff``
+                   with ``wrt=('lut',)``: K3, K4, K5); JAX's checkpoint
+                   layout, ``--resume``.
 - ``render-hist``  render straight from a block-histogram file: bins-major
                    load, the in-kernel decode sweep (``pallas_hist_render``
                    through ``HistRenderer``), PPM out.
@@ -26,11 +33,13 @@ Subcommands ported so far:
 
 ``--device cuda`` (the default) runs the CUDA kernels and raises when no GPU
 is present; ``--device cpu`` runs the plain torch versions. Run as
-``python -m vrdd_tpu_torch.cli render --file none``,
+``python -m vrdd_tpu_torch.cli render --file none --query 9``,
+``python -m vrdd_tpu_torch.cli fit-tf --iters 5``, ``python -m
+vrdd_tpu_torch.cli encode -o h.bin``,
 ``python -m vrdd_tpu_torch.cli render-hist --hist-file F --dims NZ NY NX
 ...``, ``python -m vrdd_tpu_torch.cli fit-hist --iters 50`` or ``python -m
-vrdd_tpu_torch.cli fit-voxels --size 256 --image 512``. The other
-subcommands of ``vrdd_tpu.cli`` are later work (ROADMAP.md).
+vrdd_tpu_torch.cli fit-voxels --size 256 --image 512``. ``view`` and
+``bench`` of ``vrdd_tpu.cli`` are later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -56,8 +65,9 @@ def _device(name: str) -> torch.device:
 def _add_render_params(p: argparse.ArgumentParser) -> None:
     """The render flags of ``vrdd_tpu/cli.py`` (``_add_render_params``)."""
     p.add_argument("--query", type=int, default=1,
-                   help="query method: 1/2/3 raw mean/variance/entropy, 7 "
-                   "interpolated mean (4-6, 8-0 not ported yet)")
+                   help="query method 0-9: 1/2/3 raw, 4/5/6 fractal "
+                   "mean/variance/entropy, 7 interpolated mean, 8/9/0 "
+                   "flexible-block entropy/mean/variance")
     p.add_argument("--density", type=float, default=0.05)
     p.add_argument("--brightness", type=float, default=1.0)
     p.add_argument("--tf-offset", type=float, default=0.0)
@@ -70,35 +80,23 @@ def _add_render_params(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tf-checkpoint", help="load fitted TF LUT from checkpoint")
     p.add_argument(
         "--flex-normalize", action="store_true",
-        help="min-max map flexible-block mean/variance onto [0,1] (the "
-        "flexible blocks are not ported yet: raises)",
+        help="min-max map flexible-block mean/variance onto [0,1] for the TF "
+        "(the reference leaves them in raw bin-domain units)",
     )
 
 
-def _build_pipeline(args, device):
-    """The raw-histogram ``RenderPipeline`` of ``vrdd_tpu/cli.py``
-    (``_build_pipeline``) on ``device``: ``--volume <file>`` reads a raw
+def _on_device(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _raw_volume(args, device):
+    """The raw family on ``device``: ``--volume <file>`` reads a raw
     block-histogram blob, ``--volume synthetic`` makes
-    ``random_histogram_volume`` from ``--seed``, as JAX does. JAX's
-    synthetic pipeline also builds fractal and flexible volumes; those wait
-    (ROADMAP.md queue 1 items 5 and 8)."""
+    ``random_histogram_volume`` from ``--seed``."""
     from vrdd_tpu_torch.io import formats
     from vrdd_tpu_torch.io.synthetic import random_histogram_volume
-    from vrdd_tpu_torch.models.pipeline import RenderPipeline
     from vrdd_tpu_torch.models.volumes import RawHistogramVolume
 
-    for flag, unset in (("--flex-normalize", not args.flex_normalize),
-                        ("--flex-block", args.flex_block == 4)):
-        if not unset:
-            raise NotImplementedError(
-                f"{flag}: the flexible blocks are not ported yet (ROADMAP.md "
-                "queue 1 item 8)"
-            )
-    tf_lut = None
-    if args.tf_checkpoint:
-        from vrdd_tpu_torch.io.checkpoint import load_checkpoint
-
-        tf_lut = np.asarray(load_checkpoint(args.tf_checkpoint)["tf_lut"])
     bx, by, bz = args.blocks
     if args.volume and args.volume != "synthetic":
         hist = formats.read_raw_histograms(
@@ -107,9 +105,53 @@ def _build_pipeline(args, device):
     else:
         hist = random_histogram_volume((bz, by, bx), n_bins=args.bins,
                                        seed=args.seed)
-    raw = RawHistogramVolume(torch.from_numpy(np.ascontiguousarray(hist))
-                             .to(device))
-    return RenderPipeline(raw=raw, tf_lut=tf_lut)
+    return RawHistogramVolume(_on_device(hist, device))
+
+
+def _build_pipeline(args, device):
+    """``RenderPipeline`` of ``vrdd_tpu/cli.py`` (``_build_pipeline``) on
+    ``device``: the raw family (:func:`_raw_volume`; the only one for
+    ``--volume <file>``), and for ``--volume synthetic``, as JAX does, the
+    fractal family (``synthetic_fractal_volume`` from ``--seed + 1``) and
+    the flexible blocks (``from_raw`` of ``synthetic_flexible_dataset``'s
+    16^3 raw volume from ``--seed + 2``, blocks of ``--flex-block``, 256 as
+    the top of the bin range), min-max mapped by ``--flex-normalize``."""
+    from vrdd_tpu_torch.io.synthetic import (
+        synthetic_flexible_dataset,
+        synthetic_fractal_volume,
+    )
+    from vrdd_tpu_torch.models.flexible import FlexibleBlockVolume
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import FractalHistogramVolume
+
+    tf_lut = None
+    if getattr(args, "tf_checkpoint", None):
+        from vrdd_tpu_torch.io.checkpoint import load_checkpoint
+
+        tf_lut = np.asarray(load_checkpoint(args.tf_checkpoint)["tf_lut"])
+
+    raw = _raw_volume(args, device)
+    if args.volume and args.volume != "synthetic":
+        return RenderPipeline(raw=raw, tf_lut=tf_lut)
+
+    bx, by, bz = args.blocks
+    t, cb, eb, ev, _ = synthetic_fractal_volume(
+        (bz, by, bx), n_bins=args.bins, seed=args.seed + 1)
+    ds = synthetic_flexible_dataset(dims=(16, 16, 16), seed=args.seed + 2)
+    flexible = FlexibleBlockVolume.from_raw(
+        _on_device(ds["raw"], device), block_size=args.flex_block, vmax=256.0)
+    if getattr(args, "flex_normalize", False):
+        # min-max map the raw-unit mean/variance channels onto the TF domain
+        # (the normalization the reference left as a TODO; queries 9/0 are
+        # otherwise black until transferScale is wound down manually)
+        flexible = flexible.normalized()
+    return RenderPipeline(
+        raw=raw,
+        fractal=FractalHistogramVolume(
+            *(_on_device(a, device) for a in (cb, eb, ev, t))),
+        flexible=flexible,
+        tf_lut=tf_lut,
+    )
 
 
 def cmd_render(args) -> int:
@@ -174,6 +216,169 @@ def cmd_render(args) -> int:
     for k, v in pipeline.timings.items():
         print(f"{k}: {v * 1e3:.3f} ms", file=sys.stderr)
     print(f"wrote {out_path} ({renderer}, {device})")
+    return 0
+
+
+def cmd_encode(args) -> int:
+    """Offline data reduction (``vrdd_tpu/cli.py`` cmd_encode): a raw scalar
+    volume (``--input synthetic``: ``gaussian_blob_volume`` from ``--seed``,
+    made with numpy as JAX makes it; or a float32 file) -> per-block
+    normalized histograms, binned on ``--device``, written as the raw
+    block-histogram blob. The file is byte for byte JAX's."""
+    from vrdd_tpu_torch.io import formats
+    from vrdd_tpu_torch.io.synthetic import (
+        block_histograms_from_scalar,
+        gaussian_blob_volume,
+    )
+
+    device = _device(args.device)
+    if args.input == "synthetic":
+        vol = gaussian_blob_volume(tuple(args.dims[::-1]), seed=args.seed)
+    else:
+        vol = np.fromfile(args.input, dtype=np.float32).reshape(args.dims[::-1])
+    hist = block_histograms_from_scalar(
+        torch.from_numpy(vol).to(device), tuple(args.block[::-1]),
+        n_bins=args.bins, vmax=float(vol.max()) + 1e-6,
+    ).cpu().numpy()
+    formats.write_raw_histograms(args.output, hist.reshape(-1, args.bins))
+    print(
+        f"encoded {vol.shape} -> {hist.shape[:3][::-1]} blocks x {args.bins} "
+        f"bins -> {args.output} (on {device})"
+    )
+    return 0
+
+
+def fit_tf_problem(stats: torch.Tensor, size: int, steps: int, renderer: str):
+    """The ``fit-tf`` loss (``vrdd_tpu/cli.py`` cmd_fit_tf): returns
+    ``(loss_fn, renderer)``.
+
+    The mean channel of the raw stats volume ``stats`` is rendered from the
+    benchmark camera to ``size``^2 with the default LUT as the target;
+    ``loss_fn(lut)`` is the mean squared image error of the render with
+    ``lut``. ``renderer`` 'pallas' renders through
+    ``pallas_slice_render_diff(wrt=('lut',))`` (K3 for the target, K4 and
+    K5 per step; the plain versions on the CPU), 'slice' through the plain
+    sweep, 'scan' through the ray marcher (``steps`` steps for the fit, the
+    default march for the target, as in JAX); 'auto' is 'pallas' on the card
+    and 'slice' on the CPU. On the card a shape the kernels cannot take
+    raises."""
+    from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
+    from vrdd_tpu_torch.core.transfer import default_transfer_function
+    from vrdd_tpu_torch.kernels.slice_vjp import (
+        pallas_diff_supported,
+        pallas_slice_render_diff,
+    )
+    from vrdd_tpu_torch.march.scan import render_image
+    from vrdd_tpu_torch.march.slice import slice_render_image
+    from vrdd_tpu_torch.models.renderer import stats_sample_fn
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    device = stats.device
+    inv_view = default_benchmark_inv_view()
+    march = MarchConfig(max_steps=steps, tstep=2.0 / steps)
+    W = H = size
+    tf0 = torch.as_tensor(default_transfer_function(), device=device)
+    n_planes = max(64, 2 * stats.shape[0])
+    if renderer == "auto":
+        renderer = "pallas" if device.type == "cuda" else "slice"
+    if (renderer == "pallas" and device.type == "cuda"
+            and not pallas_diff_supported(tuple(stats.shape[:3]), W, H,
+                                          n_planes, n_lut=len(tf0))):
+        raise ValueError(
+            f"fit-tf: the CUDA kernels cannot take volume "
+            f"{tuple(stats.shape[:3])} -> {W}x{H}")
+
+    if renderer in ("slice", "pallas"):
+        vol = stats[..., 0].contiguous()  # mean channel, query method 1
+        origin = tuple(float(v) for v in inv_view[:, 3])
+
+        def fwd(lut):
+            if renderer == "pallas":
+                # the fit trains only the LUT: prune the volume/param
+                # cotangent paths in the fused backward
+                return pallas_slice_render_diff(
+                    vol, origin, lut, width=W, height=H, n_planes=n_planes,
+                    wrt=("lut",))
+            return slice_render_image(vol, origin, W, H, lut,
+                                      n_planes=n_planes)
+
+        with torch.no_grad():
+            target = fwd(tf0)
+
+        def loss_fn(lut):
+            return torch.mean((fwd(lut) - target) ** 2)
+    elif renderer == "scan":
+        with torch.no_grad():
+            target = render_image(stats_sample_fn(stats, 0), inv_view, W, H,
+                                  tf0, device=device)
+
+        def loss_fn(lut):
+            img = render_image(stats_sample_fn(stats, 0), inv_view, W, H, lut,
+                               march=march, device=device)
+            return torch.mean((img - target) ** 2)
+    else:
+        raise ValueError(f"unknown renderer {renderer!r}")
+    return loss_fn, renderer
+
+
+def cmd_fit_tf(args) -> int:
+    """Differentiable transfer-function fitting (``vrdd_tpu/cli.py``
+    cmd_fit_tf): Adam on a 9-entry grayscale LUT against the render with
+    the default LUT (:func:`fit_tf_problem`). The checkpoint keeps JAX's
+    layout: the leaves of ``{"opt_state": ((count, mu, nu), ()), "step":
+    ..., "tf_lut": ...}`` in JAX's order (optax's Adam state: step count,
+    first and second moments). ``--resume`` reads such a file, written by
+    either package, and goes on from its step."""
+    from vrdd_tpu_torch.core.transfer import grayscale_ramp
+    from vrdd_tpu_torch.io.checkpoint import load_leaves, save_checkpoint
+    from vrdd_tpu_torch.models.volumes import compute_stats_volume
+
+    device = _device(args.device)
+    # the fit reads only the raw family's stats
+    stats = compute_stats_volume(_raw_volume(args, device))
+    loss_fn, renderer = fit_tf_problem(stats, args.size, args.steps,
+                                       args.renderer)
+    print(f"fit-tf renderer: {renderer} on {device}")
+
+    start = 0
+    if args.resume:
+        count, mu, nu, step, lut0 = load_leaves(args.resume)
+        start = int(step)
+        print(f"resumed from {args.resume} at step {start}")
+    else:
+        lut0 = grayscale_ramp(9)
+    lut = torch.nn.Parameter(torch.as_tensor(np.asarray(lut0, np.float32),
+                                             device=device))
+    opt = torch.optim.Adam([lut], lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
+    if args.resume:
+        opt.state[lut] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.as_tensor(np.asarray(mu, np.float32),
+                                       device=device),
+            "exp_avg_sq": torch.as_tensor(np.asarray(nu, np.float32),
+                                          device=device),
+        }
+    loss = float("nan")
+    for i in range(start, start + args.iters):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss_t = loss_fn(lut)
+        loss_t.backward()
+        opt.step()
+        loss = float(loss_t.detach())
+        ms = 1e3 * (time.perf_counter() - t0)
+        if (i + 1) % max(1, args.iters // 10) == 0:
+            print(f"step {i + 1}: loss {loss:.6f} ({ms:.3f} ms)")
+    state = opt.state[lut]
+    count = int(state["step"]) if state else 0
+    save_checkpoint(args.checkpoint, {
+        "opt_state": ((np.asarray(count, np.int32),
+                       state.get("exp_avg", torch.zeros_like(lut)),
+                       state.get("exp_avg_sq", torch.zeros_like(lut))), ()),
+        "step": np.asarray(start + args.iters),
+        "tf_lut": lut.detach(),
+    })
+    print(f"saved {args.checkpoint} (final loss {loss:.6f})")
     return 0
 
 
@@ -458,8 +663,8 @@ def main(argv=None) -> int:
                     metavar=("X", "Y", "Z"))
     pr.add_argument("--bins", type=int, default=32)
     pr.add_argument("--flex-block", type=int, default=4,
-                    help="flexible-block size (the flexible blocks are not "
-                    "ported yet: any value but 4 raises)")
+                    help="flexible-block size of the synthetic flexible "
+                    "volume (queries 8/9/0)")
     pr.add_argument("--seed", type=int, default=0)
     pr.add_argument("--output", "-o", default=None)
     pr.add_argument("--file", default=None,
@@ -482,6 +687,42 @@ def main(argv=None) -> int:
                     help="'cuda' (the kernels) or 'cpu' (the plain versions)")
     _add_render_params(pr)
     pr.set_defaults(fn=cmd_render)
+
+    pe = sub.add_parser("encode", help="raw volume -> block histogram files")
+    pe.add_argument("--input", default="synthetic")
+    pe.add_argument("--dims", type=int, nargs=3, default=[64, 64, 64],
+                    metavar=("X", "Y", "Z"))
+    pe.add_argument("--block", type=int, nargs=3, default=[8, 8, 8])
+    pe.add_argument("--bins", type=int, default=32)
+    pe.add_argument("--seed", type=int, default=0)
+    pe.add_argument("--output", "-o", default="histograms.bin")
+    pe.add_argument("--device", default="cuda",
+                    help="'cuda' or 'cpu': where the blocks are binned (the "
+                    "file is the same)")
+    pe.set_defaults(fn=cmd_encode)
+
+    pf = sub.add_parser("fit-tf", help="fit the transfer function LUT")
+    pf.add_argument("--volume", default="synthetic")
+    pf.add_argument("--blocks", type=int, nargs=3, default=[16, 16, 8])
+    pf.add_argument("--bins", type=int, default=32)
+    pf.add_argument("--flex-block", type=int, default=4)
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--size", type=int, default=64)
+    pf.add_argument("--steps", type=int, default=100)
+    pf.add_argument("--iters", type=int, default=100)
+    pf.add_argument("--lr", type=float, default=1e-2)
+    pf.add_argument("--checkpoint", default="tf_fit.npz")
+    pf.add_argument("--resume", default=None)
+    pf.add_argument(
+        "--renderer", default="auto", choices=["auto", "scan", "slice", "pallas"],
+        help="forward for the fit: scan (the ray marcher), slice (the plain "
+        "sweep), pallas (the fused CUDA kernels K3/K4/K5; their plain "
+        "versions on --device cpu), or auto (pallas on the card, else slice)",
+    )
+    pf.add_argument("--tf-checkpoint", default=None, help=argparse.SUPPRESS)
+    pf.add_argument("--device", default="cuda",
+                    help="'cuda' (the kernels) or 'cpu' (the plain versions)")
+    pf.set_defaults(fn=cmd_fit_tf)
 
     prh = sub.add_parser(
         "render-hist",

@@ -5,7 +5,8 @@ float32, or ``ml_dtypes.bfloat16`` for bf16 histogram storage. This module
 turns them into tensors on a given device without importing either JAX or
 ``ml_dtypes``: a bf16 array is reinterpreted as int16, moved, and viewed back
 as ``torch.bfloat16``, so both packages compute on identical bits. A JAX
-``RenderPipeline`` is read by its attributes, never by importing its class.
+``RenderPipeline``, ``FractalHistogramVolume`` or ``FlexibleBlockVolume`` is
+read by its attributes, never by importing its class.
 """
 
 from __future__ import annotations
@@ -61,3 +62,28 @@ def fit_voxels_state_from_jax(mu, sigma, device):
     (``log_sigma`` is the float32 log of ``sigma``)."""
     mu_t = tensor_from_jax(mu, device).to(torch.float32)
     return mu_t, torch.log(tensor_from_jax(sigma, device).to(torch.float32))
+
+
+def fractal_state_from_jax(volume, device):
+    """A JAX ``FractalHistogramVolume`` (read by its attributes: codebook,
+    error bins and values, templates) -> the port's, its arrays bit for bit
+    on ``device``."""
+    from vrdd_tpu_torch.models.volumes import FractalHistogramVolume
+
+    return FractalHistogramVolume(
+        *(tensor_from_jax(getattr(volume, k), device) for k in (
+            "codebook", "error_bins", "error_values", "templates"))
+    )
+
+
+def flexible_state_from_jax(volume, device):
+    """A JAX ``FlexibleBlockVolume`` (its stats grid, block size, volume
+    extents and stage timings) -> the port's, the grid bit for bit on
+    ``device``."""
+    from vrdd_tpu_torch.models.flexible import FlexibleBlockVolume
+
+    return FlexibleBlockVolume(
+        tensor_from_jax(volume.stats_grid, device), int(volume.block_size),
+        tuple(int(v) for v in volume.volume_dim),
+        dict(volume.timings) if volume.timings else None,
+    )

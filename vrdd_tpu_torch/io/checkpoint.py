@@ -64,11 +64,18 @@ def save_checkpoint(path: str, tree: Any) -> None:
 
 def load_checkpoint(path: str) -> Any:
     """Restore the tree saved by :func:`save_checkpoint` (numpy leaves)."""
+    leaves = load_leaves(path)
+    with np.load(path, allow_pickle=False) as data:
+        struct = json.loads(data["__treedef__"].tobytes().decode())
+    return _unflatten(struct, iter(leaves))
+
+
+def load_leaves(path: str) -> list:
+    """The leaves of a checkpoint in their stored order, as numpy arrays,
+    whichever package wrote it (JAX's pickled treedef is not read)."""
     with np.load(path, allow_pickle=False) as data:
         version = int(data["__version__"])
         if version != _VERSION:
             raise ValueError(f"unsupported checkpoint version {version}")
-        struct = json.loads(data["__treedef__"].tobytes().decode())
-        keys = sorted(k for k in data.files if k.startswith("leaf_"))
-        leaves = [data[k] for k in keys]
-    return _unflatten(struct, iter(leaves))
+        return [data[k] for k in sorted(k for k in data.files
+                                        if k.startswith("leaf_"))]

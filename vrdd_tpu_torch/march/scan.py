@@ -12,8 +12,10 @@ associativity. The loop stops early once no ray is alive (checked every
 the same as running all ``max_steps``.
 
 Differentiable through plain autograd (LUT fetch, volume gathers, masked
-compositing); the checkpointed ``remat_chunk`` variant waits for the
-``fit-tf`` path (ROADMAP.md queue 1 item 10).
+compositing); ``remat_chunk`` checkpoints each chunk of steps with
+``torch.utils.checkpoint`` (non-reentrant: the autograd graph is the same,
+only its saved tensors are recomputed), so images and gradients are bitwise
+those without it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.utils.checkpoint
 
 from vrdd_tpu_torch.core.geometry import camera_rays, intersect_box
 from vrdd_tpu_torch.core.transfer import apply_transfer_function
@@ -48,12 +51,13 @@ def march_rays(
 
     ``dirs`` is ``(N, 3)``; ``origin`` is ``(3,)`` (shared pinhole origin) or
     ``(N, 3)``.
+
+    ``remat_chunk``: if > 0 and it divides ``max_steps``, the steps run in
+    chunks of ``remat_chunk``, each under ``torch.utils.checkpoint``: the
+    backward then holds the state at chunk boundaries instead of every
+    step's temporaries, at the cost of recomputing each chunk once (the
+    sqrt-remat trade of the JAX package's nested ``lax.scan``).
     """
-    if remat_chunk:
-        raise NotImplementedError(
-            "remat_chunk > 0 (checkpointed marching) waits for the fit-tf path "
-            "(ROADMAP.md queue 1 item 10)"
-        )
     dirs = torch.as_tensor(dirs, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32, device=dirs.device)
     if origin.ndim == 1:
@@ -67,10 +71,8 @@ def march_rays(
     step = dirs * march.tstep
     summ = torch.zeros(dirs.shape[:1] + (4,), dtype=torch.float32,
                        device=dirs.device)
-    t, alive = tnear, hit
-    for i in range(march.max_steps):
-        if i % _ALIVE_CHECK == 0 and not bool(alive.any()):
-            break
+
+    def body(summ, t, pos, alive):
         p01 = pos * 0.5 + 0.5
         sample = torch.where(alive, sample_fn(p01), 0.0)
         col = apply_transfer_function(tf_lut, sample, transfer_offset,
@@ -83,6 +85,27 @@ def march_rays(
         t = torch.where(alive, t + march.tstep, t)
         alive = alive & ~(t > tfar)
         pos = torch.where(alive[:, None], pos + step, pos)
+        return summ, t, pos, alive
+
+    state = (summ, tnear, pos, hit)
+    if remat_chunk and march.max_steps % remat_chunk == 0:
+
+        def chunk(*state):
+            for _ in range(remat_chunk):
+                state = body(*state)
+            return state
+
+        for _ in range(march.max_steps // remat_chunk):
+            if not bool(state[3].any()):
+                break
+            state = torch.utils.checkpoint.checkpoint(
+                chunk, *state, use_reentrant=False)
+    else:
+        for i in range(march.max_steps):
+            if i % _ALIVE_CHECK == 0 and not bool(state[3].any()):
+                break
+            state = body(*state)
+    summ = state[0]
     return torch.where(hit[:, None], summ * brightness, summ)
 
 

@@ -2,11 +2,14 @@
 
 The analogue of the reference's startup sequence (initCuda ->
 dataProcessing -> basicDataProcessing, volumeRender.cpp:1200-1221): given
-the raw histograms, precompute the stats volume once, then render with a
-query method (volumeRender.cpp:129 legend):
+any subset of {raw histograms, fractal codebooks, flexible-block data},
+precompute the corresponding stats volumes once, then render with any query
+method 0-9 (volumeRender.cpp:129 legend):
 
     1/2/3  raw mean / variance / entropy          (originalQueryTex)
+    4/5/6  fractal mean / variance / entropy      (fractalQueryTex)
     7      on-the-fly interpolated mean           (in-march decode)
+    8/9/0  flexible entropy / mean / variance     (flexBlockTex)
 
 through one of the renderers of the JAX package: ``scan`` (the ray marcher,
 ``march/scan.py``), ``slice`` (the plain torch plane sweep,
@@ -14,11 +17,7 @@ through one of the renderers of the JAX package: ``scan`` (the ray marcher,
 ``kernels/slice_kernel.py``, with empty-space skipping on by default),
 ``shearwarp`` (rotated views on the sweep, ``march/shearwarp.py``: the fused
 K3 for a volume on the card, the plain sweep on the CPU) or ``auto``.
-Everything runs on the device of the raw histograms.
-
-Not ported yet (each raises ``NotImplementedError``): the fractal queries
-4/5/6 (ROADMAP.md queue 1 item 5) and the flexible-block queries 8/9/0
-(item 8).
+Everything runs on the device of the volumes given.
 """
 
 from __future__ import annotations
@@ -41,33 +40,26 @@ from vrdd_tpu_torch.march.shearwarp import (
     shearwarp_render_image,
 )
 from vrdd_tpu_torch.march.slice import slice_render_image
+from vrdd_tpu_torch.models.flexible import FlexibleBlockVolume
 from vrdd_tpu_torch.models.renderer import (
+    flex_sample_fn,
     interp_mean_sample_fn,
     interp_mean_volume,
     stats_sample_fn,
 )
-from vrdd_tpu_torch.models.volumes import RawHistogramVolume, compute_stats_volume
+from vrdd_tpu_torch.models.volumes import (
+    FractalHistogramVolume,
+    RawHistogramVolume,
+    compute_stats_volume,
+)
 from vrdd_tpu_torch.utils.config import QueryMethod, RenderConfig, query_channel
 from vrdd_tpu_torch.utils.timing import StageTimer
 
 _RAW = (QueryMethod.RAW_MEAN, QueryMethod.RAW_VARIANCE, QueryMethod.RAW_ENTROPY)
 _FRACTAL = (QueryMethod.FRACTAL_MEAN, QueryMethod.FRACTAL_VARIANCE,
             QueryMethod.FRACTAL_ENTROPY)
-
-
-def _check_method(method: QueryMethod) -> QueryMethod:
-    method = QueryMethod(method)
-    if method in _FRACTAL:
-        raise NotImplementedError(
-            f"query {int(method)} needs the fractal codebook volume, not "
-            "ported yet (ROADMAP.md queue 1 item 5: ops/fractal.py)"
-        )
-    if method not in (*_RAW, QueryMethod.INTERP_MEAN):
-        raise NotImplementedError(
-            f"query {int(method)} needs the flexible-block volume, not ported "
-            "yet (ROADMAP.md queue 1 item 8: models/flexible.py)"
-        )
-    return method
+_FLEX = (QueryMethod.FLEX_ENTROPY, QueryMethod.FLEX_MEAN,
+         QueryMethod.FLEX_VARIANCE)
 
 
 class RenderPipeline:
@@ -76,31 +68,42 @@ class RenderPipeline:
     def __init__(
         self,
         raw: Optional[RawHistogramVolume] = None,
-        fractal=None,
-        flexible=None,
+        fractal: Optional[FractalHistogramVolume] = None,
+        flexible: Optional[FlexibleBlockVolume] = None,
         tf_lut: Optional[np.ndarray] = None,
     ):
-        if fractal is not None:
-            raise NotImplementedError(
-                "fractal= is not ported yet (ROADMAP.md queue 1 item 5)")
-        if flexible is not None:
-            raise NotImplementedError(
-                "flexible= is not ported yet (ROADMAP.md queue 1 item 8)")
         timer = StageTimer()
         self.raw = raw
+        self.fractal = fractal
+        self.flexible = flexible
         self.raw_stats = (
             timer.time("basic_data_processing/raw",
                        lambda: compute_stats_volume(raw))
             if raw is not None
             else None
         )
+        self.fractal_stats = (
+            timer.time("basic_data_processing/fractal",
+                       lambda: compute_stats_volume(fractal))
+            if fractal is not None
+            else None
+        )
         self.timings: Dict[str, float] = timer.as_dict()
-        device = raw.histograms.device if raw is not None else None
+        if flexible is not None and flexible.timings:
+            self.timings.update(
+                {f"data_processing/{k}": v for k, v in flexible.timings.items()}
+            )
+        device = next((t.device for t in (
+            raw.histograms if raw is not None else None,
+            fractal.templates if fractal is not None else None,
+            flexible.stats_grid if flexible is not None else None,
+        ) if t is not None), None)
         self.tf_lut = torch.as_tensor(
             default_transfer_function() if tf_lut is None else tf_lut,
             dtype=torch.float32, device=device,
         )
         self._interp_mean_vol = None  # query-7 field, built on first use
+        self._flex_padded = None  # zero-padded flex grid, built on first use
         # ESS TF-interval culling on the fused-kernel path: exact for the
         # image, so ON by default wherever it applies; the plane stats are
         # camera/TF-independent and cached here per (volume, schedule) —
@@ -109,19 +112,33 @@ class RenderPipeline:
         self._ess_cache: Dict[tuple, tuple] = {}
         self._channel_cache: Dict[QueryMethod, torch.Tensor] = {}
 
+    def _need(self, method: QueryMethod):
+        """Raise unless the volume that ``method`` reads is loaded."""
+        if method in _RAW and self.raw_stats is None:
+            raise ValueError("no raw histogram volume loaded")
+        if method in _FRACTAL and self.fractal_stats is None:
+            raise ValueError("no fractal codebook volume loaded")
+        if method == QueryMethod.INTERP_MEAN and self.raw is None:
+            raise ValueError("query 7 needs the raw histogram volume")
+        if method in _FLEX and self.flexible is None:
+            raise ValueError("no flexible-block volume loaded")
+
     def sample_source(self, method: QueryMethod, linear: bool = True):
         """(source tensor, tensor -> SampleFn builder) for a query method.
 
         ``linear=False`` selects point filtering for the stats-volume fetch
-        (the reference's 'f' key, volumeRender.cpp:311-314); query 7 stays
-        linear like the reference's textures."""
-        method = _check_method(method)
-        if self.raw is None:
-            raise ValueError("no raw histogram volume loaded")
-        if method in _RAW:
+        (the reference's 'f' key, volumeRender.cpp:311-314); query 7 and the
+        flexible-block fetch stay linear like the reference's textures."""
+        method = QueryMethod(method)
+        self._need(method)
+        if method in _RAW or method in _FRACTAL:
             ch = query_channel(method)
-            return self.raw_stats, lambda a: stats_sample_fn(a, ch, linear)
-        return self.raw.histograms, interp_mean_sample_fn
+            src = self.raw_stats if method in _RAW else self.fractal_stats
+            return src, lambda a: stats_sample_fn(a, ch, linear)
+        if method == QueryMethod.INTERP_MEAN:
+            return self.raw.histograms, interp_mean_sample_fn
+        ch = query_channel(method)
+        return self.flexible.stats_grid, lambda a: flex_sample_fn(a, ch)
 
     def sample_fn(self, method: QueryMethod):
         src, build = self.sample_source(method)
@@ -132,20 +149,41 @@ class RenderPipeline:
 
         Memoized per method: the ESS plane-stats cache keys on the IDENTITY
         of the returned tensor — a fresh slice per call would defeat it."""
-        method = _check_method(method)
+        method = QueryMethod(method)
         cached = self._channel_cache.get(method)
         if cached is not None:
             return cached
-        if self.raw is None:
-            raise ValueError("no raw histogram volume loaded")
+        self._need(method)
         if method in _RAW:
             out = self.raw_stats[..., query_channel(method)].contiguous()
-        else:
+        elif method in _FRACTAL:
+            out = self.fractal_stats[..., query_channel(method)].contiguous()
+        elif method == QueryMethod.INTERP_MEAN:
             if self._interp_mean_vol is None:
                 self._interp_mean_vol = interp_mean_volume(self.raw.histograms)
             out = self._interp_mean_vol
+        else:
+            # flexible-block queries 8/9/0 on the object-order paths: the
+            # CUDA unnormalized fetch (p01 * n_blocks - 0.5 against the
+            # zero-padded scatter array, volumeRender_kernel.cu:654-680,
+            # 1637-1691) is the same two-tap filter on an (n_blocks + 1)
+            # zero-padded grid with the filter grid scaled off the coverage
+            # box — see _flex_axis_scale
+            if self._flex_padded is None:
+                self._flex_padded = torch.nn.functional.pad(
+                    self.flexible.stats_grid, (0, 0, 0, 1, 0, 1, 0, 1))
+            out = self._flex_padded[..., query_channel(method)].contiguous()
         self._channel_cache[method] = out
         return out
+
+    def _flex_axis_scale(self, method) -> tuple:
+        """(sx, sy, sz) filter-grid scales for the object-order sweeps:
+        n_blocks / (n_blocks + 1) per axis for flex queries (the padded-grid
+        form of the unnormalized fetch), identity otherwise."""
+        if QueryMethod(method) not in _FLEX:
+            return (1.0, 1.0, 1.0)
+        nzb, nyb, nxb = self.flexible.stats_grid.shape[:3]
+        return (nxb / (nxb + 1), nyb / (nyb + 1), nzb / (nzb + 1))
 
     @staticmethod
     def _tex_offset(method) -> float:
@@ -159,17 +197,20 @@ class RenderPipeline:
     ) -> str:
         """'auto' -> the fastest applicable path for this view/method.
 
-        Unrotated views of queries 1-3 and 7 go object-order: the fused
-        kernel ('pallas', which raises on a configuration it cannot take)
-        when the stats channel is on the card, else the plain torch sweep
-        ('slice'), as JAX picks 'slice' off the TPU. Rotated views take the
-        shear-warp sweep ('shearwarp') where d_z keeps one sign over the
-        image, else the scan marcher; point filtering at a rotated view goes
-        to the scan marcher (the warp would re-soften its texels), as in
-        JAX."""
+        Unrotated views of every query go object-order: the fused kernel
+        ('pallas', which raises on a configuration it cannot take) when the
+        stats channel is on the card, else the plain torch sweep ('slice'),
+        as JAX picks 'slice' off the TPU. Rotated views take the shear-warp
+        sweep ('shearwarp') where d_z keeps one sign over the image, else
+        the scan marcher; point filtering at a rotated view goes to the scan
+        marcher (the warp would re-soften its texels), as in JAX. A flex
+        query without a flexible volume goes to the scan marcher, as in
+        JAX (which then raises there)."""
         if renderer != "auto":
             return renderer
-        _check_method(config.query_method)
+        method = QueryMethod(config.query_method)
+        if method in _FLEX and self.flexible is None:
+            return "scan"
         unrotated = np.allclose(
             np.asarray(inv_view)[:, :3], np.eye(3), atol=1e-6
         )
@@ -177,7 +218,7 @@ class RenderPipeline:
             return "scan"
         if not unrotated:
             return "shearwarp" if shearwarp_applicable(inv_view) else "scan"
-        vol = self._stats_channel(config.query_method)
+        vol = self._stats_channel(method)
         return "pallas" if vol.device.type == "cuda" else "slice"
 
     def render(
@@ -188,7 +229,7 @@ class RenderPipeline:
         as_uint8: bool = False,
         channels: int = 4,
     ) -> torch.Tensor:
-        """Render ``(H, W, 4)`` float RGBA on the histograms' device.
+        """Render ``(H, W, 4)`` float RGBA on the volumes' device.
 
         ``renderer``: 'scan' (general ray marcher, bit-faithful to d_render),
         'slice' (object-order plain torch sweep), 'pallas' (the fused CUDA
@@ -205,7 +246,8 @@ class RenderPipeline:
             raise ValueError("channels=3 requires as_uint8=True (the RGB "
                              "drop is part of the uint8 pack)")
         pack_u8 = (channels if channels != 4 else True) if as_uint8 else False
-        method = _check_method(config.query_method)
+        method = QueryMethod(config.query_method)
+        self._need(method)
         renderer = self.resolve_renderer(renderer, inv_view, config)
         params = (
             self.tf_lut, config.density, config.brightness, config.tf.offset,
@@ -215,12 +257,15 @@ class RenderPipeline:
             vol = self._stats_channel(method)
             # distribution stats volumes are coarse (tens of blocks per
             # axis): floor the plane count so the sweep's axial sampling
-            # stays comparable to the scan marcher's tstep
+            # stays comparable to the scan marcher's tstep; flex queries
+            # ride it too (the axis permutation carries the filter-grid
+            # scales, march/shearwarp.py axis_scale)
             return shearwarp_render_image(
                 vol, np.asarray(inv_view, dtype=np.float32),
                 config.camera.width, config.camera.height, *params,
                 march=config.march, n_planes=max(64, 2 * vol.shape[0]),
                 tex_offset=self._tex_offset(method),
+                axis_scale=self._flex_axis_scale(method),
                 backend="auto", pack_u8=pack_u8,
             )
         # ESS applies to the fused forward with linear filtering (the cached
@@ -247,11 +292,12 @@ class RenderPipeline:
     def _ess_stats(self, vol, config):
         """Cached ESS plane stats for a stats-channel volume; keyed on the
         full pre-blend signature (volume identity, plane schedule,
-        tex_offset, box) per precompute_ess_stats's contract."""
+        tex_offset, z_scale, box) per precompute_ess_stats's contract."""
         toff = self._tex_offset(config.query_method)
+        zscale = self._flex_axis_scale(config.query_method)[2]
         n_planes = max(64, 2 * vol.shape[0])
         key = (
-            id(vol), n_planes, toff, 1.0,
+            id(vol), n_planes, toff, zscale,
             config.march.box_min, config.march.box_max,
         )
         # the entry holds a STRONG reference to the keyed volume and the
@@ -263,7 +309,7 @@ class RenderPipeline:
             return entry[1]
         stats = precompute_ess_stats(
             vol, n_planes=n_planes, march=config.march, dz_sign=-1,
-            tex_offset=toff, z_scale=1.0,
+            tex_offset=toff, z_scale=zscale,
         )
         self._ess_cache[key] = (vol, stats)
         return stats
@@ -284,9 +330,12 @@ class RenderPipeline:
                 return x
         if renderer in ("slice", "pallas"):
             toff = self._tex_offset(method)
+            ascale = self._flex_axis_scale(method)
             # point filtering ('f' key) applies to the stats-volume fetch of
-            # queries 1-3 only — query 7 interpolates manually
-            flin = linear or QueryMethod(method) == QueryMethod.INTERP_MEAN
+            # queries 1-6 only — query 7 interpolates manually and the
+            # flexible-block texture is always linear in the reference
+            flin = (linear or QueryMethod(method) == QueryMethod.INTERP_MEAN
+                    or QueryMethod(method) in _FLEX)
 
             def run_obj(volume, inv_view, tf_lut, density, brightness,
                         offset, scale, ess_stats=None):
@@ -297,13 +346,13 @@ class RenderPipeline:
                         volume, origin, tf_lut, density, brightness,
                         offset, scale, width=width, height=height, march=march,
                         n_planes=n_planes, tex_offset=toff,
-                        filter_linear=flin, empty_space_skip=ess,
-                        ess_stats=ess_stats,
+                        axis_scale=ascale, filter_linear=flin,
+                        empty_space_skip=ess, ess_stats=ess_stats,
                     ))
                 return pack(slice_render_image(
                     volume, origin, width, height, tf_lut, density,
                     brightness, offset, scale, march=march, n_planes=n_planes,
-                    tex_offset=toff, filter_linear=flin,
+                    tex_offset=toff, axis_scale=ascale, filter_linear=flin,
                 ))
 
             return run_obj

@@ -4,8 +4,7 @@
 Each query method builds a ``sample_fn`` over the relevant precomputed stats
 volume, exactly like d_render's per-method texture fetches
 (volumeRender_kernel.cu:581-680); the scan marcher (``march/scan.py``)
-consumes it. ``flex_sample_fn`` (queries 8/9/0) waits with the flexible
-blocks (ROADMAP.md queue 1 item 8).
+consumes it.
 """
 
 from __future__ import annotations
@@ -16,7 +15,11 @@ import numpy as np
 import torch
 
 from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
-from vrdd_tpu_torch.core.sampling import sample_nearest_3d, sample_trilinear_3d
+from vrdd_tpu_torch.core.sampling import (
+    sample_nearest_3d,
+    sample_trilinear_3d,
+    sample_trilinear_3d_unnormalized,
+)
 from vrdd_tpu_torch.core.transfer import default_transfer_function
 from vrdd_tpu_torch.march.scan import render_image
 from vrdd_tpu_torch.ops.histogram import _bin_centers
@@ -56,6 +59,28 @@ def stats_sample_fn(
     fetch: every channel filters independently, so the values are the
     same."""
     return scalar_sample_fn(stats_vol[..., channel], linear)
+
+
+def flex_sample_fn(flex_stats: torch.Tensor, channel: int) -> SampleFn:
+    """Flexible-block fetch — queries 8/9/0 semantics.
+
+    ``flex_stats`` is the compact ``(nZb, nYb, nXb, 3)`` per-block stats grid.
+    The reference scatters it into a zero 500^3 array and samples with
+    *unnormalized* coords ``p01 * nFlexBlock`` under linear filtering
+    (volumeRender_kernel.cu:654-680, 1637-1691); the zero padding past the
+    last block is visible at the far faces, so one zero layer is padded on
+    each high side and the unnormalized fetch reproduced. The channel is
+    selected before the fetch (every channel filters independently).
+    """
+    nzb, nyb, nxb = flex_stats.shape[:3]
+    padded = torch.nn.functional.pad(flex_stats[..., channel], (0, 1, 0, 1, 0, 1))
+    scale = torch.tensor([nxb, nyb, nzb], dtype=torch.float32,
+                         device=flex_stats.device)
+
+    def f(p01: torch.Tensor) -> torch.Tensor:
+        return sample_trilinear_3d_unnormalized(padded, p01 * scale)
+
+    return f
 
 
 def interp_mean_volume(histograms: torch.Tensor) -> torch.Tensor:

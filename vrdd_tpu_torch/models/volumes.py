@@ -7,9 +7,8 @@ tensor of (mean, variance, entropy), on the device of the family's data —
 the analogue of originalQueryTex (d_basicDataProcessing,
 volumeRender_kernel.cu:722-872).
 
-Ported so far: ``ScalarVolume``, ``RawHistogramVolume`` and
-``GaussianMomentVolume``. The fractal family needs ``ops/fractal.py``
-(ROADMAP.md queue 1 item 5).
+The families: ``ScalarVolume``, ``RawHistogramVolume``,
+``FractalHistogramVolume`` and ``GaussianMomentVolume``.
 """
 
 from __future__ import annotations
@@ -18,8 +17,15 @@ import dataclasses
 
 import torch
 
+from vrdd_tpu_torch.ops.fractal import fractal_decode_batch
 from vrdd_tpu_torch.ops.gaussian import gaussian_stats
-from vrdd_tpu_torch.ops.histogram import raw_block_stats
+from vrdd_tpu_torch.ops.histogram import fractal_block_stats, raw_block_stats
+
+
+def _z_step(per_layer: int) -> int:
+    """z-layers per chunk so that a chunk's float32 temporaries stay near
+    2^25 values."""
+    return max(1, (1 << 25) // max(1, per_layer))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +56,68 @@ class RawHistogramVolume:
         is :func:`raw_block_stats`'s."""
         h = self.histograms
         nz = h.shape[0]
-        step = max(1, (1 << 25) // max(1, h[0].numel()))
+        step = _z_step(h[0].numel())
         out = torch.empty((*h.shape[:3], 3), dtype=torch.float32,
                           device=h.device)
         for z0 in range(0, nz, step):
             out[z0:z0 + step] = raw_block_stats(h[z0:z0 + step])
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FractalHistogramVolume:
+    """Similarity-coded histograms: codebook + sparse errors + template bank.
+
+    ``codebook`` is ``(Z, Y, X, 4)`` int32 (templateId, shift, flipFlag,
+    nErrors); ``error_bins``/``error_values`` are ``(Z, Y, X, E)`` padded
+    sparse corrections; ``templates`` is ``(T, n_bins)``.
+    (Loader formats: volumeRender.cpp:558-691.) All on one device.
+    """
+
+    codebook: torch.Tensor
+    error_bins: torch.Tensor
+    error_values: torch.Tensor
+    templates: torch.Tensor
+
+    def _decode_layers(self, z0: int, z1: int) -> torch.Tensor:
+        """The decoded histograms of z-layers ``[z0, z1)``."""
+        cb = self.codebook[z0:z1].reshape(-1, 4).long()
+        e = self.error_bins.shape[-1]
+        decoded = fractal_decode_batch(
+            self.templates[cb[:, 0]], cb[:, 1], cb[:, 2],
+            self.error_bins[z0:z1].reshape(-1, e),
+            self.error_values[z0:z1].reshape(-1, e), cb[:, 3],
+        )
+        return decoded.reshape(*self.codebook[z0:z1].shape[:3], -1)
+
+    def _layer_step(self) -> int:
+        """z-layers per decode chunk: the gathered templates, the decoded
+        rows and their correction stay near 2^25 values each."""
+        return _z_step(self.codebook[0, ..., 0].numel()
+                       * self.templates.shape[-1])
+
+    def decode(self) -> torch.Tensor:
+        """Decode every voxel's histogram: ``(Z, Y, X, n_bins)``, a few
+        z-layers at a time (per voxel the arithmetic is
+        :func:`fractal_decode_batch`'s)."""
+        nz = self.codebook.shape[0]
+        out = torch.empty((*self.codebook.shape[:3], self.templates.shape[-1]),
+                          dtype=torch.float32, device=self.templates.device)
+        step = self._layer_step()
+        for z0 in range(0, nz, step):
+            out[z0:z0 + step] = self._decode_layers(z0, z0 + step)
+        return out
+
+    def stats_volume(self) -> torch.Tensor:
+        """``fractal_block_stats`` of the decode, decoded and reduced a few
+        z-layers at a time: the whole decode never exists at once."""
+        nz = self.codebook.shape[0]
+        out = torch.empty((*self.codebook.shape[:3], 3), dtype=torch.float32,
+                          device=self.templates.device)
+        step = self._layer_step()
+        for z0 in range(0, nz, step):
+            out[z0:z0 + step] = fractal_block_stats(
+                self._decode_layers(z0, z0 + step))
         return out
 
 
