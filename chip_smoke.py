@@ -120,7 +120,39 @@ Phases (each prints its lines; any failure exits non-zero):
     shape timed on both fetch paths against their plain versions (K5's LUT
     cotangents within 1e-3 relative L2, bitwise across paths); ``encode``
     at its defaults on the card, byte for byte the file it writes with
-    ``--device cpu``.
+    ``--device cpu``;
+11. the distributed sweep of ``parallel/`` on one card (counters reset
+    before and read after each drive):
+    11a. ``distributed_hist_render`` at bricks=4 x rays=2 in one process,
+         the headline 512^3 x 16 bf16 volume -> 1024^2, mean and entropy,
+         density 0.2 (some 30% of the rays reach the cutoff, so pass 2
+         runs): K3 twice per shard (pass 2 seeded), the image against the
+         single-device K2; fwd+bwd (``wrt=("hist", "lut")``, K4 and K5
+         per shard and pass) against ``pallas_hist_render_diff`` (loss
+         1e-4 relative, ``d_hist`` within one bf16 rounding, the LUT's
+         1e-3 relative L2); the calls the path makes recorded
+         (``ShardCalls``) and each pass's shards replayed alone: K3 per
+         pass and, for the mean, K4 and K5 (with the seeded shards' ``S``)
+         held against their plain versions, timed by CUDA events around
+         the launches and bounded; the mean's fwd+bwd profiled;
+    11b. ``distributed_shearwarp_hist_render`` on a 1 x 1 mesh at phase
+         8c's three views (axes z, x, y; d_z of both signs), oversample 1:
+         K3 once a view, its m-grid image and the frame against the plain
+         version of the same call, timed and bounded;
+    11c. ``render-hist --rot-x 30 --rot-y 20`` on a 128^3 x 16 file: its
+         path line must name ``distributed_shearwarp_hist_render``;
+    11d. ``distributed_sweep_render`` and ``distributed_shearwarp_render``
+         at bricks=2 x rays=2 on 7b's 256^3 mean channel -> 1024^2 against
+         K1 and the same call on one device (and, to 1e-2, the
+         single-device shear-warp's other m-grid), each pass's shards
+         replayed against their plain versions, the rotated m-grid image
+         against the plain sweep ('xla') on the slopes the kernels sample
+         (and, printed, on the m-grid's own points: JAX's slope step),
+         then one ``make_sweep_fit_step`` step against the single-device
+         step, its K4/K5 shards against their plain versions;
+    11e. ``bricks.distributed_render_image`` at bricks=2 on Isabel's 50 x
+         50 x 10 x 32 stats -> 512^2 against ``RenderPipeline``'s scan
+         frame.
 
 Every sweep kernel runs by default on the fetch path its wrapper chooses
 (staged where the footprint fits shared memory, K5 on scalar planes
@@ -134,7 +166,9 @@ bitmap, which has one path) in the main-path run (a seeded kernel's: its
 seeded launches in the
 streamed fit-voxels run; K1's seeded launches are those of 8a, its split
 stack, as no fit-voxels path resumes K1; the rotated views' K4/K5: their
-launches on the m-grid in the unstreamed run), its error against the plain
+launches on the m-grid in the unstreamed run; phase 11's: their launches in
+its drive, with ``ms`` the time of the path's per-shard launches,
+replayed, and ``staged_launches`` null), its error against the plain
 version, its ms on the staged path and ``direct_ms`` on the direct path
 (each the mean of two medians of warm runs, CUDA events, timed in turns),
 the plain version's ms, and ``bound_ms``: the
@@ -326,7 +360,7 @@ def bound(n_bytes, n_ops):
 def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
                  reverse=False, ess=None, chunk=8, tex_offset=0.5,
                  origin=ORIGIN, dz_sign=-1, seed_alpha=None,
-                 axis_scale=(1.0, 1.0)):
+                 axis_scale=(1.0, 1.0), spacing=None):
     """``(samples, texels)``: the samples the sweep kernels evaluate on
     these inputs, and the distinct plane texels those samples read. A sample
     is evaluated where the plane is in front of the camera, the ray inside
@@ -336,7 +370,9 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     front to back (``reverse``: the stack is stored z-ascending), from the
     camera at ``origin`` whose rays have d_z of sign ``dz_sign``, the
     accumulated alpha starting at ``seed_alpha`` (H, W) for a seeded
-    sweep, on the filter grid scaled by ``axis_scale`` (flexible blocks)."""
+    sweep, on the filter grid scaled by ``axis_scale`` (flexible blocks),
+    the planes ``spacing`` apart (None: the box's depth over ``P``; a slab
+    of a longer stack passes the stack's)."""
     import torch
 
     from vrdd_tpu_torch.kernels import slice_kernel as sk
@@ -348,8 +384,8 @@ def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
     P, ny, nx = planes.shape
     mx, my = sk._slope_grids(slopes, W, H)
     rgba = _chunk_rgba_fn(P, ny, nx, zs, torch.tensor(origin), mx, my, march,
-                          dz_sign, None, True, tex_offset, tuple(axis_scale),
-                          True, dev)
+                          dz_sign, spacing, True, tex_offset,
+                          tuple(axis_scale), True, dev)
     mx_t, my_t = torch.as_tensor(mx, device=dev), torch.as_tensor(my, device=dev)
     th, tw = sk.ESS_TILE
     ti = torch.arange(H, device=dev) // th
@@ -1342,13 +1378,14 @@ def fit_voxels_cli(work, n, W, steps, streamed):
     return losses, ms, launches, seeded, sizes, staged, staged_sizes
 
 
-def profile_step(step, what, top=8):
+def profile_step(step, what, top=8, cpu_top=0):
     """One warm call of ``step`` under torch.profiler: the ``top`` costliest
     CUDA kernels by device time, and the device's busy share of the step's
     host-clock time (idle share = 1 - busy; kernels run on one stream, so
     their times add). Counts kernel events only: the op that launched a
     kernel carries the same device time. Prints "not measured" where the
-    profiler sees no kernel."""
+    profiler sees no kernel. ``cpu_top``: also the costliest host ops by
+    their own (self) CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1379,6 +1416,13 @@ def profile_step(step, what, top=8):
     for e in events[:top]:
         print(f"    {1e-3 * dev_us(e):8.3f} ms {dev_us(e) / 1e3 / busy:6.1%} "
               f"x{e.count:<4d} {e.key[:70]}")
+    if cpu_top:
+        print(f"  [{what}] costliest host ops (self CPU time):")
+        host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                      reverse=True)
+        for e in host[:cpu_top]:
+            print(f"    {1e-3 * e.self_cpu_time_total:8.3f} ms x{e.count:<5d} "
+                  f"{e.key[:70]}")
 
 
 def shearwarp_setup(vol, view, W, n_planes, axis_scale=(1.0, 1.0, 1.0)):
@@ -2168,6 +2212,711 @@ def phase_10(dev, card, smi, work):
     return records
 
 
+
+# ---- phase 11: the distributed sweep (parallel/) ---------------------------
+
+#: 11a/11b's density: some 30% of the rays reach the 0.95 cutoff, so pass 2
+#: re-sweeps the crossing slabs
+DIST_DENSITY = 0.2
+#: phase 8c's views: principal axes z, x and y, d_z of both signs
+DIST_VIEWS = ((30.0, 20.0), (0.0, 60.0), (60.0, 0.0))
+
+
+def reset_diff_counters():
+    for c in diff_counters():
+        c.launches = c.staged_launches = c.seed_launches = 0
+        c.size_launches.clear()
+        c.size_staged_launches.clear()
+
+
+def diff_launches():
+    """``{name: (launches, seeded launches)}`` of K3/K4/K5."""
+    return {c.__name__: (c.launches, c.seed_launches)
+            for c in diff_counters()}
+
+
+class ShardCalls:
+    """Records the arguments of every per-shard sweep call
+    ``parallel/sweep.py`` makes through its name ``name``
+    (sweep_preblended_hist_diff or sweep_preblended_planes_diff) inside the
+    ``with`` block, for replaying each shard's kernel alone."""
+
+    def __init__(self, name):
+        self.name, self.calls = name, []
+
+    def __enter__(self):
+        from vrdd_tpu_torch.parallel import sweep as ps
+
+        self.orig = getattr(ps, self.name)
+
+        def wrapped(*a, **kw):
+            self.calls.append((a, kw))
+            return self.orig(*a, **kw)
+
+        setattr(ps, self.name, wrapped)
+        return self.calls
+
+    def __exit__(self, *exc):
+        from vrdd_tpu_torch.parallel import sweep as ps
+
+        setattr(ps, self.name, self.orig)
+
+
+def hist_shard(call):
+    """``(cfg, slab, rows, lut, scalars, seed)`` of one recorded
+    ``sweep_preblended_hist_diff`` call, for K3/K4/K5 and their plain
+    versions on that shard."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    a, kw = call
+    slab = a[0]
+    cfg = sv.hist_config(
+        a[2], a[3], a[4], stat=kw["stat"], dz_sign=kw["dz_sign"],
+        width=kw["width"], height=kw["height"], march=kw["march"],
+        plane_spacing=kw["plane_spacing"], plane_chunk=kw["plane_chunk"],
+        length_correction=kw["length_correction"],
+        reverse_planes=kw["reverse_planes"])
+    rows = sk._decode_rows(a[1], kw["stat"], slab.shape[1], slab.device)
+    return (cfg, slab.detach(), rows.detach()) + _shard_tail(a[5:], kw, slab)
+
+
+def planes_shard(call):
+    """The same for one recorded ``sweep_preblended_planes_diff`` call (a
+    scalar plane stack: ``rows`` None)."""
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    a, kw = call
+    planes = a[0]
+    cfg = sv.planes_config(
+        a[1], a[2], a[3], dz_sign=kw["dz_sign"], width=kw["width"],
+        height=kw["height"], march=kw["march"],
+        plane_spacing=kw["plane_spacing"], n_planes=planes.shape[0],
+        length_correction=kw["length_correction"],
+        plane_chunk=kw["plane_chunk"], tex_offset=kw["tex_offset"],
+        axis_scale=kw["axis_scale"], reverse_planes=kw["reverse_planes"])
+    return (cfg, planes.detach(), None) + _shard_tail(a[4:], kw, planes)
+
+
+def _shard_tail(a, kw, vol):
+    """``(lut, (density, toff, tscl), seed)`` from a recorded call's
+    arguments after the volume's (``a = (lut, density, brightness, toff,
+    tscl)``)."""
+    import torch
+
+    lut, density, _, toff, tscl = a[:5]
+    scal = [torch.as_tensor(v, dtype=torch.float32, device=vol.device)
+            .detach() for v in (density, toff, tscl)]
+    seed = kw.get("acc_init")
+    return (torch.as_tensor(lut, dtype=torch.float32,
+                            device=vol.device).detach(), scal,
+            None if seed is None else seed.detach())
+
+
+def recorded_passes(fn, name):
+    """The shards of one run of ``fn()``, by pass: ``{False: pass 1's,
+    True: pass 2's (the seeded calls)}``."""
+    with ShardCalls(name) as calls:
+        fn()
+    shard = hist_shard if name == "sweep_preblended_hist_diff" else \
+        planes_shard
+    out = {False: [], True: []}
+    for c in calls:
+        out[c[1].get("acc_init") is not None].append(shard(c))
+    return out
+
+
+def shard_work(shards, mode):
+    """``(samples, texels)`` the K3 sweeps of these shards evaluate and read
+    (``live_samples`` on each decoded slab or plane stack, from its
+    seed)."""
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+
+    n_live = n_tex = 0
+    for cfg, slab, rows, lut, scal, seed in shards:
+        planes = slab if rows is None else sk.decode_with_rows(slab, rows,
+                                                               mode)
+        n, t = live_samples(
+            planes, cfg.zs, cfg.slopes, lut.cpu().numpy(), *map(float, scal),
+            cfg.width, cfg.height, reverse=cfg.reverse, chunk=cfg.ck_stride,
+            origin=cfg.origin, dz_sign=cfg.dz_sign,
+            seed_alpha=None if seed is None else seed[..., 3],
+            spacing=cfg.plane_spacing)
+        n_live, n_tex = n_live + n, n_tex + t
+        del planes
+    return n_live, n_tex
+
+
+def k3_shard_record(name, shards, mode, B, elem, launches, what):
+    """The record of K3 over ``shards`` (the recorded calls of one pass):
+    the shards' launches replayed and timed with CUDA events, the kernel's
+    outputs against the plain versions on the same shards, the plain
+    versions timed, the bound from the samples they evaluate."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    def k3():
+        return [sv.sweep_fwd(cfg, slab, rows, lut, *scal, seed)
+                for cfg, slab, rows, lut, scal, seed in shards]
+
+    def plain():
+        return [sv.sweep_fwd_reference(cfg, slab, rows, lut, *scal, seed)
+                for cfg, slab, rows, lut, scal, seed in shards]
+
+    ms = time_ms(k3, 3)
+    got = torch.stack(k3())
+    p_ms, ref = timed_once(plain)
+    err = compare(got, torch.stack(ref), f"{what} vs plain")
+    del got, ref
+    n_live, tex = shard_work(shards, mode)
+    io = sum(cfg.width * cfg.height * 16 * (1 if seed is None else 2)
+             for cfg, _, _, _, _, seed in shards)
+    bd = bound(tex * B * elem + io, n_live * (SAMPLE_OPS + decode_ops(mode, B)))
+    print(f"  {what}: {len(shards)} launches, {ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+          f"{n_live} evaluated samples, {tex} voxels read)")
+    return {"name": name, "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_vjp.py:698",
+            "launches": launches, "staged_launches": None,
+            "max_abs_err": err, "ms": ms, "direct_ms": None,
+            "plain_ms": p_ms, **bd}
+
+
+def k3_pass_records(fn, name, mode, B, elem, counts, tag, what):
+    """K3's records of pass 1 and pass 2 of one run of ``fn()`` (one
+    distributed render): its shards replayed against their plain versions
+    (:func:`k3_shard_record`); ``counts``: the render's K3 ``(launches,
+    seeded)``."""
+    passes = recorded_passes(fn, name)
+    return [k3_shard_record(
+        f"sweep_fwd[{tag},pass{1 + seeded}]", passes[seeded], mode, B, elem,
+        counts[1] if seeded else counts[0] - counts[1],
+        f"{what} K3 pass {1 + seeded}") for seeded in (False, True)]
+
+
+def k4_k5_records(shards, mode, B, elem, counts, wrt, tag, what):
+    """K4 and K5 over the recorded shards of one fwd+bwd, each replayed,
+    timed and held against its plain version on the same shards: K4's
+    images, K5's volume and LUT cotangents (those ``wrt`` asks for) and,
+    for the seeded shards, ``S``."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    flags = (bool({"hist", "volume"} & set(wrt)), "lut" in wrt,
+             "params" in wrt)
+    n_lut = shards[0][3].shape[0]
+    outs = [sv.sweep_fwd_ckpt(cfg, s, r, lut, *sc, seed)
+            for cfg, s, r, lut, sc, seed in shards]
+    gs = [(2.0 / img4.numel()) * (img4 - 0.25) for img4, _ in outs]
+
+    def k4():
+        return [sv.sweep_fwd_ckpt(cfg, s, r, lut, *sc, seed)
+                for cfg, s, r, lut, sc, seed in shards]
+
+    def k4_plain():
+        return [sv.sweep_fwd_ckpt_reference(cfg, s, r, lut, *sc, seed)
+                for cfg, s, r, lut, sc, seed in shards]
+
+    def k5():
+        return [sv.sweep_bwd(cfg, s, r, lut, *sc, g, tck, *flags, acc0=seed)
+                for (cfg, s, r, lut, sc, seed), g, (_, tck)
+                in zip(shards, gs, outs)]
+
+    def k5_plain():
+        return [sv.sweep_bwd_reference(cfg, s, r, lut, *sc, g, *flags,
+                                       acc0=seed)
+                for (cfg, s, r, lut, sc, seed), g in zip(shards, gs)]
+
+    n_live, tex = shard_work(shards, mode)
+    img_b = sum(c.width * c.height * 16 for c, *_ in shards)
+    tck_b = sum(c.n_chunks * c.width * c.height * 4 for c, *_ in shards)
+    ops = n_live * (SAMPLE_OPS + decode_ops(mode, B))
+    records = []
+    for name, fn, ref_fn, bd, line, src in (
+            ("sweep_fwd_ckpt", k4, k4_plain,
+             bound(tex * B * elem + img_b + tck_b, ops), 714,
+             "slice_sweep.cu"),
+            ("sweep_bwd", k5, k5_plain,
+             bound(tex * (B * elem + 4 * flags[0]) + tck_b + img_b
+                   + (4 * n_lut + 3) * 4, K5_SAMPLE_FACTOR * ops), 787,
+             "slice_vjp.cu")):
+        ms = time_ms(fn, 3)
+        p_ms, ref = timed_once(ref_fn)
+        got = fn()
+        if name == "sweep_fwd_ckpt":
+            e = compare(torch.stack([g[0] for g in got]),
+                        torch.stack([r[0] for r in ref]),
+                        f"{what} K4 images vs plain")
+        else:
+            if flags[0]:
+                rel_l2(torch.cat([g[0].float().flatten() for g in got]),
+                       torch.cat([r[0].float().flatten() for r in ref]),
+                       f"{what} K5 d_planes vs plain")
+            lg = torch.stack([g[1][:4 * n_lut] for g in got])
+            lr = torch.stack([r[1][:4 * n_lut] for r in ref])
+            if flags[1]:
+                rel_l2(lg, lr, f"{what} K5 LUT cotangents vs plain")
+            seeded = [(g[3], r[3]) for g, r in zip(got, ref)
+                      if r[3] is not None]
+            if seeded:
+                s_got = torch.stack([g for g, _ in seeded])
+                s_ref = torch.stack([r for _, r in seeded])
+                what_s = f"{what} K5 S of the {len(seeded)} seeded shards"
+                if float(s_ref.abs().max()) > 0.0:
+                    rel_l2(s_got, s_ref, f"{what_s} vs plain")
+                elif float(s_got.abs().max()) > 0.0:
+                    fail(f"{what_s}: not 0 where the plain S is 0 on every "
+                         "ray (no ray crosses the cutoff)")
+                else:
+                    print(f"  {what_s}: 0 on every ray, as plain (no ray "
+                          "crosses the cutoff)")
+            e = float((lg - lr).abs().max())
+        del got, ref
+        print(f"  {what} {name} over the {len(shards)} shard launches: "
+              f"{ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        records.append({
+            "name": f"{name}[{tag}]", "route": "cuda",
+            "source": f"vrdd_tpu_torch/csrc/{src}",
+            "replaces": f"vrdd_tpu/pallas/slice_vjp.py:{line}",
+            "launches": counts[name][0], "staged_launches": None,
+            "max_abs_err": e, "ms": ms, "direct_ms": None,
+            "plain_ms": p_ms, **bd,
+        })
+    return records
+
+
+def phase_11a(dev, card, smi, tf, hist, n, B, W, mesh):
+    """distributed_hist_render at bricks=4 x rays=2 in one process."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.parallel import sweep as ps
+
+    origin = torch.tensor(ORIGIN)
+    elem = hist.element_size()
+    records = []
+    for stat in ("mean", "entropy"):
+        rows, mode = sk.decode_weight_rows(stat, B, family="unit")
+
+        def render(h=hist, lut=tf, wrt=("hist", "lut", "params")):
+            return ps.distributed_hist_render(
+                h, rows, origin, lut, DIST_DENSITY, width=W, height=W,
+                mesh=mesh, stat=mode, wrt=wrt)
+
+        reset_diff_counters()
+        img = render()
+        torch.cuda.synchronize()
+        counts = diff_launches()
+        print(f"[11a] distributed_hist_render {stat}, {n}^3 x {B} "
+              f"{hist.dtype} -> {W}^2, bricks={mesh.bricks} x "
+              f"rays={mesh.rays}, density {DIST_DENSITY}, on {card} ({smi}): "
+              f"launches (all, seeded) {counts}")
+        shards = mesh.bricks * mesh.rays
+        if counts["sweep_fwd"] != (2 * shards, shards):
+            fail(f"11a {stat}: K3 ran {counts['sweep_fwd']} (launches, "
+                 f"seeded), want ({2 * shards}, {shards})")
+        k3_launches = counts["sweep_fwd"]
+        ref = sk.pallas_hist_render(hist, rows, origin, tf, DIST_DENSITY,
+                                    width=W, height=W, stat=mode)
+        sat = float((ref[..., 3] > 0.95).float().mean())
+        print(f"  rays past the cutoff: {sat:.2%}")
+        if sat <= 0.0:
+            fail("11a: no ray reaches the cutoff: pass 2 is not exercised")
+        compare(img, ref, f"[11a {stat}] distributed (K3, two passes) vs "
+                "single-device K2")
+        del ref
+        frame_ms = host_ms(render, 3)
+        recs = k3_pass_records(render, "sweep_preblended_hist_diff", mode, B,
+                               elem, k3_launches, f"dist_hist,{mode}",
+                               f"[11a {stat}]")
+        print(f"  frame {frame_ms:.3f} ms (host clock), K3 pass 1 "
+              f"{recs[0]['ms']:.3f} ms, pass 2 {recs[1]['ms']:.3f} ms (CUDA "
+              "events around each pass's shard launches, replayed)")
+        records += recs
+        del img
+
+        # fwd + bwd against the single-device differentiable render
+        def fwdbwd(fn):
+            h = hist.detach().requires_grad_(True)
+            lut = torch.tensor(tf, device=dev, requires_grad=True)
+            img = fn(h, lut)
+            loss = torch.mean((img - 0.25) ** 2)
+            loss.backward()
+            return loss.detach(), h.grad, lut.grad
+
+        def dist(h, lut):
+            return render(h, lut, ("hist", "lut"))
+
+        def single(h, lut):
+            return sv.pallas_hist_render_diff(
+                h, rows, origin, lut, DIST_DENSITY, width=W, height=W,
+                wrt=("hist", "lut"), stat=mode, route="inkernel")
+
+        reset_diff_counters()
+        loss, g_hist, g_lut = fwdbwd(dist)
+        torch.cuda.synchronize()
+        counts = diff_launches()
+        print(f"  fwd+bwd (wrt hist, lut): launches (all, seeded) {counts}")
+        if (counts["sweep_fwd_ckpt"][0] != 2 * shards
+                or counts["sweep_bwd"][0] != 2 * shards):
+            fail(f"11a {stat}: fwd+bwd did not run K4 and K5 per shard and "
+                 f"pass: {counts}")
+        loss_s, g_hist_s, g_lut_s = fwdbwd(single)
+        print(f"  loss {float(loss):.8f}, single-device {float(loss_s):.8f}")
+        if abs(float(loss) - float(loss_s)) > 1e-4 * abs(float(loss_s)):
+            fail(f"11a {stat}: the loss differs from the single-device one")
+        # d_hist comes back in the storage dtype: the two sums round to
+        # bf16 apart (one rounding is 2^-8 relative)
+        rel_l2(g_hist, g_hist_s, f"[11a {stat}] d_hist vs single-device",
+               limit=2.0 ** -8 if hist.dtype == torch.bfloat16 else GRAD_TOL)
+        rel_l2(g_lut, g_lut_s, f"[11a {stat}] d_lut vs single-device")
+        del g_hist, g_hist_s
+        fb_ms = host_ms(lambda: fwdbwd(dist), 3)
+        fb1_ms = host_ms(lambda: fwdbwd(single), 3)
+        print(f"  fwd+bwd {fb_ms:.3f} ms (host clock; single-device "
+              f"{fb1_ms:.3f} ms)")
+        if stat != "mean":
+            continue
+
+        # where the fwd+bwd's time goes, then K4 and K5 on every shard of
+        # it against their plain versions
+        profile_step(lambda: fwdbwd(dist), f"11a {stat} fwd+bwd", top=12,
+                     cpu_top=12)
+        with ShardCalls("sweep_preblended_hist_diff") as calls:
+            fwdbwd(dist)
+        records += k4_k5_records([hist_shard(c) for c in calls], mode, B,
+                                 elem, counts, ("hist", "lut"),
+                                 f"dist_hist,{mode}", f"[11a {stat}]")
+        del calls
+    return records
+
+
+def phase_11b(dev, card, smi, tf, hist, n, B, W):
+    """distributed_shearwarp_hist_render on a 1 x 1 mesh, three views."""
+    import torch
+
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march.shearwarp import (
+        _warp_from_rotation_traced, slope_corner_bounds)
+    from vrdd_tpu_torch.parallel import sweep as ps
+    from vrdd_tpu_torch.parallel.mesh import make_mesh
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    mesh = make_mesh(1, 1)
+    rows, mode = sk.decode_weight_rows("mean", B, family="unit")
+    elem = hist.element_size()
+    records, seen = [], set()
+    for view in DIST_VIEWS:
+        iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
+        if not ps.shearwarp_hist_supported(hist.shape, iv, W, W,
+                                           oversample=1.0, mesh=mesh):
+            fail(f"11b {view}: shearwarp_hist_supported refused the view")
+
+        def render():
+            return ps.distributed_shearwarp_hist_render(
+                hist, rows, iv, W, W, tf, DIST_DENSITY, mesh=mesh, stat=mode,
+                oversample=1.0)
+
+        reset_diff_counters()
+        img = render()
+        torch.cuda.synchronize()
+        counts = diff_launches()
+        if counts["sweep_fwd"][0] != 1:
+            fail(f"11b {view}: K3 ran {counts['sweep_fwd']} times, want 1")
+        frame_ms = host_ms(render, 3)
+        with ShardCalls("sweep_preblended_hist_diff") as calls:
+            render()
+        (cfg, slab, r, lut, scal, _), = [hist_shard(c) for c in calls]
+        seen.add((cfg.dz_sign, slope_corner_bounds(iv, W, W)[0]))
+        del calls
+        ms = time_ms(lambda: sv.sweep_fwd(cfg, slab, r, lut, *scal), 3)
+        p_ms, ref_m = timed_once(
+            lambda: sv.sweep_fwd_reference(cfg, slab, r, lut, *scal))
+        got_m = sv.sweep_fwd(cfg, slab, r, lut, *scal)
+        e = compare(got_m, ref_m, f"[11b {view}] K3 on the "
+                    f"{cfg.width}x{cfg.height} m-grid vs plain")
+        perm, _, _, _, _, _, mgrid = ps._rotated_frame(
+            iv, W, W, 2.0, MarchConfig(), 1.0, True, ps.STRIP)
+        compare(img, _warp_from_rotation_traced(ref_m, iv[:, :3], mgrid, W,
+                                                W, 2.0, perm),
+                f"[11b {view}] frame vs the plain version of the call")
+        if float(img[..., 3].max()) <= 0.0:
+            fail(f"11b {view}: empty image")
+        del got_m, ref_m, img
+        n_live, tex = shard_work([(cfg, slab, r, lut, scal, None)], mode)
+        bd = bound(tex * B * elem + cfg.width * cfg.height * 16,
+                   n_live * (SAMPLE_OPS + decode_ops(mode, B)))
+        print(f"[11b {view}] distributed_shearwarp_hist_render mean, 1 x 1 "
+              f"mesh, {tuple(slab.shape)} -> {cfg.width}x{cfg.height} m-grid "
+              f"-> {W}^2, d_z sign {cfg.dz_sign:+d}, on {card} ({smi}): "
+              f"frame {frame_ms:.3f} ms (host clock), K3 {ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}; {n_live} evaluated samples, {tex} voxels "
+              "read)")
+        records.append({
+            "name": f"sweep_fwd[rot_hist,{view[0]:g},{view[1]:g}]",
+            "route": "cuda", "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_vjp.py:698",
+            "launches": counts["sweep_fwd"][0], "staged_launches": None,
+            "max_abs_err": e, "ms": ms, "direct_ms": None, "plain_ms": p_ms,
+            **bd,
+        })
+        del slab
+        ps.clear_octant_cache()
+        torch.cuda.empty_cache()
+    if len({s for s, _ in seen}) != 2 or len({a for _, a in seen}) != 3:
+        fail(f"11b: the views did not cover both d_z signs and the three "
+             f"principal axes: {seen}")
+    return records
+
+
+def phase_11c(work, n=128):
+    """render-hist --rot-x 30 --rot-y 20 on an n^3 x 16 file."""
+    import torch
+
+    from vrdd_tpu_torch.io import formats
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+
+    hist_file = work / "hist128_rot.bin"
+    formats.write_raw_histograms(
+        str(hist_file), random_histogram_volume((n, n, n), n_bins=16,
+                                                seed=1).reshape(-1, 16))
+    out = work / "rot.ppm"
+    reset_diff_counters()
+    text = cli_lines(["render-hist", "--hist-file", str(hist_file), "--dims",
+                      str(n), str(n), str(n), "--bins", "16", "--rot-x", "30",
+                      "--rot-y", "20", "-o", str(out)], "11c render-hist")
+    torch.cuda.synchronize()
+    launches = diff_launches()["sweep_fwd"][0]
+    path = [ln for ln in text.splitlines() if ln.startswith("wrote")]
+    img = formats.read_ppm(str(out))
+    print(f"  path line: {path}; K3 launches {launches}; {img.shape} PPM, "
+          f"mean level {img.mean():.2f}")
+    if (not path or "distributed_shearwarp_hist_render" not in path[0]
+            or launches != 1 or img.max() == 0):
+        fail("11c: render-hist --rot-* did not render through "
+             "distributed_shearwarp_hist_render on K3")
+
+
+def phase_11d(dev, card, smi, tf, W=1024, n=256):
+    """The scalar distributed sweep at bricks=2 x rays=2 on 7b's volume:
+    unrotated against K1, rotated against the plain torch sweep on the
+    slopes the kernels sample, each pass's shards against their plain
+    versions, one make_sweep_fit_step step against the single-device step
+    and its K4/K5 shards against their plain versions. Returns the kernel
+    records."""
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+    from vrdd_tpu_torch.core.transfer import grayscale_ramp
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.march import shearwarp as sw
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.parallel import sweep as ps
+    from vrdd_tpu_torch.parallel import train as pt
+    from vrdd_tpu_torch.parallel.mesh import make_mesh
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    pipe = RenderPipeline(raw=RawHistogramVolume(smooth_raw_histograms(
+        n, 32, dev)))
+    vol = pipe.raw_stats[..., 0].contiguous()
+    del pipe
+    torch.cuda.empty_cache()
+    mesh, one = make_mesh(2, 2), make_mesh(1, 1)
+    origin = torch.tensor(ORIGIN)
+    shards = mesh.bricks * mesh.rays
+    print(f"[11d] the scalar distributed sweep, 7b's {n}^3 mean channel -> "
+          f"{W}^2, bricks={mesh.bricks} x rays={mesh.rays}, on {card} ({smi})")
+
+    def flat():
+        return ps.distributed_sweep_render(vol, origin, tf, width=W,
+                                           height=W, mesh=mesh)
+
+    reset_diff_counters()
+    img = flat()
+    torch.cuda.synchronize()
+    counts = diff_launches()
+    if counts["sweep_fwd"] != (2 * shards, shards):
+        fail(f"11d: K3 ran {counts['sweep_fwd']} (launches, seeded)")
+    compare(img, sk.pallas_slice_render(vol, origin, tf, width=W, height=W),
+            "[11d] distributed_sweep_render (2 nz planes, halo) vs K1")
+    ms = host_ms(flat, 3)
+    k1_ms = host_ms(lambda: sk.pallas_slice_render(vol, origin, tf, width=W,
+                                                   height=W), 3)
+    print(f"  frame {ms:.3f} ms, K1 single-device {k1_ms:.3f} ms (host "
+          f"clock); launches (all, seeded) {counts}")
+    records = k3_pass_records(flat, "sweep_preblended_planes_diff", "none",
+                              1, 4, counts["sweep_fwd"], "dist_scalar",
+                              "[11d]")
+
+    iv = inv_view_from_rotation_translation(30.0, 20.0, (0.0, 0.0, -4.0))
+
+    def rot():
+        return ps.distributed_shearwarp_render(vol, iv, W, W, tf, mesh=mesh)
+
+    reset_diff_counters()
+    img = rot()
+    torch.cuda.synchronize()
+    counts = diff_launches()
+    if counts["sweep_fwd"] != (2 * shards, shards):
+        fail(f"11d: the rotated frame ran K3 {counts['sweep_fwd']}")
+    compare(img, ps.distributed_shearwarp_render(vol, iv, W, W, tf,
+                                                 mesh=one),
+            "[11d] distributed_shearwarp_render (30, 20) vs the same call on "
+            "one device")
+    records += k3_pass_records(rot, "sweep_preblended_planes_diff", "none",
+                               1, 4, counts["sweep_fwd"], "dist_scalar_rot",
+                               "[11d rotated]")
+    # the m-grid image against the plain torch sweep ('xla') of the same
+    # call: on the slopes the kernels sample (each strip's first slope and
+    # the float32 step to the next, JAX's per-shard slopes), and on the
+    # m-grid's own points, which the warp assumes
+    perm, dz_sign, march_p, origin_p, mx, my, mgrid = ps._rotated_frame(
+        iv, W, W, 2.0, MarchConfig(), 2.0, True, mesh.rays * ps.STRIP)
+    px, py, pz = perm
+    vol_p = ps._permuted_sharded(vol, (2 - pz, 2 - py, 2 - px), mesh)
+    hl = my.shape[0] // mesh.rays
+    grids = [sk._slope_grids(ps._strip_slopes(mx, my[r * hl:(r + 1) * hl]),
+                             mx.shape[0], hl) for r in range(mesh.rays)]
+    mx_k, my_k = grids[0][0], np.concatenate([g[1] for g in grids])
+
+    def m_image(backend, gx, gy):
+        return ps._sweep_slope_space_call(
+            vol_p, origin_p, tf, 0.05, 1.0, 0.0, 1.0, mx=gx, my=gy,
+            march=march_p, mesh=mesh, dz_sign=dz_sign, n_planes=0,
+            length_correction=True, plane_chunk=8, backend=backend,
+            wrt=("volume", "lut", "params"))
+
+    img_m = m_image("pallas", mx, my)
+    compare(img_m, m_image("xla", mx_k, my_k),
+            "[11d rotated] m-grid image (K3) vs the plain torch sweep on the "
+            "slopes the kernels sample")
+    d = (img_m - m_image("xla", mx, my)).abs().amax(-1)
+    step = float(np.float32(mx[1] - mx[0]))
+    print(f"  the slope step: K3's m-grid image against the plain sweep on "
+          f"the m-grid's own points: max abs {float(d.max()):.3e}, pixels > "
+          f"{TOL:g}: {float((d > TOL).float().mean()):.4%}; the last "
+          f"column's slope is {(len(mx) - 1) * (step - mgrid[1]) / mgrid[1]:+.4f}"
+          f" m-grid cells off the warp's ({len(mx)} columns, step "
+          f"{step:.9e} vs {mgrid[1]:.9e})")
+    del img_m, d, vol_p
+    # the single-device shear-warp samples another m-grid (its own margin
+    # and step, sweep and warp consistent): the difference is the resampling
+    d = (img - sw.shearwarp_render_image(vol, iv, W, W, tf,
+                                         backend="pallas")).abs()
+    print(f"  vs the single-device shear-warp's m-grid: max abs "
+          f"{float(d.max()):.3e}, pixels > {TOL:g}: "
+          f"{float((d.amax(-1) > TOL).float().mean()):.4%}")
+    if float(d.max()) > 1e-2:
+        fail("11d: the rotated frame is further than 1e-2 from the "
+             "single-device shear-warp")
+    ms = host_ms(rot, 3)
+    print(f"  rotated frame {ms:.3f} ms (host clock); launches {counts}")
+    ps.clear_octant_cache()
+    del img, d
+
+    target = sk.pallas_slice_render(vol, origin, tf, width=W, height=W,
+                                    n_planes=n)
+    steps = {}
+    for name, m in (("distributed", mesh), ("single-device", one)):
+        init_fn, step_fn = pt.make_sweep_fit_step(m, W, W, n_planes=n)
+        params, opt = init_fn(grayscale_ramp(9))
+        reset_diff_counters()
+        with ShardCalls("sweep_preblended_planes_diff") as calls:
+            params, opt, loss = step_fn(params, opt, vol, ORIGIN, target)
+        torch.cuda.synchronize()
+        steps[name] = (float(loss), params["tf_lut"].grad.clone(),
+                       params["tf_lut"].detach().clone(), diff_launches(),
+                       calls)
+    (l_d, g_d, lut_d, c_d, calls), (l_s, g_s, lut_s, _, _) = steps.values()
+    print(f"  make_sweep_fit_step (n_planes {n}, wrt lut): loss {l_d:.8f}, "
+          f"single-device {l_s:.8f}; updated LUT max diff "
+          f"{float((lut_d - lut_s).abs().max()):.3e}; launches {c_d}")
+    if c_d["sweep_fwd_ckpt"][0] != 2 * shards or c_d["sweep_bwd"][0] != 2 * shards:
+        fail(f"11d: the step did not run K4/K5 per shard and pass: {c_d}")
+    if abs(l_d - l_s) > 1e-4 * abs(l_s):
+        fail("11d: the distributed step's loss differs from the "
+             "single-device one")
+    rel_l2(g_d, g_s, "[11d] step LUT gradient vs single-device")
+    records += k4_k5_records([planes_shard(c) for c in calls], "none", 1, 4,
+                             c_d, calls[0][1]["wrt"], "dist_scalar_fit",
+                             "[11d step]")
+    del vol, target, steps, calls
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_11e(dev, card, smi, S=512):
+    """The scan marcher on bricks=2 against RenderPipeline's scan frame."""
+    import torch
+
+    from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.parallel import bricks as pb
+    from vrdd_tpu_torch.parallel.mesh import make_mesh
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig, query_channel)
+
+    iv = default_benchmark_inv_view()
+    pipe = RenderPipeline(raw=RawHistogramVolume(torch.from_numpy(
+        random_histogram_volume((10, 50, 50), 32, seed=0)).to(dev)))
+    cfg = RenderConfig(camera=CameraConfig(width=S, height=S),
+                       query_method=QueryMethod(1))
+    mesh = make_mesh(2, 1)
+
+    def dist():
+        return pb.distributed_render_image(
+            pipe.raw_stats, iv, pipe.tf_lut, cfg.density, cfg.brightness,
+            cfg.tf.offset, cfg.tf.scale, width=S, height=S,
+            channel=query_channel(QueryMethod(1)), march=cfg.march,
+            mesh=mesh)
+
+    img = dist()
+    compare(img, pipe.render(iv, cfg, "scan"),
+            "[11e] bricks.distributed_render_image (bricks=2) vs the "
+            "pipeline's scan frame")
+    if float(img[..., 3].max()) <= 0.0:
+        fail("11e: empty image")
+    ms = host_ms(dist, 1)
+    scan_ms = host_ms(lambda: pipe.render(iv, cfg, "scan"), 1)
+    print(f"[11e] Isabel 50 x 50 x 10 x 32 stats -> {S}^2, bricks=2, on "
+          f"{card} ({smi}): {ms:.3f} ms, the pipeline's scan frame "
+          f"{scan_ms:.3f} ms (host clock; torch ops, no hand-written kernel)")
+
+
+def phase_11(dev, card, smi, tf, work):
+    """The distributed sweep of parallel/ on one card: 11a-11e. Returns the
+    kernel records."""
+    import torch
+
+    from vrdd_tpu_torch.io.synthetic import blob_histogram_volume
+    from vrdd_tpu_torch.parallel.mesh import make_mesh
+
+    n, B, W = 512, 16, 1024
+    hist = blob_histogram_volume(n, B, device=dev, dtype=torch.bfloat16)
+    records = phase_11a(dev, card, smi, tf, hist, n, B, W, make_mesh(4, 2))
+    records += phase_11b(dev, card, smi, tf, hist, n, B, W)
+    del hist
+    torch.cuda.empty_cache()
+    phase_11c(work)
+    records += phase_11d(dev, card, smi, tf)
+    phase_11e(dev, card, smi)
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2429,6 +3178,9 @@ def main() -> int:
 
     # ---- 10. fit-tf and encode
     records += phase_10(dev, card, smi, work)
+
+    # ---- 11. the distributed sweep (parallel/)
+    records += phase_11(dev, card, smi, tf, work)
     shutil.rmtree(work)
 
     # ---- result

@@ -1014,3 +1014,194 @@ def test_fit_tf_lut_k4_k5_match_plain(dev):
     assert fit_tf_problem(stats, 136, 100, "auto")[1] == "pallas"
     assert abs(out["pallas"][0] - out["slice"][0]) <= 1e-5 * out["slice"][0]
     assert _rel_l2(out["pallas"][1], out["slice"][1]) <= 1e-3
+
+
+# ---- the distributed sweep (parallel/) -------------------------------------
+
+def _from_below(dev, dtype, kind, W, H, ck_stride=4):
+    """A histogram sweep looking up the z axis: camera at z = -4, d_z > 0,
+    the slab walked in storage order (dz_sign=+1, reverse_planes=False), as
+    every shear-warp view whose principal axis points away from the camera
+    gives it."""
+    stat = {"linear": "mean", "var": "var", "entropy": "entropy"}[kind]
+    rows, _ = sk.decode_weight_rows(stat, 8, family="unit")
+    hist = torch.from_numpy(_smooth_hist((16, 8, 24, 20), seed=4)).to(
+        dev, dtype)
+    zs = (-1.0 + 2.0 / 16 * (np.arange(16, dtype=np.float32) + 0.5))
+    cfg = sv.hist_config(zs, (0.0, 0.0, -4.0), sk.pixel_slope_params(W, H),
+                         stat=kind, dz_sign=1, width=W, height=H,
+                         plane_chunk=ck_stride, reverse_planes=False)
+    return cfg, hist, torch.as_tensor(rows, device=dev)
+
+
+@pytest.mark.parametrize("kind", ["linear", "var", "entropy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hist_dz_plus_k3_k4_k5_match_plain_and_paths(dev, kind, dtype):
+    """Hist-mode K3/K4/K5 at dz_sign=+1, reverse_planes=False, 100 x 70:
+    K4's image bitwise K3's; K3 and K4 staged bitwise direct; each against
+    its plain version (image tolerance, K5's d_dec and LUT cotangents 1e-3
+    relative L2); K5's LUT cotangents bitwise across the paths."""
+    cfg, hist, rows = _from_below(dev, dtype, kind, 100, 70)
+    args = (hist, rows, *_scalars(dev, kind))
+    cpu = tuple(a.cpu() for a in args)
+    k3 = {s: sv.sweep_fwd(cfg, *args, staged=s) for s in (True, False)}
+    k4 = {s: sv.sweep_fwd_ckpt(cfg, *args, staged=s) for s in (True, False)}
+    torch.cuda.synchronize()
+    assert float(k3[True][..., 3].max()) > 0.05, "vacuous: empty render"
+    for s in (True, False):
+        assert torch.equal(k4[s][0], k3[s])
+    assert torch.equal(k3[True], k3[False])
+    assert torch.equal(k4[True][1], k4[False][1])
+    ref_img, ref_tck = sv.sweep_fwd_ckpt_reference(cfg, *cpu)
+    _close(k3[True], ref_img.to(dev))
+    _close(k4[True][1][..., None], ref_tck[..., None].to(dev))
+    g = torch.randn((70, 100, 4), generator=torch.Generator().manual_seed(2))
+    k5 = {s: sv.sweep_bwd(cfg, *args, g.to(dev), k4[s][1], True, True, True,
+                          staged=s) for s in (True, False)}
+    torch.cuda.synchronize()
+    assert torch.equal(k5[True][1], k5[False][1])
+    d_r, small_r, _, _ = sv.sweep_bwd_reference(cfg, *cpu, g, True, True,
+                                                True)
+    for d, small, _, _ in k5.values():
+        assert _rel_l2(d, d_r) <= 1e-3 and _rel_l2(small, small_r) <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["none", "linear"])
+@pytest.mark.parametrize("staged", [True, False])
+def test_seeds_frozen_at_alpha_2(dev, kind, staged):
+    """Pass 2 of the distributed sweep seeds every pixel outside the
+    crossing slab at alpha 2: K3 and K4 leave it at its seed, K4's
+    checkpoints hold T0 = -1, K5 reports S = 0 there, and its seed
+    cotangent is (g_rgb, g_a); live pixels resume against the plain
+    version."""
+    cfg, vol, rows = _case(dev, kind, torch.float32, (100, 70))
+    args = (vol, rows, *_scalars(dev, kind))
+    front = sv.sweep_fwd(cfg, *args)
+    seed = torch.zeros_like(front)
+    seed[..., 3] = 2.0
+    live = torch.zeros(front.shape[:2], dtype=torch.bool, device=dev)
+    live[20:45:3, 5:90:7] = True
+    seed = torch.where(live[..., None], 0.5 * front, seed)
+    with sk._fetch_path(staged):
+        img = sv.sweep_fwd(cfg, *args, seed)
+        img4, tck = sv.sweep_fwd_ckpt(cfg, *args, seed)
+        g = torch.randn(img.shape, generator=torch.Generator().manual_seed(4))
+        _, _, _, s_img = sv.sweep_bwd(cfg, *args, g.to(dev), tck, True, True,
+                                      False, acc0=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(img[~live], seed[~live])
+    assert torch.equal(img4, img)
+    assert bool((tck[:, ~live] == -1.0).all())
+    assert bool((s_img[~live] == 0.0).all())
+    cpu = tuple(None if a is None else a.cpu() for a in args)
+    _close(img, sv.sweep_fwd_reference(cfg, *cpu, seed.cpu()).to(dev))
+    s_ref = sv.sweep_bwd_reference(cfg, *cpu, g, True, True, False,
+                                   seed.cpu())[3]
+    assert _rel_l2(s_img, s_ref) <= 1e-3
+    d_acc0 = sv._seed_cotangent(g.to(dev), seed, s_img)
+    assert torch.equal(d_acc0[~live], g.to(dev)[~live])
+
+
+@pytest.mark.parametrize("kind", ["none", "entropy"])
+def test_row_strip_slopes(dev, kind):
+    """A ray strip of the distributed sweep: rows 13 .. 50 of a 100 x 72
+    image (my_local[0] != my[0], a height of 37, not a multiple of 8) swept
+    with slopes (mx0, dmx, my_local[0], dmy): close to those rows of the
+    whole image, against its plain version, staged bitwise direct."""
+    import dataclasses
+
+    from vrdd_tpu_torch.parallel.sweep import _strip_slopes
+
+    cfg, vol, rows = _case(dev, kind, torch.float32, (100, 72))
+    mx, my = sk._slope_grids(cfg.slopes, 100, 72)
+    strip = dataclasses.replace(cfg, height=37,
+                                slopes=_strip_slopes(mx, my[13:50]))
+    assert strip.slopes[2] != cfg.slopes[2]
+    args = (vol, rows, *_scalars(dev, kind))
+    whole = sv.sweep_fwd(cfg, *args)
+    got = {s: sv.sweep_fwd(strip, *args, staged=s) for s in (True, False)}
+    torch.cuda.synchronize()
+    assert torch.equal(got[True], got[False])
+    _close(got[True], whole[13:50])
+    cpu = tuple(None if a is None else a.cpu() for a in args)
+    _close(got[True], sv.sweep_fwd_reference(strip, *cpu).to(dev))
+
+
+@pytest.mark.parametrize("density", [0.3, 5.0])
+def test_three_bricks_two_rays_match_the_unsharded_call(dev, density):
+    """distributed_hist_render and distributed_sweep_render on bricks=3 x
+    rays=2 on one card (strips of 47 rows) against the single-device
+    kernels; the hist render's d_hist and LUT cotangents against
+    pallas_hist_render_diff's (1e-3 relative L2). Density 5 saturates, so
+    pass 2 re-sweeps the crossing slabs; the strips' slopes round apart
+    from the whole image's, so a few rays flip at the cutoff (the 0.1%
+    budget)."""
+    from vrdd_tpu_torch.parallel import sweep as ps
+    from vrdd_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(3, 2)
+    assert mesh.device.type == "cuda"
+    hist = torch.from_numpy(_smooth_hist((12, 8, 20, 24), seed=3)).to(dev)
+    rows, _ = sk.decode_weight_rows("mean", 8, family="unit")
+    W, H = 136, 94
+
+    def close(got, ref, what):
+        try:
+            _close(got, ref)
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {e}") from None
+
+    before = sv.sweep_fwd.launches
+    img = ps.distributed_hist_render(hist, rows, O, TF, density, width=W,
+                                     height=H, mesh=mesh)
+    torch.cuda.synchronize()
+    assert sv.sweep_fwd.launches == before + 12  # 6 shards, two passes
+    close(img, sk.pallas_hist_render(hist, rows, O, TF, density, width=W,
+                                     height=H), "hist vs K2")
+    vol = torch.from_numpy(gaussian_blob_volume((12, 20, 24), seed=3)).to(dev)
+    img = ps.distributed_sweep_render(vol, O, TF, density, width=W,
+                                      height=H, mesh=mesh)
+    close(img, ps.distributed_sweep_render(vol, O, TF, density, width=W,
+                                           height=H,
+                                           mesh=make_mesh(1, 1)),
+          "scalar vs one shard")
+    # JAX's construction steps a shard's slopes by the float32 difference
+    # of two grid points; K1 takes the grid's mean spacing. At density 5
+    # the two round across the cutoff on 0.13% of these rays (the plain
+    # versions too), by less than 1e-3
+    k1 = sk.pallas_slice_render(vol, O, TF, density, width=W, height=H)
+    assert float((img - k1).abs().max()) < 1e-3
+    out = []
+    for fn in (lambda h, lut: ps.distributed_hist_render(
+                   h, rows, O, lut, density, width=W, height=H, mesh=mesh,
+                   wrt=("hist", "lut")),
+               lambda h, lut: sv.pallas_hist_render_diff(
+                   h, rows, O, lut, density, width=W, height=H,
+                   wrt=("hist", "lut"))):
+        leaves = [hist.clone().requires_grad_(),
+                  torch.tensor(TF, device=dev, requires_grad=True)]
+        out.append(_grads(fn, leaves))
+    (img_d, (gh, gl)), (img_s, (gh_s, gl_s)) = out
+    close(img_d.detach(), img_s.detach(), "hist under autograd vs K4")
+    assert _rel_l2(gh, gh_s) <= 1e-3 and _rel_l2(gl, gl_s) <= 1e-3
+
+
+@pytest.mark.parametrize("view", [(30.0, 20.0), (0.0, 60.0), (60.0, 0.0)])
+def test_distributed_shearwarp_hist_matches_plain(dev, view):
+    """The rotated distribution-native frame on bricks=2 x rays=2 on the
+    card against the same call on the CPU (the kernels' plain versions)."""
+    from vrdd_tpu_torch.core.geometry import (
+        inv_view_from_rotation_translation)
+    from vrdd_tpu_torch.parallel import sweep as ps
+    from vrdd_tpu_torch.parallel.mesh import make_mesh
+
+    iv = inv_view_from_rotation_translation(*view, (0.0, 0.0, -4.0))
+    h = _smooth_hist((12, 8, 20, 24), seed=5)
+    rows, _ = sk.decode_weight_rows("mean", 8, family="unit")
+    imgs = [ps.distributed_shearwarp_hist_render(
+        torch.from_numpy(h).to(d), rows, iv, 60, 44, TF, 0.3,
+        mesh=make_mesh(2, 2, devices=[d]), oversample=1.0)
+        for d in (dev, "cpu")]
+    ps.clear_octant_cache()
+    assert float(imgs[1][..., 3].max()) > 0.05, "vacuous: empty render"
+    _close(imgs[0], imgs[1].to(dev))

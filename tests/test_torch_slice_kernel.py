@@ -143,6 +143,20 @@ def test_hist_renderer_module_matches_function():
     assert torch.equal(got, ref)
 
 
+def test_hist_renderer_defaults_to_the_card():
+    """The module's buffers go to the card unless the caller asks for the
+    CPU, as every entry point of the port does."""
+    rows, mode = tk.decode_weight_rows("mean", 8, family="unit")
+    if torch.cuda.is_available():
+        m = HistRenderer(TF, rows, stat=mode, width=8, height=8)
+        assert m.tf_lut.is_cuda and m.rows.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            HistRenderer(TF, rows, stat=mode, width=8, height=8)
+    m = HistRenderer(TF, rows, stat=mode, width=8, height=8, device="cpu")
+    assert m.tf_lut.device.type == m.rows.device.type == "cpu"
+
+
 def test_supported_predicates():
     assert tk.pallas_supported((512, 512, 512), 1024, 1024, 512)
     assert tk.pallas_supported((16, 24, 24), 100, 72, 32)

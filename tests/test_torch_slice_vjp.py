@@ -247,7 +247,8 @@ def test_hist_renderer_trains_through_the_diff_path():
     rows, mode = tk.decode_weight_rows("mean", 4, family="unit")
     for route in ("inkernel", "materialized"):
         m = HistRenderer(TF, rows, stat=mode, width=20, height=16,
-                         density=0.3, route=route, wrt=("hist",))
+                         density=0.3, route=route, wrt=("hist",),
+                         device="cpu")
         hist = torch.tensor(h, requires_grad=True)
         (g,) = torch.autograd.grad(m(hist, O).sum(), [hist])
         ref_h = torch.tensor(h, requires_grad=True)

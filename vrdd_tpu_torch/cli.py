@@ -20,7 +20,9 @@ Subcommands ported so far:
                    layout, ``--resume``.
 - ``render-hist``  render straight from a block-histogram file: bins-major
                    load, the in-kernel decode sweep (``pallas_hist_render``
-                   through ``HistRenderer``), PPM out.
+                   through ``HistRenderer``; rotated views through
+                   ``parallel/sweep.py distributed_shearwarp_hist_render``),
+                   PPM out.
 - ``fit-hist``     fit a per-voxel histogram volume to renders of a decoded
                    statistic, differentiating through
                    ``pallas_hist_render_diff`` (K4 forward, K5 backward) with
@@ -614,20 +616,18 @@ def cmd_fit_voxels(args) -> int:
 
 
 def cmd_render_hist(args) -> int:
-    """Histogram file -> decode statistic -> sweep -> PPM, unrotated camera
-    at ``(0, 0, -translate_z)`` as ``vrdd_tpu.cli`` places it."""
+    """Histogram file -> decode statistic -> sweep -> PPM, camera at ``(0,
+    0, -translate_z)`` rotated by ``--rot-x``/``--rot-y`` as ``vrdd_tpu.cli``
+    places it. Rotated views on the card go through
+    ``distributed_shearwarp_hist_render`` on a one-shard mesh (the in-kernel
+    decode on the shear-warp m-grid, oversample 1); on the CPU through JAX's
+    non-TPU branch, the materialized decode and the plain shear-warp."""
     from vrdd_tpu_torch.core.image import rgba_to_uint8
     from vrdd_tpu_torch.core.transfer import default_transfer_function
     from vrdd_tpu_torch.io import formats
     from vrdd_tpu_torch.kernels.slice_kernel import decode_weight_rows
     from vrdd_tpu_torch.models.hist_renderer import HistRenderer
 
-    if args.rot_x != 0.0 or args.rot_y != 0.0:
-        raise NotImplementedError(
-            "rotated render-hist views go through the distributed shear-warp "
-            "sweep of the histograms (distributed_shearwarp_hist_render), not "
-            "ported yet (ROADMAP.md queue 1 item 11)"
-        )
     device = _device(args.device)
     nz, ny, nx = args.dims
     B = args.bins
@@ -639,16 +639,54 @@ def cmd_render_hist(args) -> int:
     # decode statistic (reference queries 1/2/3); 'unit' family = centers
     # on [0, 1], the natural range for standalone histogram files
     rows, mode = decode_weight_rows(args.stat, B, family="unit")
-    renderer = HistRenderer(
-        default_transfer_function(), rows, stat=mode, width=args.width,
-        height=args.height, density=args.density,
-        transfer_scale=args.tf_scale, device=device,
-    )
-    origin = torch.tensor([0.0, 0.0, args.translate_z * -1.0])
-    img = renderer(hist, origin)
+    tf = default_transfer_function()
+    W, H = args.width, args.height
+    on_card = device.type == "cuda"
+    if args.rot_x != 0.0 or args.rot_y != 0.0:
+        from vrdd_tpu_torch.core.geometry import (
+            inv_view_from_rotation_translation)
+
+        iv = inv_view_from_rotation_translation(
+            args.rot_x, args.rot_y, (0.0, 0.0, args.translate_z))
+        if on_card:
+            from vrdd_tpu_torch.parallel.mesh import make_mesh
+            from vrdd_tpu_torch.parallel.sweep import (
+                distributed_shearwarp_hist_render, shearwarp_hist_supported)
+
+            if not shearwarp_hist_supported((nz, B, ny, nx), iv, W, H,
+                                            oversample=1.0):
+                raise ValueError(
+                    "the rotated in-kernel decode cannot take this view "
+                    "(d_z changes sign, or the decode rows and LUT outgrow "
+                    "the kernels' shared memory)")
+            img = distributed_shearwarp_hist_render(
+                hist, rows, iv, W, H, tf, density=args.density,
+                transfer_scale=args.tf_scale,
+                mesh=make_mesh(1, 1, devices=[device]), stat=mode,
+                oversample=1.0)
+            path = (f"rotated in-kernel fused decode ({args.stat}), "
+                    "distributed_shearwarp_hist_render on a 1 x 1 mesh, "
+                    "CUDA kernel")
+        else:
+            from vrdd_tpu_torch.kernels.slice_kernel import decode_with_rows
+            from vrdd_tpu_torch.march.shearwarp import shearwarp_render_image
+
+            vol = decode_with_rows(hist, rows, mode)
+            img = shearwarp_render_image(
+                vol, iv, W, H, tf, density=args.density,
+                transfer_scale=args.tf_scale, n_planes=nz, backend="xla")
+            path = f"rotated materialized decode ({args.stat}), plain torch"
+    else:
+        renderer = HistRenderer(
+            tf, rows, stat=mode, width=W, height=H, density=args.density,
+            transfer_scale=args.tf_scale, device=device,
+        )
+        origin = torch.tensor([0.0, 0.0, args.translate_z * -1.0])
+        img = renderer(hist, origin)
+        path = (f"in-kernel decode, {args.stat}, "
+                f"{'CUDA kernel' if on_card else 'plain torch'}")
     formats.write_ppm(args.output, rgba_to_uint8(img).cpu().numpy())
-    path = "CUDA kernel" if device.type == "cuda" else "plain torch"
-    print(f"wrote {args.output} (in-kernel decode, {args.stat}, {path})")
+    print(f"wrote {args.output} ({path})")
     return 0
 
 
@@ -744,8 +782,8 @@ def main(argv=None) -> int:
     prh.add_argument("--tf-scale", type=float, default=1.0, dest="tf_scale")
     prh.add_argument("--rot-x", type=float, default=0.0,
                      help="camera rotation about x (degrees; rotated views "
-                     "need the distributed shear-warp sweep, not ported "
-                     "yet: nonzero raises)")
+                     "take the distributed shear-warp sweep on the card, the "
+                     "plain shear-warp of the decoded volume on the CPU)")
     prh.add_argument("--rot-y", type=float, default=0.0)
     prh.add_argument("-o", "--output", default="hist_render.ppm")
     prh.add_argument("--device", default="cuda",

@@ -637,6 +637,27 @@ def planes_config(zs, origin, slopes, *, dz_sign=-1, width, height,
     )
 
 
+def hist_config(zs, origin, slopes, *, stat: str, dz_sign=-1, width,
+                height, march=MarchConfig(), plane_spacing=None,
+                plane_chunk=4, length_correction=True,
+                reverse_planes=True) -> _Sweep:
+    """The sweep of a bins-major histogram slab, one plane per layer, with
+    depths ``zs`` (front to back) and ``slopes = [mx0, dmx, my0, dmy]``,
+    decoded by ``stat``: the handle :func:`sweep_preblended_hist_diff`
+    builds, to call :func:`sweep_fwd`, :func:`sweep_fwd_ckpt` and
+    :func:`sweep_bwd` (or their plain versions) on one slab directly, as
+    :func:`planes_config` is for a scalar stack."""
+    if plane_spacing is None:
+        plane_spacing = (march.box_max[2] - march.box_min[2]) / len(zs)
+    return _Sweep(
+        zs=np.asarray(zs, np.float32), origin=tuple(_host_floats(origin, 3)),
+        slopes=tuple(_host_floats(slopes, 4)), width=int(width),
+        height=int(height), march=march, plane_spacing=float(plane_spacing),
+        ck_stride=_ck_stride(plane_chunk), mode=stat, dz_sign=int(dz_sign),
+        reverse=bool(reverse_planes), length_correction=length_correction,
+    )
+
+
 def sweep_preblended_planes_diff(
     planes_all,
     zs,
@@ -715,17 +736,12 @@ def sweep_preblended_hist_diff(
     ``wrt``: 'hist', 'weights' (linear only), 'lut', 'params'; ``acc_init``
     seeds the sweep, as in :func:`sweep_preblended_planes_diff`."""
     _check_unported(precision)
-    n_planes, B = hist_bm.shape[:2]
-    rows = _decode_rows(weights, stat, B, hist_bm.device)
-    if plane_spacing is None:
-        plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
-    cfg = _Sweep(
-        zs=np.asarray(zs, np.float32), origin=tuple(_host_floats(origin, 3)),
-        slopes=tuple(_host_floats(slopes, 4)), width=int(width),
-        height=int(height), march=march, plane_spacing=float(plane_spacing),
-        ck_stride=_ck_stride(plane_chunk), mode=stat, dz_sign=int(dz_sign),
-        reverse=bool(reverse_planes), length_correction=length_correction,
-    )
+    rows = _decode_rows(weights, stat, hist_bm.shape[1], hist_bm.device)
+    cfg = hist_config(
+        zs, origin, slopes, stat=stat, dz_sign=dz_sign, width=width,
+        height=height, march=march, plane_spacing=plane_spacing,
+        plane_chunk=plane_chunk, length_correction=length_correction,
+        reverse_planes=reverse_planes)
     out = _diff_sweep(cfg, _norm_hist_wrt(wrt, stat), hist_bm, rows, tf_lut,
                       density, transfer_offset, transfer_scale, acc_init)
     return out * brightness

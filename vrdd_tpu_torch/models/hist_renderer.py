@@ -27,14 +27,16 @@ class HistRenderer(nn.Module):
     ``rows``/``stat`` come from ``decode_weight_rows`` (``stat`` is its
     returned mode: 'linear', 'var' or 'entropy'). ``route`` ('inkernel',
     'materialized' or 'auto') and ``wrt`` are those of
-    :func:`pallas_hist_render_diff`, used when a gradient is needed.
+    :func:`pallas_hist_render_diff`, used when a gradient is needed. The
+    buffers go to the card unless ``device`` names another device (``"cpu"``
+    for the plain versions).
     """
 
     def __init__(self, tf_lut, rows, *, stat: str = "linear", width: int,
                  height: int, density: float = 0.05, brightness: float = 1.0,
                  transfer_offset: float = 0.0, transfer_scale: float = 1.0,
                  march: MarchConfig = MarchConfig(), focal: float = 2.0,
-                 route: str = "inkernel", wrt=("hist", "lut"), device=None):
+                 route: str = "inkernel", wrt=("hist", "lut"), device="cuda"):
         super().__init__()
         self.register_buffer(
             "tf_lut", torch.as_tensor(tf_lut, dtype=torch.float32, device=device)
