@@ -152,7 +152,36 @@ Phases (each prints its lines; any failure exits non-zero):
          step, its K4/K5 shards against their plain versions;
     11e. ``bricks.distributed_render_image`` at bricks=2 on Isabel's 50 x
          50 x 10 x 32 stats -> 512^2 against ``RenderPipeline``'s scan
-         frame.
+         frame;
+12. (run right after phase 6, on its 512^3 x 16 bf16 volume, before phase
+    7) ``precision='bf16'``, K4's live map, the native loader and the
+    viewer, each drive with its counters reset before and read after:
+    12a. K2 at ``precision='bf16'`` for mean, var and entropy to 1024^2 on
+         both fetch paths: bitwise equal, against the plain bf16 version
+         (image tolerance), its distance from the f32 image printed (must
+         not be 0), ``.bf16_launches`` advanced, timed and bounded;
+    12b. in-kernel mean fwd+bwd at ``precision='bf16'`` (``wrt=("hist",
+         "lut")``) and the materialized mean, against the plain bf16
+         backward (JAX's transpose; 1e-3 relative L2), K4, K5 and the
+         y-transpose kernel (``csrc/dplane_bf16.cu``) launched in bf16;
+         K4, K5 (with its transpose) and the transpose alone timed against
+         their plain versions, the transpose also against ``torch.bmm`` of
+         the bf16-rounded dense ``wy`` (its ``library_ms``); Mrays/s and
+         peak memory;
+    12c. ``live_fractions`` on the decoded mean channel at density 0.05 and
+         0.2: K4's live bytes on both paths equal the plain version's
+         except tiles with a ray within 1e-6 of a cutoff, the image and
+         checkpoints bitwise those without the map, K4 with the map timed
+         against K4 without it in turns;
+    12d. a 128^3 x 16 file through ``io/native.py
+         read_histograms_bins_major`` (bf16 and f32), byte for byte the
+         Python reader's, both timed; ``render-hist`` must name the native
+         loader;
+    12e. ``ViewerServer`` on port 0 over a ``RenderPipeline`` on the card
+         (Isabel's 50 x 50 x 10 x 32 raw blocks, 512^2): four ``/frame``
+         requests (one rotated, two ``fmt=rgb``) byte for byte the
+         pipeline's uint8 render of the same parameters, and the pipelined
+         protocol's lag and flush.
 
 Every sweep kernel runs by default on the fetch path its wrapper chooses
 (staged where the footprint fits shared memory, K5 on scalar planes
@@ -2917,6 +2946,458 @@ def phase_11(dev, card, smi, tf, work):
     return records
 
 
+# ---- phase 12: precision='bf16', K4's live map, the native loader, view ----
+
+#: FP32 operations the bf16 mode adds to an evaluated sample: ten
+#: round trips through bf16 (the four taps, the four weights, the
+#: y-interpolated pair), two conversions each
+BF16_SAMPLE_OPS = 20
+
+
+def phase_12a(dev, card, smi, hist, tf, origin, n, B, W, counts):
+    """K2 at precision='bf16' for mean, var and entropy on both fetch paths
+    against the plain bf16 version; returns the kernel records."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+
+    k2 = sk.pallas_hist_render
+    print(f"[12a] K2 precision='bf16', {n}^3 x {B} bf16 -> {W}^2 on {card} "
+          f"({smi})")
+    cases = {}
+    for stat in ("mean", "var", "entropy"):
+        rows, mode = sk.decode_weight_rows(stat, B, family="unit")
+        cases[mode] = (rows, dict(
+            transfer_scale=10.0 if stat == "var" else 1.0, width=W, height=W,
+            stat=mode))
+    # the main-path run: each statistic on both fetch paths
+    k2.launches = k2.staged_launches = k2.bf16_launches = 0
+    images, launches = {}, {}
+    for mode, (rows, kw) in cases.items():
+        before = (k2.launches, k2.staged_launches, k2.bf16_launches)
+        images[mode] = {s: on_path(s, lambda rows=rows, kw=kw: k2(
+            hist, rows, origin, tf, precision="bf16", **kw))()
+            for s in (True, False)}
+        launches[mode] = tuple(a - b for a, b in zip(
+            (k2.launches, k2.staged_launches, k2.bf16_launches), before))
+    torch.cuda.synchronize()
+    print(f"  launches in the main-path run (K2, staged, bf16): {launches}")
+    if any(v != (2, 1, 2) for v in launches.values()):
+        fail(f"12a: K2's bf16 launches were not counted: {launches}")
+    records = []
+    for mode, (rows, kw) in cases.items():
+        img = images[mode][True]
+        bitwise(img, images[mode][False], f"K2 {mode} bf16 staged vs direct")
+
+        def plain(rows=rows, kw=kw):
+            return sk.hist_render_reference(hist, rows, origin, tf,
+                                            precision="bf16", **kw)
+
+        plain_ms, ref = timed_once(plain)
+        err = compare(img, ref, f"K2 {mode} bf16 vs plain bf16")
+        f32 = k2(hist, rows, origin, tf, **kw)
+        dist = float((img - f32).abs().max())
+        share = float(((img - f32).abs().amax(-1) > TOL).float().mean())
+        print(f"  K2 {mode}: bf16 vs f32 image max {dist:.3e}, pixels > "
+              f"{TOL:g}: {share:.4%}")
+        if dist == 0.0:
+            fail(f"12a: K2 {mode} bf16 image equals the f32 image")
+        del ref, f32
+        ms, direct_ms = paths_ms(lambda s, rows=rows, kw=kw: on_path(
+            s, lambda: k2(hist, rows, origin, tf, precision="bf16", **kw)))
+        n_live, n_texels = counts[mode]
+        bd = bound(n_texels * B * hist.element_size() + W * W * 16,
+                   n_live * (SAMPLE_OPS + BF16_SAMPLE_OPS
+                             + decode_ops(mode, B)))
+        print(f"  K2 {mode} bf16: staged {ms:.3f} ms, direct {direct_ms:.3f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+              f"({bd['bound_by']})")
+        records.append({
+            "name": f"pallas_hist_render[{mode},bf16]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_kernel.py:1595",
+            "launches": launches[mode][2],
+            "staged_launches": launches[mode][1], "max_abs_err": err,
+            "ms": ms, "direct_ms": direct_ms, "plain_ms": plain_ms, **bd,
+        })
+    return records
+
+
+def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
+    """In-kernel mean fwd+bwd at precision='bf16' (K4, K5, the y-transpose)
+    and the materialized mean, against the plain bf16 backward; K4, K5 and
+    the transpose timed; returns the kernel records."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    print(f"[12b] fwd+bwd precision='bf16', mean, wrt (hist, lut), {n}^3 x "
+          f"{B} bf16 -> {W}^2 on {card} ({smi})")
+    rows, mode = sk.decode_weight_rows("mean", B, family="unit")
+    lut0 = torch.as_tensor(tf, device=dev)
+    counters = diff_counters() + (sv.dplane_bf16,)
+
+    def fwd_bwd(route):
+        h = hist.detach().requires_grad_()
+        lut = lut0.clone().requires_grad_()
+        img = sv.pallas_hist_render_diff(
+            h, rows, origin, lut, width=W, height=W, stat=mode,
+            wrt=("hist", "lut"), route=route, precision="bf16")
+        loss = torch.mean((img - 0.25) ** 2)
+        return (loss, img) + torch.autograd.grad(loss, [h, lut])
+
+    def plain():
+        hp = hist.detach().requires_grad_()
+        lp = lut0.clone().requires_grad_()
+        imgp = sk.hist_render_reference(hp, rows, origin, lp, width=W,
+                                        height=W, stat=mode,
+                                        precision="bf16")
+        lossp = torch.mean((imgp - 0.25) ** 2)
+        return (lossp, imgp) + torch.autograd.grad(lossp, [hp, lp])
+
+    plain_ms, (lossp, imgp, ghp, glp) = timed_once(plain)
+    mrays, main = {}, {}
+    for route in ("inkernel", "materialized"):
+        for c in counters:
+            c.launches = 0
+        for c in diff_counters():
+            c.bf16_launches = 0
+        loss, img, gh, gl = fwd_bwd(route)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        bf16 = {c.__name__: c.bf16_launches for c in diff_counters()}
+        print(f"  [{route}] launches in the main-path run: {launches}, bf16 "
+              f"{bf16}, loss {float(loss.detach()):.6f}")
+        if (launches["sweep_fwd_ckpt"] == 0 or launches["sweep_bwd"] == 0
+                or launches["dplane_bf16"] == 0
+                or bf16["sweep_fwd_ckpt"] != launches["sweep_fwd_ckpt"]
+                or bf16["sweep_bwd"] != launches["sweep_bwd"]):
+            fail(f"12b {route}: the bf16 kernels did not run: {launches}, "
+                 f"{bf16}")
+        main[route] = launches
+        compare(img.detach(), imgp.detach(), f"[{route}] bf16 image")
+        rel_l2(gh, ghp, f"[{route}] bf16 d_hist vs plain bf16")
+        rel_l2(gl, glp, f"[{route}] bf16 d_lut vs plain bf16")
+        del loss, img, gh, gl
+    del lossp, imgp, ghp, glp
+    for route in ("inkernel", "materialized"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda route=route: fwd_bwd(route), 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mrays[route] = W * W / ms / 1e3
+        print(f"  [{route}] bf16 fwd+bwd {ms:.3f} ms ({mrays[route]:.2f} "
+              f"Mrays/s), plain {plain_ms:.3f} ms, peak {peak:.2f} GiB")
+
+    # K4, K5 and the y-transpose alone, on the in-kernel route's inputs
+    cfg = sv.render_config(hist.shape, origin, stat=mode, width=W, height=W,
+                           precision="bf16")
+    rows_t = torch.as_tensor(rows, device=dev)
+    args = (cfg, hist, rows_t, lut0, torch.tensor(0.05, device=dev),
+            torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev))
+    k4_ms, k4_direct = paths_ms(
+        lambda s: lambda: sv.sweep_fwd_ckpt(*args, staged=s))
+    k4_plain_ms, (ref4, tck_ref) = timed_once(
+        lambda: sv.sweep_fwd_ckpt_reference(*args))
+    img4, tck = sv.sweep_fwd_ckpt(*args)
+    k4_err = compare(img4, ref4, "K4 bf16 image vs plain")
+    compare(tck[..., None], tck_ref[..., None], "K4 bf16 checkpoints")
+    del ref4, tck_ref
+    g = (2.0 / img4.numel()) * (img4 - 0.25)
+    flags = (True, True, False)
+    k5_ms, k5_direct = paths_ms(
+        lambda s: lambda: sv.sweep_bwd(*args, g, tck, *flags, staged=s))
+    k5_plain_ms, (d_r, small_r, *_) = timed_once(
+        lambda: sv.sweep_bwd_reference(*args, g, *flags))
+    got = {s: sv.sweep_bwd(*args, g, tck, *flags, staged=s)
+           for s in (True, False)}
+    for s in (True, False):
+        path = "staged" if s else "direct"
+        rel_l2(got[s][0], d_r, f"K5+transpose bf16 d_dec, {path}")
+        rel_l2(got[s][1], small_r, f"K5 bf16 d_lut, {path}")
+    bitwise(got[True][1], got[False][1], "K5 bf16 d_lut staged vs direct")
+    k5_err = float((got[True][0] - d_r).abs().max())
+    del got, d_r
+
+    # the transpose kernel on a row buffer of the main path's shape
+    P, nx, ny = len(cfg.zs), hist.shape[3], hist.shape[2]
+    dtmp = torch.randn((P, W, nx), device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+    d_planes = torch.empty((n, ny, nx), device=dev)
+    tr_ms = time_ms(lambda: sv.dplane_bf16(cfg, dtmp, d_planes), TIMED_RUNS)
+    tr_plain_ms, d_ref = timed_once(
+        lambda: sv.dplane_bf16_reference(cfg, dtmp, n, ny))
+    tr_err = rel_l2(d_planes, d_ref, "transpose kernel vs plain", 1e-6)
+    del d_ref
+    # the library call on the same function: torch.bmm of the bf16-rounded
+    # dense wy (the plain version's) and dtmp, f32 accumulation
+    y0, y1, w0, w1, inbox = sv._row_taps(cfg, ny, dev)
+    wy = torch.zeros((P, W, ny), device=dev)
+    wy.scatter_add_(2, y0[..., None], torch.where(inbox, w0, 0.0)[..., None])
+    wy.scatter_add_(2, y1[..., None], torch.where(inbox, w1, 0.0)[..., None])
+    wy_t = wy.to(torch.bfloat16).float().transpose(1, 2)
+    dt16 = dtmp.to(torch.bfloat16).float()
+    del wy, y0, y1, w0, w1, inbox
+    lib_ms = time_ms(lambda: torch.bmm(wy_t, dt16), TIMED_RUNS)
+    del wy_t, dt16, dtmp
+    torch.cuda.empty_cache()
+
+    n_live, n_texels = counts["linear"]
+    fwd_ops = n_live * (SAMPLE_OPS + BF16_SAMPLE_OPS + decode_ops(mode, B))
+    vol_bytes = n_texels * B * hist.element_size()
+    img_bytes, tck_bytes = W * W * 16, cfg.n_chunks * W * W * 4
+    dtmp_bytes, d_bytes = 4 * P * W * nx, 4 * n * ny * nx
+    bounds = {
+        "sweep_fwd_ckpt": bound(vol_bytes + img_bytes + tck_bytes, fwd_ops),
+        "sweep_bwd": bound(vol_bytes + tck_bytes + img_bytes + d_bytes,
+                           K5_SAMPLE_FACTOR * fwd_ops),
+        "dplane_bf16": bound(dtmp_bytes + d_bytes, 4 * P * W * nx),
+    }
+    bounds["dplane_bf16"]["library_ms"] = lib_ms
+    records = []
+    for name, src, line, k_ms, d_ms, p_ms, e in (
+        ("sweep_fwd_ckpt", "slice_sweep.cu", "slice_vjp.py:714", k4_ms,
+         k4_direct, k4_plain_ms, k4_err),
+        ("sweep_bwd", "slice_vjp_staged.cu", "slice_vjp.py:787", k5_ms,
+         k5_direct, k5_plain_ms, k5_err),
+        ("dplane_bf16", "dplane_bf16.cu", "slice_vjp.py:509", tr_ms, None,
+         tr_plain_ms, tr_err),
+    ):
+        lib = bounds[name]["library_ms"]
+        print(f"  {name}[mean,inkernel,bf16]: {k_ms:.3f} ms"
+              + (f" (direct {d_ms:.3f} ms)" if d_ms is not None else "")
+              + f", plain {p_ms:.3f} ms, bound "
+              f"{bounds[name]['bound_ms']:.3f} ms "
+              f"({bounds[name]['bound_by']})"
+              + (f", torch.bmm {lib:.3f} ms" if lib is not None else "")
+              + f", err {e:.3e}")
+        records.append({
+            "name": f"{name}[mean,inkernel,bf16]", "route": "cuda",
+            "source": f"vrdd_tpu_torch/csrc/{src}",
+            "replaces": f"vrdd_tpu/pallas/{line}",
+            "launches": main["inkernel"][name],
+            "max_abs_err": e, "ms": k_ms, "direct_ms": d_ms,
+            "plain_ms": p_ms, **bounds[name],
+        })
+    print("  (sweep_bwd's ms holds K5 and its transpose launch, as the "
+          "wrapper runs them)")
+    return records
+
+
+def phase_12c(dev, card, smi, hist, tf, origin, n, B, W):
+    """K4's live map and live_fractions on the decoded mean channel at
+    density 0.05 and 0.2: the kernel's bytes (both paths) against the plain
+    version's, K4 with the map timed against K4 without it."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    print(f"[12c] K4 live map and live_fractions, decoded mean {n}^3 -> "
+          f"{W}^2 on {card} ({smi})")
+    rows, _ = sk.decode_weight_rows("mean", B, family="unit")
+    mean_vol = sk.decode_with_rows(hist, rows, "linear")
+    cfg = sv.render_config(mean_vol.shape, origin, width=W, height=W)
+    lut = torch.as_tensor(tf, device=dev)
+    records = []
+    for density in (0.05, 0.2):
+        args = (cfg, mean_vol, None, lut, torch.tensor(density, device=dev),
+                torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev))
+        k4 = sv.sweep_fwd_ckpt
+        k4.launches = k4.live_launches = 0
+        lf = sv.live_fractions(mean_vol, origin, tf, density, width=W,
+                               height=W, n_planes=n)
+        torch.cuda.synchronize()
+        launches = (k4.launches, k4.live_launches)
+        print(f"  density {density}: live_fractions {lf}; K4 launches "
+              f"(all, with the map) {launches}")
+        if launches != (1, 1):
+            fail(f"12c: live_fractions did not run K4 with its map: "
+                 f"{launches}")
+        got = {s: sv.sweep_fwd_ckpt(*args, staged=s, live_map=True)
+               for s in (True, False)}
+        plain_ms, (_, _, live_r, tied) = timed_once(
+            lambda: sv.sweep_fwd_ckpt_reference(*args, live_map=True))
+        for s in (True, False):
+            path = "staged" if s else "direct"
+            live = got[s][2]
+            differ = (live != live_r) & (tied == 0)
+            print(f"  K4 live map, {path}: {int((live != live_r).sum())} of "
+                  f"{live.numel()} bytes differ from the plain version, "
+                  f"{int(differ.sum())} outside tied tiles "
+                  f"({int(tied.sum())} tied)")
+            if bool(differ.any()):
+                fail(f"12c: K4's live map ({path}) differs from the plain "
+                     f"version outside the cutoff ties")
+        bitwise(got[True][2], got[False][2], "K4 live map staged vs direct")
+        bits = got[True][2].bool()
+        if abs(float(bits.float().mean()) - lf["tile_live_frac"]) > 1e-12:
+            fail("12c: live_fractions disagrees with the kernel's bytes")
+        plain_img, plain_tck = sv.sweep_fwd_ckpt(*args)
+        bitwise(got[True][0], plain_img, "K4 image with the map vs without")
+        bitwise(got[True][1], plain_tck, "K4 checkpoints with the map vs "
+                "without")
+        del got, live_r, tied, plain_img, plain_tck
+        # in turns: without, with, with, without (each on the staged path)
+        t = {False: [], True: []}
+        for with_map in (False, True, True, False):
+            t[with_map].append(time_ms(
+                lambda m=with_map: sv.sweep_fwd_ckpt(*args, live_map=m),
+                TIMED_RUNS))
+        ms, ms_plain_k4 = sum(t[True]) / 2, sum(t[False]) / 2
+        print(f"  K4 with the map {ms:.3f} ms, without {ms_plain_k4:.3f} ms "
+              f"({100 * (ms / ms_plain_k4 - 1):+.2f}%), plain version "
+              f"{plain_ms:.3f} ms")
+        n_live, n_texels = live_samples(mean_vol, cfg.zs, cfg.slopes, tf,
+                                        density, 0.0, 1.0, W, W,
+                                        reverse=True)
+        bd = bound(n_texels * 4 + W * W * 16 + cfg.n_chunks * W * W * 4
+                   + bits.numel(), n_live * SAMPLE_OPS)
+        records.append({
+            "name": f"sweep_fwd_ckpt[live,density {density}]",
+            "route": "cuda", "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
+            "replaces": "vrdd_tpu/pallas/slice_vjp.py:714",
+            "launches": launches[1], "max_abs_err": 0.0, "ms": ms,
+            "no_map_ms": ms_plain_k4, "plain_ms": plain_ms, **bd,
+        })
+    del mean_vol
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_12d(work):
+    """The native loader: a 128^3 x 16 file through
+    native.read_histograms_bins_major, byte for byte the Python reader's,
+    both timed; render-hist must report the native loader."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vrdd_tpu_torch import cli
+    from vrdd_tpu_torch.io import formats, native
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+
+    print("[12d] native loader, 128^3 x 16")
+    if not native.available():
+        fail("12d: the native loader does not build on this machine")
+    n, B = 128, 16
+    path = work / "native128.bin"
+    formats.write_raw_histograms(str(path), random_histogram_volume(
+        (n, n, n), n_bins=B, seed=3).reshape(-1, B))
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        got = native.read_histograms_bins_major(str(path), (n, n, n), B,
+                                                dtype=dtype)
+        t1 = time.perf_counter()
+        ref = formats.read_histograms_bins_major(str(path), (n, n, n), B,
+                                                 dtype=dtype)
+        t2 = time.perf_counter()
+        if not torch.equal(got, ref):
+            fail(f"12d: native {dtype} load differs from the Python reader")
+        print(f"  {dtype}: native {1e3 * (t1 - t0):.1f} ms, python "
+              f"{1e3 * (t2 - t1):.1f} ms, bytes equal (host clock)")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["render-hist", "--hist-file", str(path), "--dims",
+                       str(n), str(n), str(n), "--bins", str(B), "--width",
+                       "256", "--height", "256", "-o",
+                       str(work / "native.ppm")])
+    line = out.getvalue().strip().splitlines()[0]
+    print(f"  render-hist: {line}")
+    if rc != 0 or "(native loader)" not in line:
+        fail("12d: render-hist did not take the native loader")
+
+
+def phase_12e(dev, tf):
+    """The viewer: ViewerServer on port 0 over a RenderPipeline on the card;
+    each /frame's bytes equal the pipeline's uint8 render of the same
+    parameters."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch.core.geometry import (
+        inv_view_from_rotation_translation)
+    from vrdd_tpu_torch.io.synthetic import random_histogram_volume
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+    from vrdd_tpu_torch.models.volumes import RawHistogramVolume
+    from vrdd_tpu_torch.utils.config import (
+        CameraConfig, QueryMethod, RenderConfig, TransferFunctionConfig)
+    from vrdd_tpu_torch.viewer import ViewerServer
+
+    S = 512
+    print(f"[12e] viewer, Isabel's 50 x 50 x 10 x 32 raw blocks -> {S}^2")
+    hist = random_histogram_volume((10, 50, 50), n_bins=32, seed=0)
+    pipe = RenderPipeline(raw=RawHistogramVolume(torch.from_numpy(hist).to(
+        dev)))
+    srv = ViewerServer(pipe, width=S, height=S, port=0)
+    srv.start_background()
+    frames = [dict(density="0.5", query="1"),
+              dict(density="0.5", query="2", tscale="0.2", fmt="rgb"),
+              dict(density="0.3", query="3"),
+              dict(density="0.5", query="1", rx="30", ry="-20", fmt="rgb")]
+    try:
+        secs = []
+        for q in frames:
+            url = srv.address + "frame?" + "&".join(f"{k}={v}"
+                                                   for k, v in q.items())
+            with urllib.request.urlopen(url, timeout=120) as r:
+                body, hdr = r.read(), dict(r.headers)
+            secs.append(float(hdr["X-Render-Seconds"]))
+            cfg = RenderConfig(
+                camera=CameraConfig(width=S, height=S),
+                tf=TransferFunctionConfig(offset=0.0,
+                                          scale=float(q.get("tscale", 1.0))),
+                density=float(q["density"]),
+                query_method=QueryMethod(int(q["query"])))
+            iv = inv_view_from_rotation_translation(
+                float(q.get("rx", 0.0)), float(q.get("ry", 0.0)),
+                (0.0, 0.0, -4.0))
+            ch = 3 if q.get("fmt") == "rgb" else 4
+            with torch.no_grad():
+                ref = pipe.render(iv, cfg, "auto", as_uint8=True,
+                                  channels=ch).cpu().numpy()
+            print(f"  /frame {q}: {len(body)} bytes, renderer "
+                  f"{pipe.resolve_renderer('auto', iv, cfg)}, "
+                  f"X-Render-Seconds {hdr['X-Render-Seconds']}, lag "
+                  f"{hdr['X-Frame-Lag']}")
+            if body != ref.tobytes() or np.asarray(ref).max() == 0:
+                fail(f"12e: /frame {q} differs from RenderPipeline's render "
+                     "(or is black)")
+        # the pipelined protocol: the second request answers with the first
+        # frame, flagged; its repeat flushes to the second
+        pipe_q = "frame?density=0.02&query=1&pipe=1&fmt=rgb"
+        got = []
+        for path in (pipe_q, pipe_q.replace("0.02", "0.05"),
+                     pipe_q.replace("0.02", "0.05")):
+            with urllib.request.urlopen(srv.address + path,
+                                        timeout=120) as r:
+                got.append((r.read(), r.headers["X-Frame-Lag"]))
+        if not (got[1][0] == got[0][0] and got[1][1] == "1"
+                and got[2][1] == "0" and got[2][0] != got[0][0]):
+            fail("12e: the pipelined /frame protocol is broken")
+        print(f"  pipelined: lag flags {[g[1] for g in got]}, median frame "
+              f"{1e3 * sorted(secs)[len(secs) // 2]:.1f} ms (server clock)")
+    finally:
+        srv.shutdown()
+
+
+def phase_12(dev, card, smi, hist, tf, origin, n, B, W, counts, work):
+    """precision='bf16', the live map, the native loader and the viewer
+    (12a-12e); returns the kernel records."""
+    t0 = time.perf_counter()
+    records = phase_12a(dev, card, smi, hist, tf, origin, n, B, W, counts)
+    records += phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts)
+    records += phase_12c(dev, card, smi, hist, tf, origin, n, B, W)
+    phase_12d(work)
+    phase_12e(dev, tf)
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3098,7 +3579,7 @@ def main() -> int:
         if float(img[..., 3].max()) <= 0.0:
             fail(f"{name}: empty image")
 
-    records = []
+    records, counts = [], {}
     for mode, renderer in renderers.items():
         kw = dict(transfer_scale=renderer.transfer_scale, width=W, height=W,
                   stat=mode)
@@ -3117,6 +3598,7 @@ def main() -> int:
         n_live, n_texels = live_samples(
             sk.decode_with_rows(hist, renderer.rows, mode), zs, slopes, tf,
             0.05, 0.0, renderer.transfer_scale, W, W, reverse=True)
+        counts[mode] = (n_live, n_texels)  # phase 12's bounds
         bd = bound(n_texels * B * hist.element_size() + W * W * 16,
                    n_live * (SAMPLE_OPS + decode_ops(mode, B)))
         print(f"  K2 {mode}: staged {ms:.3f} ms ({W * W / ms / 1e3:.2f} "
@@ -3163,11 +3645,15 @@ def main() -> int:
 
     # ---- 6. the training main path at full size
     records += phase_6(dev, card, smi, hist, tf, origin, n, B, W)
+
+    # ---- 12. precision='bf16', K4's live map, the native loader, the viewer
+    work.mkdir(parents=True)
+    records += phase_12(dev, card, smi, hist, tf, origin, n, B, W, counts,
+                        work)
     del hist
     torch.cuda.empty_cache()
 
     # ---- 7. the render path
-    work.mkdir(parents=True)
     records += phase_7(dev, card, smi, tf, work)
 
     # ---- 8. BASELINE config 3 (fit-voxels) and rotated views

@@ -1205,3 +1205,156 @@ def test_distributed_shearwarp_hist_matches_plain(dev, view):
     ps.clear_octant_cache()
     assert float(imgs[1][..., 3].max()) > 0.05, "vacuous: empty render"
     _close(imgs[0], imgs[1].to(dev))
+
+
+# ---- precision='bf16', the y-transpose kernel and K4's live map -------------
+
+@pytest.mark.parametrize("kind", ["none", "linear", "var", "entropy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", SIZES)
+def test_bf16_k3_k4_staged_are_bitwise_direct(dev, kind, dtype, size):
+    """In the bf16 mode the staged K3/K4 images and checkpoints are bitwise
+    the direct ones, differ from the f32 image (the mode is no no-op), and
+    match the plain bf16 version; ``.bf16_launches`` counts."""
+    import dataclasses
+
+    cfg, vol, rows = _case(dev, kind, dtype, size)
+    cfg16 = dataclasses.replace(cfg, precision="bf16")
+    args = (vol, rows, *_scalars(dev, kind))
+    before = (sv.sweep_fwd.bf16_launches, sv.sweep_fwd_ckpt.bf16_launches)
+    k3 = {s: sv.sweep_fwd(cfg16, *args, staged=s) for s in (True, False)}
+    k4 = {s: sv.sweep_fwd_ckpt(cfg16, *args, staged=s) for s in (True, False)}
+    torch.cuda.synchronize()
+    assert (sv.sweep_fwd.bf16_launches, sv.sweep_fwd_ckpt.bf16_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(k3[True], k3[False])
+    assert torch.equal(k4[True][0], k4[False][0])
+    assert torch.equal(k4[True][1], k4[False][1])
+    assert torch.equal(k4[True][0], k3[True])
+    assert not torch.equal(k3[True], sv.sweep_fwd(cfg, *args))
+    _close(k3[True], sv.sweep_fwd_reference(cfg16, *args))
+
+
+@pytest.mark.parametrize("stat", ["mean", "var", "entropy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_k2_matches_plain(dev, stat, dtype):
+    hist = torch.from_numpy(_smooth_hist((16, 8, 24, 24), seed=2)).to(
+        dev, dtype)
+    rows, mode = sk.decode_weight_rows(stat, 8, family="unit")
+    kw = dict(transfer_scale=10.0 if stat == "var" else 1.0, width=100,
+              height=72, stat=mode, precision="bf16")
+    before = sk.pallas_hist_render.bf16_launches
+    got = sk.pallas_hist_render(hist, rows, O, TF, 0.8, **kw)
+    assert sk.pallas_hist_render.bf16_launches == before + 1
+    _close(got, sk.hist_render_reference(hist, rows, O, TF, 0.8, **kw))
+
+
+@pytest.mark.parametrize("kind", ["none", "linear", "var", "entropy"])
+@pytest.mark.parametrize("staged", [True, False])
+def test_bf16_k5_matches_plain(dev, kind, staged):
+    """The bf16 K5 (row buffer) and the y-transpose kernel against the plain
+    bf16 backward (JAX's transpose); staged against direct: LUT cotangents
+    bitwise, plane cotangents within 1e-6 relative L2."""
+    import dataclasses
+
+    cfg, vol, rows = _case(dev, kind, torch.float32, (100, 72))
+    cfg = dataclasses.replace(cfg, precision="bf16")
+    args = (vol, rows, *_scalars(dev, kind))
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
+    g = (2.0 / img.numel()) * (img - 0.25)
+    before = (sv.sweep_bwd.bf16_launches, sv.dplane_bf16.launches)
+    d, small, *_ = sv.sweep_bwd(cfg, *args, g, tck, True, True, False,
+                                staged=staged)
+    assert (sv.sweep_bwd.bf16_launches, sv.dplane_bf16.launches) == (
+        before[0] + 1, before[1] + 1)
+    d_r, small_r, *_ = sv.sweep_bwd_reference(cfg, *args, g, True, True,
+                                              False)
+    assert float(d_r.abs().max()) > 0.0, "vacuous: zero cotangent"
+    assert _rel_l2(d, d_r) <= 1e-3
+    assert _rel_l2(small, small_r) <= 1e-3
+    other = sv.sweep_bwd(cfg, *args, g, tck, True, True, False,
+                         staged=not staged)
+    assert torch.equal(small, other[1])
+    assert _rel_l2(d, other[0]) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["none", "linear"])
+@pytest.mark.parametrize("size", [(100, 72), (20, 6), (300, 260)])
+def test_dplane_bf16_kernel_matches_plain(dev, kind, size):
+    """The y-transpose kernel on a random row buffer against its plain
+    version (the dense bf16(wy)^T bf16(dtmp)): the same products, summed in
+    another order. Stacks walked forward ('none') and reversed."""
+    import dataclasses
+
+    cfg, vol, _ = _case(dev, kind, torch.float32, size)
+    cfg = dataclasses.replace(cfg, precision="bf16")
+    n_layers, ny, nx = vol.shape[0], vol.shape[-2], vol.shape[-1]
+    gen = torch.Generator().manual_seed(4)
+    dtmp = torch.randn((len(cfg.zs), cfg.height, nx), generator=gen).to(dev)
+    d = torch.full((n_layers, ny, nx), float("nan"), device=dev)
+    before = sv.dplane_bf16.launches
+    sv.dplane_bf16(cfg, dtmp, d)
+    assert sv.dplane_bf16.launches == before + 1
+    ref = sv.dplane_bf16_reference(cfg, dtmp, n_layers, ny)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d).all(), "an output element was not written"
+    assert float(ref.abs().max()) > 0.0
+    assert _rel_l2(d, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("density", [0.05, 0.8, 5.0])
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("ck_stride", [4, 8])
+def test_k4_live_map_matches_plain(dev, density, staged, ck_stride):
+    """K4's live map (both fetch paths) against the plain version's bytes,
+    except tiles with a ray within 1e-6 of a cutoff; the image and the
+    checkpoints are unchanged by asking for the map."""
+    import dataclasses
+
+    cfg, vol, _ = _case(dev, "none", torch.float32, (136, 96))
+    cfg = dataclasses.replace(cfg, ck_stride=ck_stride)
+    lut, dens, toff, tscl = _scalars(dev, "none")
+    dens = torch.tensor(density, device=dev)
+    args = (vol, None, lut, dens, toff, tscl)
+    before = sv.sweep_fwd_ckpt.live_launches
+    img, tck, live = sv.sweep_fwd_ckpt(cfg, *args, staged=staged,
+                                       live_map=True)
+    assert sv.sweep_fwd_ckpt.live_launches == before + 1
+    img0, tck0 = sv.sweep_fwd_ckpt(cfg, *args, staged=staged)
+    assert torch.equal(img, img0) and torch.equal(tck, tck0)
+    _, _, live_r, tied = sv.sweep_fwd_ckpt_reference(cfg, *args,
+                                                     live_map=True)
+    torch.cuda.synchronize()
+    assert live.shape == live_r.shape
+    differ = (live != live_r) & (tied == 0)
+    assert not bool(differ.any()), int(differ.sum())
+    if density == 5.0:
+        assert bool((live_r == 0).any()), "vacuous: no tile died"
+
+
+def test_live_fractions_on_the_card(dev):
+    vol = torch.from_numpy(gaussian_blob_volume((16, 24, 24))).to(dev)
+    got = sv.live_fractions(vol, O, TF, 5.0, width=128, height=64,
+                            n_planes=16)
+    ref = sv.live_fractions(vol.cpu(), O, TF, 5.0, width=128, height=64,
+                            n_planes=16)
+    # 4 chunks x 8 x 4 tiles: at most one tile decided differently at a tie
+    assert got["n_xt"] == ref["n_xt"] == 4
+    for key in ("tile_live_frac", "strip_live_frac"):
+        assert abs(got[key] - ref[key]) <= 1.0 / 128, key
+
+
+@pytest.mark.parametrize("lut_name", sorted(ESS_LUTS))
+def test_bf16_k1_ess_is_bitwise_k1(dev, lut_name):
+    """In the bf16 mode the widened ESS margin keeps culling exact: K1 with
+    ESS is bitwise K1 without it."""
+    lut, toff, tscl = ESS_LUTS[lut_name]
+    vol = _sparse_blob(dev)
+    kw = dict(width=100, height=72, n_planes=48, transfer_offset=toff,
+              transfer_scale=tscl, precision="bf16")
+    plain_k1 = sk.pallas_slice_render(vol, O, lut, 0.8, **kw)
+    got = sk.pallas_slice_render(vol, O, lut, 0.8, empty_space_skip=True,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain_k1)
+    assert float(got[..., 3].max()) > 0.05, "vacuous: empty render"

@@ -186,9 +186,14 @@ def test_unported_modes_raise():
                                    (0.0, 0.1, 0.0, 0.1), TF, width=8,
                                    height=8, acc_init=seed,
                                    empty_space_skip=True)
-    with pytest.raises(NotImplementedError):
+    # precision='bf16' is ported (tests/test_torch_bf16.py holds it against
+    # JAX); any other value raises, as JAX knows only 'f32' and 'bf16'
+    img = tk.pallas_hist_render(torch.zeros((4, 2, 4, 4)), np.ones(2), O, TF,
+                                width=8, height=8, precision="bf16")
+    assert img.shape == (8, 8, 4) and bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="precision"):
         tk.pallas_hist_render(torch.zeros((4, 2, 4, 4)), np.ones(2), O, TF,
-                              width=8, height=8, precision="bf16")
+                              width=8, height=8, precision="f16")
 
 
 def test_other_devices_raise_instead_of_falling_back():

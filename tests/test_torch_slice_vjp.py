@@ -270,9 +270,15 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="wrt"):
         tv.pallas_slice_render_diff(vol, O, TF, width=8, height=8,
                                     empty_space_skip=True)
-    with pytest.raises(NotImplementedError):
+    # precision='bf16' is ported (tests/test_torch_bf16.py holds it against
+    # jax.grad); any other value raises
+    img = tv.pallas_slice_render_diff(vol, O, TF, width=8, height=8,
+                                      precision="bf16")
+    (g,) = torch.autograd.grad(img.sum(), [vol])
+    assert g.shape == vol.shape and bool(torch.isfinite(g).all())
+    with pytest.raises(ValueError, match="precision"):
         tv.pallas_slice_render_diff(vol, O, TF, width=8, height=8,
-                                    precision="bf16")
+                                    precision="f16")
     # the seeded sweep is ported: an empty stack passes the seed through,
     # and its cotangent back (tests/test_torch_streaming.py holds the
     # seeded sweep against JAX's)
@@ -284,8 +290,10 @@ def test_unported_modes_raise():
     assert torch.equal(img.detach(), seed.detach())
     (g,) = torch.autograd.grad(img.sum(), [seed])
     assert torch.equal(g, torch.ones_like(g))
-    with pytest.raises(NotImplementedError):
-        tv.live_fractions(vol, O, TF, width=8, height=8)
+    # live_fractions is ported (tests/test_torch_bf16.py): JAX's keys
+    lf = tv.live_fractions(vol.detach(), O, TF, width=8, height=8)
+    assert set(lf) == {"tile_live_frac", "strip_live_frac", "n_xt"}
+    assert lf["n_xt"] == 1 and 0.0 < lf["tile_live_frac"] <= 1.0
     with pytest.raises(ValueError, match="plane_chunk"):
         tv.pallas_slice_render_diff(vol, O, TF, width=8, height=8,
                                     plane_chunk=5)

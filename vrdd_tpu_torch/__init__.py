@@ -10,7 +10,10 @@ Ported so far: the ``render`` path (``models/pipeline.py`` ``RenderPipeline``
 for queries 0-9 over the raw, fractal and flexible-block families, through
 the scan marcher, the plain sweep, the fused kernel with empty-space
 skipping or shear-warp), ``encode``, ``fit-tf``, ``render-hist``,
-``fit-hist`` and ``fit-voxels`` (``cli.py``), with the sweep kernels written
-in CUDA C++ for Hopper (``csrc/``). Importing the package builds nothing; the
-kernels compile at first launch.
+``fit-hist``, ``fit-voxels`` and ``view`` (``cli.py``, ``viewer.py``), the
+distributed renderers (``parallel/``) and the native loader
+(``io/native.py``), with the sweep kernels written in CUDA C++ for Hopper
+(``csrc/``), in f32 and JAX's ``precision='bf16'``: every module of
+``vrdd_tpu`` but its benchmark. Importing the package builds nothing; the
+kernels and the loader compile at first use.
 """

@@ -19,7 +19,8 @@ Subcommands ported so far:
                    with ``wrt=('lut',)``: K3, K4, K5); JAX's checkpoint
                    layout, ``--resume``.
 - ``render-hist``  render straight from a block-histogram file: bins-major
-                   load, the in-kernel decode sweep (``pallas_hist_render``
+                   load (the native C++ reader of ``io/native.py`` where
+                   it builds, else the Python one), the in-kernel decode sweep (``pallas_hist_render``
                    through ``HistRenderer``; rotated views through
                    ``parallel/sweep.py distributed_shearwarp_hist_render``),
                    PPM out.
@@ -32,6 +33,8 @@ Subcommands ported so far:
                    unrotated views through the fused sweep (or, with
                    ``--streamed``, the seeded streamed decode), rotated views
                    through the shear-warp sweep; Adam; ``.npz`` checkpoint.
+- ``view``         the interactive browser viewer (``viewer.py``): page and
+                   frames of ``RenderPipeline`` over HTTP.
 
 ``--device cuda`` (the default) runs the CUDA kernels and raises when no GPU
 is present; ``--device cpu`` runs the plain torch versions. Run as
@@ -40,8 +43,9 @@ is present; ``--device cpu`` runs the plain torch versions. Run as
 vrdd_tpu_torch.cli encode -o h.bin``,
 ``python -m vrdd_tpu_torch.cli render-hist --hist-file F --dims NZ NY NX
 ...``, ``python -m vrdd_tpu_torch.cli fit-hist --iters 50`` or ``python -m
-vrdd_tpu_torch.cli fit-voxels --size 256 --image 512``. ``view`` and
-``bench`` of ``vrdd_tpu.cli`` are later work (ROADMAP.md).
+vrdd_tpu_torch.cli fit-voxels --size 256 --image 512`` or ``python -m
+vrdd_tpu_torch.cli view --port 8412``. ``bench`` of ``vrdd_tpu.cli`` belongs
+to the benchmark work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -624,18 +628,23 @@ def cmd_render_hist(args) -> int:
     non-TPU branch, the materialized decode and the plain shear-warp."""
     from vrdd_tpu_torch.core.image import rgba_to_uint8
     from vrdd_tpu_torch.core.transfer import default_transfer_function
-    from vrdd_tpu_torch.io import formats
+    from vrdd_tpu_torch.io import formats, native
     from vrdd_tpu_torch.kernels.slice_kernel import decode_weight_rows
     from vrdd_tpu_torch.models.hist_renderer import HistRenderer
 
     device = _device(args.device)
     nz, ny, nx = args.dims
     B = args.bins
-    hist = formats.read_histograms_bins_major(
-        args.hist_file, (nz, ny, nx), B, dtype=args.dtype
-    ).to(device)
+    # the native reader transposes and rounds during the read, as JAX's CLI
+    # reads (vrdd_tpu/cli.py:559-577); the Python reader where it cannot
+    # be built
+    use_native = native.available()
+    loader = (native.read_histograms_bins_major if use_native
+              else formats.read_histograms_bins_major)
+    hist = loader(args.hist_file, (nz, ny, nx), B, dtype=args.dtype).to(
+        device)
     print(f"loaded {args.hist_file}: {tuple(hist.shape)} {hist.dtype} "
-          f"on {device}")
+          f"on {device} ({'native' if use_native else 'python'} loader)")
     # decode statistic (reference queries 1/2/3); 'unit' family = centers
     # on [0, 1], the natural range for standalone histogram files
     rows, mode = decode_weight_rows(args.stat, B, family="unit")
@@ -687,6 +696,25 @@ def cmd_render_hist(args) -> int:
                 f"{'CUDA kernel' if on_card else 'plain torch'}")
     formats.write_ppm(args.output, rgba_to_uint8(img).cpu().numpy())
     print(f"wrote {args.output} ({path})")
+    return 0
+
+
+def cmd_view(args) -> int:
+    """Interactive browser viewer, the GLUT main-loop replacement
+    (``vrdd_tpu/cli.py`` ``cmd_view``): serves the page and frames of
+    ``RenderPipeline`` on ``--device`` from a stateless HTTP server; the
+    browser holds the camera and render state and maps the reference's
+    keyboard and mouse interactions (volumeRender.cpp:302-432). See
+    ``vrdd_tpu_torch/viewer.py``."""
+    from vrdd_tpu_torch.viewer import ViewerServer
+
+    pipeline = _build_pipeline(args, _device(args.device))
+    server = ViewerServer(
+        pipeline, width=args.width, height=args.height,
+        renderer=args.renderer, query=args.query, host=args.host,
+        port=args.port,
+    )
+    server.serve_forever()
     return 0
 
 
@@ -839,6 +867,35 @@ def main(argv=None) -> int:
     pv.add_argument("--device", default="cuda",
                     help="'cuda' (the kernels) or 'cpu' (the plain versions)")
     pv.set_defaults(fn=cmd_fit_voxels)
+
+    pw = sub.add_parser(
+        "view",
+        help="interactive browser viewer (the GLUT window replacement)",
+    )
+    pw.add_argument("--volume", default="synthetic",
+                    help="'synthetic' or path to a raw block-histogram blob")
+    pw.add_argument("--blocks", type=int, nargs=3, default=[50, 50, 10],
+                    metavar=("X", "Y", "Z"))
+    pw.add_argument("--bins", type=int, default=32)
+    pw.add_argument("--flex-block", type=int, default=4)
+    pw.add_argument("--seed", type=int, default=0)
+    pw.add_argument("--width", type=int, default=512)
+    pw.add_argument("--height", type=int, default=512)
+    pw.add_argument("--query", type=int, default=1)
+    pw.add_argument("--renderer", default="auto",
+                    choices=("scan", "slice", "pallas", "auto"),
+                    help="auto picks the fastest applicable path per view "
+                    "(the fused kernel or shear-warp on the card, the plain "
+                    "sweep on --device cpu, scan where the sweep cannot "
+                    "take the view)")
+    pw.add_argument("--host", default="127.0.0.1")
+    pw.add_argument("--port", type=int, default=8412)
+    pw.add_argument("--tf-checkpoint", help="load fitted TF LUT")
+    pw.add_argument("--flex-normalize", action="store_true",
+                    help="min-max map flexible-block stats onto the TF domain")
+    pw.add_argument("--device", default="cuda",
+                    help="'cuda' (the kernels) or 'cpu' (the plain versions)")
+    pw.set_defaults(fn=cmd_view)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -10,8 +10,12 @@
 #include "stage_tile.cuh"
 
 // Must match BwdParams in vrdd_tpu_torch/kernels/_build.py field for field.
+// dtmp: null, or in bf16 mode (SweepParams.precision) the zeroed
+// (n_planes, H, nx) row buffer the plane cotangent goes to instead of
+// d_planes (scatter_row below).
 struct BwdParams {
   int ck_stride, n_chunks, g_planes, g_lut, g_params;
+  float* dtmp;
 };
 
 namespace vrdd {
@@ -123,6 +127,23 @@ __device__ __forceinline__ float reverse_sample(
                           st.d_tscl);
   }
   return d_res;
+}
+
+// The bf16 mode's plane cotangent of one live sample of plane k, image row
+// i: the x-transpose dtmp[k, i, :] += bf16(d_res) bf16(wx) of JAX's
+// bf16 backward (vrdd_tpu/pallas/slice_vjp.py:486-492), a sum over the
+// row's pixels in f32 (two atomics; a product of two bf16 values is
+// exact). Its y-transpose d_plane = bf16(wy)^T bf16(dtmp) rounds the
+// whole-row sums, which no per-ray scatter can do: dplane_bf16.cu.
+__device__ __forceinline__ void scatter_row(const SweepParams& p,
+                                            float* dtmp, int k, int i,
+                                            const Taps& t, float d_res) {
+  const float dr = bf16r(d_res);
+  float* row = dtmp + ((size_t)k * p.height + i) * p.nx;
+  const float d0 = __fmul_rn(dr, bf16r(t.wx0));
+  const float d1 = __fmul_rn(dr, bf16r(t.wx1));
+  if (d0 != 0.0f) atomicAdd(row + t.x0, d0);
+  if (d1 != 0.0f) atomicAdd(row + t.x1, d1);
 }
 
 // Per-block partials of the LUT and parameter cotangents: each thread's

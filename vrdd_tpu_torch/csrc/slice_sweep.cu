@@ -94,6 +94,19 @@
 // the TPU. Seed and ESS together are refused, as JAX asserts
 // (slice_vjp.py:596).
 //
+// Live map (K4 only, when the wrapper passes a buffer; the live map of
+// _make_kernel's emit_ckpt, slice_kernel.py:853-860, that JAX's
+// live_fractions reduces). One byte per (checkpoint chunk, tile of the
+// launch's block, which the wrapper fixes to ESS_TILE): 1 when some ray of
+// the tile is not done<CKPT> at the chunk's first plane, the test the plane
+// loop itself makes. Every such ray stores the same 1 (a benign race); the
+// wrapper zeroes the buffer. A null buffer writes nothing: one uniform test
+// per checkpoint row.
+//
+// precision = 1 (SweepParams) is JAX's precision='bf16': the resample
+// rounds as the TPU kernel's bf16 matmuls do (sweep_common.cuh bilerp), on
+// both fetch paths alike, so the staged path stays bitwise the direct one.
+//
 // No atomics and one thread per ray: results are bitwise reproducible.
 
 #include "stage_tile.cuh"
@@ -144,13 +157,25 @@ __device__ __forceinline__ bool done(const SweepParams& p, const RayState& st,
   return st.a > p.threshold && (!CKPT || !(st.tr >= thr1));
 }
 
-// Rows of the checkpoint chunks at and after plane k: the frozen T.
+// Marks this block's tile live in checkpoint chunk c (a null map: none).
+__device__ __forceinline__ void mark_live(unsigned char* live_map, int c) {
+  if (live_map != nullptr)
+    live_map[((size_t)c * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] =
+        1;
+}
+
+// Rows of the checkpoint chunks at and after plane k: the frozen T; the
+// tile is live in them when the ray is not done.
 __device__ __forceinline__ void fill_rows(const SweepParams& p, int k,
                                           int ck_stride, float tr, float* tck,
-                                          size_t hw, size_t pix) {
+                                          size_t hw, size_t pix,
+                                          unsigned char* live_map,
+                                          bool live) {
   const int n_chunks = (p.n_planes + ck_stride - 1) / ck_stride;
-  for (int c = (k + ck_stride - 1) / ck_stride; c < n_chunks; ++c)
+  for (int c = (k + ck_stride - 1) / ck_stride; c < n_chunks; ++c) {
     tck[(size_t)c * hw + pix] = tr;
+    if (live) mark_live(live_map, c);
+  }
 }
 
 __device__ __forceinline__ void write_out(const SweepParams& p,
@@ -172,7 +197,8 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
                    const float* __restrict__ rows, float* __restrict__ out,
                    int ck_stride, float* __restrict__ tck,
                    const unsigned char* __restrict__ ess, int ess_chunk,
-                   const float* __restrict__ seed) {
+                   const float* __restrict__ seed,
+                   unsigned char* __restrict__ live_map) {
   extern __shared__ float smem[];
   float* s_lut = smem;                  // (n_lut, 4)
   float* s_rows = smem + 4 * p.n_lut;   // (n_rows, B)
@@ -214,21 +240,27 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
         const int k_end = min(ess_next, p.n_planes);
         if (CKPT)
           for (int kk = k; kk < k_end; ++kk)
-            if (kk % ck_stride == 0)
+            if (kk % ck_stride == 0) {
               tck[(size_t)(kk / ck_stride) * hw + pix] = st.tr;
+              mark_live(live_map, kk / ck_stride);
+            }
         k = k_end - 1;
         continue;
       }
     }
-    if (CKPT && k % ck_stride == 0)
+    if (CKPT && k % ck_stride == 0) {
       tck[(size_t)(k / ck_stride) * hw + pix] = st.tr;
+      mark_live(live_map, k / ck_stride);
+    }
     Taps tp;
     if (!plane_taps(p, __ldg(zs + k), ray, tp)) continue;  // alpha exactly 0
     const int layer = p.reverse ? p.n_layers - 1 - k : k;
     composite<CKPT>(p, s_lut, ray, resample<MODE, T>(p, vol, layer, tp, s_rows),
                     thr1, st);
   }
-  if (CKPT) fill_rows(p, k, ck_stride, st.tr, tck, hw, pix);
+  if (CKPT)
+    fill_rows(p, k, ck_stride, st.tr, tck, hw, pix, live_map,
+              !done<CKPT>(p, st, thr1));
   write_out(p, st, out, pix);
 }
 
@@ -254,7 +286,9 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
                    const float* __restrict__ rows, float* __restrict__ out,
                    int ck_stride, float* __restrict__ tck,
                    const unsigned char* __restrict__ ess, int ess_chunk,
-                   const float* __restrict__ seed, int tw_b, int th_b) {
+                   const float* __restrict__ seed,
+                   unsigned char* __restrict__ live_map, int tw_b,
+                   int th_b) {
   constexpr int NS = fwd_slots<MODE>();
   constexpr bool RAW = MODE == kNone;  // sampled straight from the ring
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -270,6 +304,7 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   int* rowoff = reinterpret_cast<int*>(smem_raw + L.off_rowoff);
   const int row_slot = th_b * B;
   const bool uniform = rows_uniform(p, (int)sizeof(T));
+  const bool bf16 = p.precision != 0;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   for (int t = tid; t < 4 * p.n_lut; t += nthreads) s_lut[t] = lut[t];
@@ -343,10 +378,12 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   if (NS == 3) issue(f1);
   while (k < p.n_planes) {
     // the rows of the planes up to k: T is what it was after the last sample
-    if (CKPT && valid)
-      for (; next_row * ck_stride <= k; ++next_row)
-        tck[(size_t)next_row * hw + pix] = st.tr;
     const bool live = valid && !done<CKPT>(p, st, thr1);
+    if (CKPT && valid)
+      for (; next_row * ck_stride <= k; ++next_row) {
+        tck[(size_t)next_row * hw + pix] = st.tr;
+        if (live) mark_live(live_map, next_row);
+      }
     if (f.kind == kStaged) cp_async_wait<NS - 2>();  // plane k's have landed
     // also: every thread is past the sampling of the plane before k, whose
     // ring slot (and decoded tile) the next copies and decode reuse
@@ -370,9 +407,9 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
         res = resample<MODE, T>(p, vol, f.layer, tp, s_rows);
       else if (RAW)
         res = resample_raw(reinterpret_cast<const T*>(smem_raw + cur * L.ring),
-                           rowoff + cur * row_slot, f, tp);
+                           rowoff + cur * row_slot, f, tp, bf16);
       else
-        res = resample_tile(dec, f, tp);
+        res = resample_tile(dec, f, tp, bf16);
       composite<CKPT>(p, s_lut, ray, res, thr1, st);
     }
     if (NS == 3) {
@@ -387,7 +424,9 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   }
   cp_async_wait<0>();
   if (!valid) return;
-  if (CKPT) fill_rows(p, next_row * ck_stride, ck_stride, st.tr, tck, hw, pix);
+  if (CKPT)
+    fill_rows(p, next_row * ck_stride, ck_stride, st.tr, tck, hw, pix,
+              live_map, !done<CKPT>(p, st, thr1));
   write_out(p, st, out, pix);
 }
 
@@ -395,9 +434,9 @@ template <int MODE, typename T, bool CKPT>
 cudaError_t launch_staged(const SweepParams& p, const T* v, const float* zs,
                           const float* lut, const float* rows, float* out,
                           int ck_stride, float* tck, const unsigned char* ess,
-                          int ess_chunk, const float* seed, dim3 grid,
-                          dim3 block, int tw_b, int th_b,
-                          cudaStream_t stream) {
+                          int ess_chunk, const float* seed,
+                          unsigned char* live_map, dim3 grid, dim3 block,
+                          int tw_b, int th_b, cudaStream_t stream) {
   const int B = MODE == kNone ? 1 : p.n_bins;
   const size_t smem =
       stage_layout(tw_b, th_b, B, (int)sizeof(T), p.n_lut,
@@ -409,8 +448,8 @@ cudaError_t launch_staged(const SweepParams& p, const T* v, const float* zs,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   slice_sweep_staged<MODE, T, CKPT><<<grid, block, smem, stream>>>(
-      p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, seed, tw_b,
-      th_b);
+      p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, seed,
+      live_map, tw_b, th_b);
   return cudaGetLastError();
 }
 
@@ -418,8 +457,8 @@ template <int MODE, typename T>
 cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
                    const float* lut, const float* rows, float* out,
                    int ck_stride, float* tck, const unsigned char* ess,
-                   int ess_chunk, const float* seed, dim3 block, int tw_b,
-                   int th_b, cudaStream_t stream) {
+                   int ess_chunk, const float* seed, unsigned char* live_map,
+                   dim3 block, int tw_b, int th_b, cudaStream_t stream) {
   const dim3 grid((p.width + block.x - 1) / block.x,
                   (p.height + block.y - 1) / block.y);
   const int row_floats = MODE == kNone ? 0 : p.n_rows * p.n_bins;
@@ -430,19 +469,22 @@ cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
     if (ck_stride > 0)
       return launch_staged<MODE, T, true>(p, v, zs, lut, rows, out,
                                           ck_stride, tck, ess, ess_chunk,
-                                          seed, grid, block, tw_b, th_b,
-                                          stream);
+                                          seed, live_map, grid, block, tw_b,
+                                          th_b, stream);
     return launch_staged<MODE, T, false>(p, v, zs, lut, rows, out, 0,
-                                         nullptr, ess, ess_chunk, seed, grid,
-                                         block, tw_b, th_b, stream);
+                                         nullptr, ess, ess_chunk, seed,
+                                         nullptr, grid, block, tw_b, th_b,
+                                         stream);
   }
   const size_t smem = sizeof(float) * (4 * (size_t)p.n_lut + row_floats);
   if (ck_stride > 0)
     slice_sweep_kernel<MODE, T, true><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, seed);
+        p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, seed,
+        live_map);
   else
     slice_sweep_kernel<MODE, T, false><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, 0, nullptr, ess, ess_chunk, seed);
+        p, v, zs, lut, rows, out, 0, nullptr, ess, ess_chunk, seed,
+        nullptr);
   return cudaGetLastError();
 }
 
@@ -453,20 +495,23 @@ cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
 // transmittance checkpoints to tck (K4), 0 writes none (K1-K3). ess: the
 // (ceil(n_planes / ess_chunk), ceil(H / tile_h), ceil(W / tile_w)) uint8
 // ESS bitmap, or null for no culling. seed: the (H, W, 4) f32 image the
-// sweep resumes from, or null for none; not with ess. tile_w x tile_h is the
-// block shape (at most 256 threads). stage_w x stage_h > 0: the staged path
-// with footprints of at most that many voxels (the host's bound); 0: the
-// direct path. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// sweep resumes from, or null for none; not with ess. live_map: with
+// ck_stride > 0, the zeroed (ceil(n_planes / ck_stride), ceil(H / tile_h),
+// ceil(W / tile_w)) uint8 live map K4 fills, or null for none. tile_w x
+// tile_h is the block shape (at most 256 threads). stage_w x stage_h > 0:
+// the staged path with footprints of at most that many voxels (the host's
+// bound); 0: the direct path. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" __attribute__((visibility("default"))) int vrdd_slice_sweep(
     const SweepParams* p, int mode, int bf16, const void* vol,
     const float* zs, const float* lut, const float* rows, float* out,
     int ck_stride, float* tck, const unsigned char* ess, int ess_chunk,
-    const float* seed, int tile_w, int tile_h, int stage_w, int stage_h,
-    void* stream) {
+    const float* seed, unsigned char* live_map, int tile_w, int tile_h,
+    int stage_w, int stage_h, void* stream) {
   if (p->height <= 0 || p->width <= 0) return (int)cudaSuccess;
   if (ck_stride < 0 || (ck_stride > 0 && tck == nullptr) ||
-      (seed != nullptr && ess != nullptr))
+      (seed != nullptr && ess != nullptr) ||
+      (live_map != nullptr && ck_stride == 0))
     return (int)cudaErrorInvalidValue;
   if (tile_w <= 0 || tile_h <= 0 || tile_w * tile_h > 256 ||
       (ess != nullptr && ess_chunk <= 0) || stage_w < 0 || stage_h < 0)
@@ -476,7 +521,7 @@ extern "C" __attribute__((visibility("default"))) int vrdd_slice_sweep(
   using bf = __nv_bfloat16;
 #define VRDD_LAUNCH(M, TYPE)                                                 \
   launch<M, TYPE>(*p, vol, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, \
-                  seed, block, stage_w, stage_h, s)
+                  seed, live_map, block, stage_w, stage_h, s)
   switch (mode * 2 + (bf16 ? 1 : 0)) {
     case 0: return (int)VRDD_LAUNCH(kNone, float);
     case 1: return (int)VRDD_LAUNCH(kNone, bf);

@@ -58,6 +58,12 @@
 // `wrt` pruning: GVOL compiles the d_planes scatter in or out, GSMALL the
 // LUT and parameter accumulation; pruned outputs stay zero.
 //
+// bf16 mode (SweepParams.precision, JAX's precision='bf16'): the replay
+// resamples as K4 did (sweep_common.cuh bilerp), and the plane cotangent
+// goes to the row buffer bp.dtmp (bwd_common.cuh scatter_row) on both
+// paths; the wrapper then launches dplane_bf16.cu for d_planes. The LUT,
+// parameter and seed cotangents see only the bf16 res.
+//
 // Seeded sweeps (S_img of slice_vjp.py:787-826): once the walk reaches plane
 // 0 the suffix sum S is P_total = sum_k P_k, the total the seed cotangent
 // needs (d seed_a = g_a - S / T0, formed in torch). With a non-null s_out
@@ -146,7 +152,11 @@ slice_bwd_kernel(const SweepParams p, const BwdParams bp,
         const float d_res = reverse_sample(
             p, s_lut, gv, tk[ii], resk[ii], cak[ii], ray.ascale, g_lut, g_par,
             GVOL || g_par, st, run, s_acc + tid);
-        if (GVOL && d_res != 0.0f) {
+        if (GVOL && d_res != 0.0f && bp.dtmp != nullptr) {
+          Taps tp;
+          plane_taps(p, __ldg(zs + k), ray, tp);  // covered: replayed above
+          scatter_row(p, bp.dtmp, k, i, tp, d_res);
+        } else if (GVOL && d_res != 0.0f) {
           Taps tp;
           plane_taps(p, __ldg(zs + k), ray, tp);  // covered: replayed above
           const int layer = p.reverse ? p.n_layers - 1 - k : k;

@@ -203,7 +203,7 @@ slice_bwd_staged(const SweepParams p, const BwdParams bp,
       if (need && tr >= thr1 && plane_taps(p, __ldg(zs + k), ray, tp)) {
         float res;
         if (f.kind == kStaged) {
-          res = resample_tile(dec, f, tp);
+          res = resample_tile(dec, f, tp, p.precision != 0);
           if (MOMT) {
             touched[tile_index(f, tp.y0, tp.x0)] = 1;
             touched[tile_index(f, tp.y0, tp.x1)] = 1;
@@ -250,7 +250,12 @@ slice_bwd_staged(const SweepParams p, const BwdParams bp,
             p, s_lut, gv, c_t[ii * kBwdThreads], c_res[ii * kBwdThreads],
             c_ca[ii * kBwdThreads], ray.ascale, g_lut, g_par, GVOL || g_par,
             st, run, col);
-        if (GVOL && d_res != 0.0f) {
+        if (GVOL && d_res != 0.0f && bp.dtmp != nullptr) {
+          // bf16 mode: into the row buffer, the d tile stays empty
+          Taps tp;
+          plane_taps(p, __ldg(zs + k), ray, tp);  // covered: replayed above
+          scatter_row(p, bp.dtmp, k, i, tp, d_res);
+        } else if (GVOL && d_res != 0.0f) {
           Taps tp;
           plane_taps(p, __ldg(zs + k), ray, tp);  // covered: replayed above
           const float d0 = __fmul_rn(d_res, tp.wy0);

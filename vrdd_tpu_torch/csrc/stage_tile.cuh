@@ -260,14 +260,15 @@ __device__ __forceinline__ bool rows_uniform(const SweepParams& p, int es) {
 
 // The resample of a scalar plane (B = 1) straight from its raw ring slot
 // `s`, whose row y - y_lo starts rowoff[y - y_lo] elements in: the values
-// the direct path loads, widened the same way.
+// the direct path loads, widened the same way; `bf16` as in bilerp.
 template <typename T>
 __device__ __forceinline__ float resample_raw(const T* s, const int* rowoff,
-                                              const Foot& f, const Taps& t) {
+                                              const Foot& f, const Taps& t,
+                                              bool bf16) {
   const T* r0 = s + rowoff[t.y0 - f.y_lo] - f.x_lo;
   const T* r1 = s + rowoff[t.y1 - f.y_lo] - f.x_lo;
   return bilerp(t, widen(r0[t.x0]), widen(r0[t.x1]), widen(r1[t.x0]),
-                widen(r1[t.x1]));
+                widen(r1[t.x1]), bf16);
 }
 
 // Tile index of tap (y, x) of footprint f.
@@ -276,13 +277,14 @@ __device__ __forceinline__ int tile_index(const Foot& f, int y, int x) {
 }
 
 // The resample from the decoded tile: the same four values and the same
-// bilerp as the direct path's resample.
+// bilerp as the direct path's resample; `bf16` as in bilerp.
 __device__ __forceinline__ float resample_tile(const float* dec,
-                                               const Foot& f, const Taps& t) {
+                                               const Foot& f, const Taps& t,
+                                               bool bf16) {
   return bilerp(t, dec[tile_index(f, t.y0, t.x0)],
                 dec[tile_index(f, t.y0, t.x1)],
                 dec[tile_index(f, t.y1, t.x0)],
-                dec[tile_index(f, t.y1, t.x1)]);
+                dec[tile_index(f, t.y1, t.x1)], bf16);
 }
 
 }  // namespace vrdd

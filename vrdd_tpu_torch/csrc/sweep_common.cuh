@@ -30,6 +30,10 @@ struct SweepParams {
   int height, width, ny, nx;
   int n_planes, n_layers, n_lut, n_bins, n_rows;
   int dz_sign, reverse, length_correction, filter_linear;
+  // 0: f32 resample; 1: JAX's precision='bf16' (mm_dtype bf16,
+  // vrdd_tpu/pallas/slice_kernel.py:1324): bilerp rounds its operands and
+  // the y-interpolated pair to bf16. Uniform across a launch.
+  int precision;
 };
 
 namespace vrdd {
@@ -192,10 +196,28 @@ __device__ __forceinline__ float tap(const SweepParams& p,
   return decode<MODE>(h, B, rows);
 }
 
+// v rounded to the nearest bf16 (ties to even), back in f32.
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // The bilinear combination of four tap values, y first, then x (the order
-// of the plain version's two matmuls).
+// of the plain version's two matmuls). With `bf16` (SweepParams.precision)
+// it is JAX's bf16 resample, tmp = bf16(wy) @ bf16(plane) then
+// res = bf16(tmp) @ bf16(wx)^T (slice_kernel.py:969-973, :1011-1015): the
+// tap values, the four weights and the y-interpolated pair c0, c1 are
+// rounded to bf16. A product of two bf16 values is exact in f32, so each
+// of the three sums rounds once, as the matmul's f32 accumulation does.
 __device__ __forceinline__ float bilerp(const Taps& t, float v00, float v01,
-                                        float v10, float v11) {
+                                        float v10, float v11, bool bf16) {
+  if (bf16) {
+    const float wy0 = bf16r(t.wy0), wy1 = bf16r(t.wy1);
+    const float c0 =
+        bf16r(__fmaf_rn(wy1, bf16r(v10), __fmul_rn(wy0, bf16r(v00))));
+    const float c1 =
+        bf16r(__fmaf_rn(wy1, bf16r(v11), __fmul_rn(wy0, bf16r(v01))));
+    return __fmaf_rn(c1, bf16r(t.wx1), __fmul_rn(c0, bf16r(t.wx0)));
+  }
   const float c0 = __fmaf_rn(t.wy1, v10, __fmul_rn(t.wy0, v00));
   const float c1 = __fmaf_rn(t.wy1, v11, __fmul_rn(t.wy0, v01));
   return __fmaf_rn(c1, t.wx1, __fmul_rn(c0, t.wx0));
@@ -222,7 +244,7 @@ __device__ __forceinline__ float resample(const SweepParams& p,
       tap<MODE, T, MOM>(p, base, r1 + t.x0, plane_elems, B, rows, layer, mom);
   const float v11 =
       tap<MODE, T, MOM>(p, base, r1 + t.x1, plane_elems, B, rows, layer, mom);
-  return bilerp(t, v00, v01, v10, v11);
+  return bilerp(t, v00, v01, v10, v11, p.precision != 0);
 }
 
 // Clamped linear LUT lookup in the tent basis: two nonzero taps l0, l1

@@ -16,8 +16,8 @@ Format quirks preserved:
 - simple-histogram spans are straight-ordered (lowX..highZ) and 0-indexed.
 - template/codebook frequencies are doubles on disk, floats in memory.
 
-The C++ loader (``vrdd_tpu/io/native.py``) is later work (ROADMAP.md queue
-1 item 6).
+The C++ loader (``io/native.py``, over ``csrc/vrdd_io.cpp``) reads the
+same formats with the same validation; these readers are its specification.
 
 bf16 storage is made with ``torch.Tensor.to(torch.bfloat16)``, which rounds
 to nearest-even exactly like the reference's ``ml_dtypes`` cast, so both

@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "slice_sweep.cu", CSRC / "slice_vjp.cu",
-           CSRC / "slice_vjp_staged.cu", CSRC / "ess_bitmap.cu")
+           CSRC / "slice_vjp_staged.cu", CSRC / "ess_bitmap.cu",
+           CSRC / "dplane_bf16.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,7 +39,7 @@ _FLOAT_FIELDS = (
 _INT_FIELDS = (
     "height", "width", "ny", "nx", "n_planes", "n_layers", "n_lut",
     "n_bins", "n_rows", "dz_sign", "reverse", "length_correction",
-    "filter_linear",
+    "filter_linear", "precision",
 )
 
 
@@ -52,12 +53,13 @@ class SweepParams(ctypes.Structure):
 
 class BwdParams(ctypes.Structure):
     """Mirror of ``struct BwdParams`` in ``csrc/bwd_common.cuh``: the
-    checkpoint stride (4 or 8), the number of checkpoint rows, and which
-    cotangents the reverse sweep computes."""
+    checkpoint stride (4 or 8), the number of checkpoint rows, which
+    cotangents the reverse sweep computes, and the bf16 mode's row buffer
+    (null in f32)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "ck_stride", "n_chunks", "g_planes", "g_lut", "g_params",
-    )]
+    )] + [("dtmp", ctypes.c_void_p)]
 
 
 class EssParams(ctypes.Structure):
@@ -143,10 +145,10 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fwd = lib.vrdd_slice_sweep
     # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, ess,
-    # ess_chunk, seed, tile_w, tile_h, stage_w, stage_h, stream
+    # ess_chunk, seed, live_map, tile_w, tile_h, stage_w, stage_h, stream
     fwd.argtypes = [ctypes.POINTER(SweepParams), i32, i32, ptr, ptr, ptr,
-                    ptr, ptr, i32, ptr, ptr, i32, ptr, i32, i32, i32, i32,
-                    ptr]
+                    ptr, ptr, i32, ptr, ptr, i32, ptr, ptr, i32, i32, i32,
+                    i32, ptr]
     fwd.restype = i32
     bwd = lib.vrdd_slice_bwd
     # params, bwd params, mode, bf16, vol, zs, lut, rows, g, tck,
@@ -159,4 +161,8 @@ def library() -> ctypes.CDLL:
     # params, pmin, pmax, zs, lut, out, stream
     ess.argtypes = [ctypes.POINTER(EssParams), ptr, ptr, ptr, ptr, ptr, ptr]
     ess.restype = i32
+    dpl = lib.vrdd_dplane_bf16
+    # params, zs, dtmp, d_planes, stream
+    dpl.argtypes = [ctypes.POINTER(SweepParams), ptr, ptr, ptr, ptr]
+    dpl.restype = i32
     return lib

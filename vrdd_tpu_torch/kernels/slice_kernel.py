@@ -22,7 +22,7 @@ attribute, ``sweep_preblended_planes.launches`` and
 ``pallas_hist_render.launches``; ``sweep_preblended_planes.ess_launches``
 counts those of them that culled by an ESS bitmap, ``.seed_launches`` those
 that resumed from a seed, ``.staged_launches`` those that took the staged
-fetch path (below).
+fetch path (below), ``.bf16_launches`` those in the bf16 mode (below).
 
 **Empty-space skipping** (``empty_space_skip``, ``ess_stats``) is K1's
 exact TF-interval culling: :func:`ess_bitmap` marks each (tile, chunk) —
@@ -55,9 +55,18 @@ counts its staged launches in ``.staged_launches``. The internal ``staged``
 argument of ``_launch`` and of the K3-K5 wrappers, and :func:`_fetch_path`
 around a public call, force either path (tests and ``chip_smoke.py``).
 
-Not ported yet (it raises ``NotImplementedError``): ``precision='bf16'``
-(ROADMAP.md queue 2 item 2). The kernels take any image size, so the TPU's
-padding, banding and VMEM budgets have no counterpart here.
+**``precision='bf16'``** is JAX's bf16 resample (``mm_dtype``,
+``slice_kernel.py:1324, :1581``): the kernels round the tap values (the
+decoded values in the decode modes), the tent weights and the
+y-interpolated pair to bf16 and sum in f32, as the TPU kernel's two bf16
+matmuls do (``csrc/sweep_common.cuh`` ``bilerp``); the plain version rounds
+the operands of its two matmuls (``march/slice.py`` ``_Bf16Resample``). A
+runtime field of the kernels' parameters, on both fetch paths. With ESS the
+bitmap's LUT-coordinate margin widens by the bf16 rounding of the plane
+values (:func:`_ess_q_margin`), so culling stays exact. Any other value
+than 'f32' and 'bf16' raises ``ValueError``. The kernels take any image
+size, so the TPU's padding, banding and VMEM budgets have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -98,6 +107,11 @@ _ESS_YB = _ESS_XB = 8
 _ESS_Q_MARGIN = 1e-3
 #: LUT knots the bitmap tests at once (one broadcast per group)
 _ESS_KNOTS = 16
+#: in the bf16 mode a resampled value may leave the [min, max] of its taps
+#: by about 2^-7 of their magnitude (the taps, the weights and the
+#: y-interpolated pair each round to bf16, 2^-9 relative); the ESS margin
+#: takes twice that
+_BF16_SPREAD = 2.0 ** -6
 
 
 #: dynamic shared memory (bytes) the staged path may take per block: two
@@ -497,12 +511,18 @@ def _device_f32(x, dev: torch.device) -> torch.Tensor:
     return host.pin_memory().to(dev, non_blocking=True)
 
 
-def _check_unported(precision):
-    if precision != "f32":
-        raise NotImplementedError(
-            f"precision={precision!r}: only 'f32' is ported (ROADMAP.md queue "
-            "2 item 2)"
+#: the kernels' SweepParams.precision of each ``precision`` JAX accepts
+_PRECISIONS = {"f32": 0, "bf16": 1}
+
+
+def _precision_flag(precision) -> int:
+    """SweepParams.precision of ``precision``: 0 for 'f32', 1 for 'bf16';
+    anything else raises."""
+    if precision not in _PRECISIONS:
+        raise ValueError(
+            f"precision={precision!r}: use one of {sorted(_PRECISIONS)}"
         )
+    return _PRECISIONS[precision]
 
 
 def _check_seed(acc_init, empty_space_skip):
@@ -515,7 +535,7 @@ def _check_seed(acc_init, empty_space_skip):
 
 def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             params: dict, ck_stride: int = 0, ess=None, ess_chunk: int = 0,
-            seed=None, staged=None, zs_host=None):
+            seed=None, staged=None, zs_host=None, live_map=False):
     """Validate, allocate the (H, W, 4) output and launch the CUDA kernel on
     the current stream of the volume's device, in blocks of
     :data:`ESS_TILE` pixels. ``ck_stride > 0`` also writes the transmittance
@@ -525,8 +545,11 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     ``(H, W, 4)`` image the sweep resumes from (None: unseeded); host data
     goes up through :func:`_device_f32`. ``staged``: the fetch path (None:
     by geometry, :func:`_stage_dims`); ``zs_host``: the depths on the host
-    for the footprint bound, when ``zs`` is already on the card. Returns
-    ``(result, staged)``, the second saying which path the launch took."""
+    for the footprint bound, when ``zs`` is already on the card.
+    ``live_map`` (K4 only): also fill K4's live map, a zeroed uint8
+    ``(n_chunks, n_tile_rows, n_tile_cols)`` tensor over :data:`ESS_TILE`
+    tiles, and return ``(out, tck, live)``. Returns ``(result, staged)``,
+    the second saying which path the launch took."""
     from vrdd_tpu_torch.kernels import _build
 
     if vol.dtype not in (torch.float32, torch.bfloat16):
@@ -558,10 +581,15 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     if seed_t is not None and tuple(seed_t.shape) != (H, W, 4):
         raise ValueError(f"acc_init {tuple(seed_t.shape)}: want ({H}, {W}, 4)")
     out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
-    tck = None
+    tck = live = None
     if ck_stride:
         n_chunks = -(-params["n_planes"] // ck_stride)
         tck = torch.empty((n_chunks, H, W), dtype=torch.float32, device=dev)
+    if live_map:
+        if not ck_stride:
+            raise ValueError("the live map is K4's: it needs ck_stride > 0")
+        live = torch.zeros(_ess_shape(params["n_planes"], ck_stride, H, W),
+                           dtype=torch.uint8, device=dev)
     n_lut = lut_t.shape[0]
     n_bins = params.get("n_bins", 1) if mode != "none" else 1
     bound = stage_bound(params, zs_host, (ESS_TILE[1], ESS_TILE[0]))
@@ -580,18 +608,22 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             ck_stride, None if tck is None else tck.data_ptr(),
             None if ess is None else ess.data_ptr(), int(ess_chunk),
             None if seed_t is None else seed_t.data_ptr(),
+            None if live is None else live.data_ptr(),
             ESS_TILE[1], ESS_TILE[0], *stage, stream,
         )
     if rc != 0:
         raise RuntimeError(f"vrdd_slice_sweep launch failed: CUDA error {rc}")
-    return ((out, tck) if ck_stride else out), stage[0] > 0
+    result = out
+    if ck_stride:
+        result = (out, tck, live) if live_map else (out, tck)
+    return result, stage[0] > 0
 
 
 def _sweep_params(origin, slopes, density, brightness, transfer_offset,
                   transfer_scale, spacing, march, *, width, height, ny, nx,
                   n_planes, n_layers, dz_sign, reverse, length_correction,
                   tex_offset, axis_scale, filter_linear, n_bins=1,
-                  n_rows=1) -> dict:
+                  n_rows=1, precision=0) -> dict:
     ox, oy, oz = _host_floats(origin, 3)
     mx0, dmx, my0, dmy = _host_floats(slopes, 4)
     return dict(
@@ -608,7 +640,7 @@ def _sweep_params(origin, slopes, density, brightness, transfer_offset,
         n_layers=int(n_layers), n_bins=int(n_bins), n_rows=int(n_rows),
         dz_sign=int(dz_sign), reverse=int(bool(reverse)),
         length_correction=int(bool(length_correction)),
-        filter_linear=int(bool(filter_linear)),
+        filter_linear=int(bool(filter_linear)), precision=int(precision),
     )
 
 
@@ -672,7 +704,8 @@ def _ess_shape(n_planes: int, plane_chunk: int, height: int, width: int):
 def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
                width: int, height: int, ny: int, nx: int, plane_chunk: int,
                march: MarchConfig = MarchConfig(), tex_offset: float = 0.5,
-               axis_scale=(1.0, 1.0)) -> torch.Tensor:
+               axis_scale=(1.0, 1.0), q_margin: float = _ESS_Q_MARGIN
+               ) -> torch.Tensor:
     """The ESS bitmap: uint8 ``(n_chunks, ceil(H / 8), ceil(W / 32))``, 1
     where the tile of :data:`ESS_TILE` pixels can contribute during the
     chunk of ``plane_chunk`` planes, 0 where it provably cannot. On the
@@ -680,14 +713,15 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
     :func:`ess_plane_stats`): on the card one launch of the bitmap kernel
     (``csrc/ess_bitmap.cu``), which computes the bytes of
     :func:`ess_bitmap_reference`; on the CPU that plain version. Counts its
-    launches in ``ess_bitmap.launches``."""
+    launches in ``ess_bitmap.launches``. ``q_margin``: the widening of each
+    culled LUT-coordinate interval (:func:`_ess_q_margin`)."""
     pmin, pmax = plane_stats
     if not _on_card(pmin):
         return ess_bitmap_reference(
             plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale,
             width=width, height=height, ny=ny, nx=nx,
             plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
-            axis_scale=axis_scale,
+            axis_scale=axis_scale, q_margin=q_margin,
         )
     from vrdd_tpu_torch.kernels import _build
 
@@ -713,7 +747,7 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
         yhi=march.box_max[1], tex_offset=float(tex_offset),
         sx=float(axis_scale[0]), sy=float(axis_scale[1]),
         tf_off=float(tf_off), tf_scale=float(tf_scale),
-        q_margin=_ESS_Q_MARGIN, n_planes=n_planes,
+        q_margin=float(q_margin), n_planes=n_planes,
         plane_chunk=int(plane_chunk), height=int(height), width=int(width),
         tile_h=th, tile_w=tw, ny=int(ny), nx=int(nx), n_lut=lut_t.shape[0],
         n_by=_ESS_YB, n_bx=_ESS_XB,
@@ -739,7 +773,8 @@ def ess_bitmap_reference(plane_stats, zs, origin, slopes, tf_lut, tf_off,
                          nx: int, plane_chunk: int,
                          march: MarchConfig = MarchConfig(),
                          tex_offset: float = 0.5,
-                         axis_scale=(1.0, 1.0)) -> torch.Tensor:
+                         axis_scale=(1.0, 1.0),
+                         q_margin: float = _ESS_Q_MARGIN) -> torch.Tensor:
     """Plain version of :func:`ess_bitmap`, on the device of
     ``plane_stats``: host geometry in float64, the block and LUT tests in
     torch.
@@ -755,8 +790,8 @@ def ess_bitmap_reference(plane_stats, zs, origin, slopes, tf_lut, tf_off,
     have alpha exactly 0: they change neither the image nor the
     transmittance, so skipping them is exact for the image and for volume
     cotangents (not for LUT / density / TF cotangents). ``tf_scale`` may be
-    negative. The interval is widened by :data:`_ESS_Q_MARGIN` in LUT
-    coordinates against float rounding."""
+    negative. The interval is widened by ``q_margin`` (:data:`_ESS_Q_MARGIN`
+    in f32) in LUT coordinates against float rounding."""
     pmin, pmax = plane_stats
     dev = pmin.device
     n_planes = pmin.shape[0]
@@ -824,8 +859,8 @@ def ess_bitmap_reference(plane_stats, zs, origin, slopes, tf_lut, tf_off,
     toff, tscl = float(tf_off), float(tf_scale)
     q_a = (vmin - toff) * tscl * n_lut - 0.5
     q_b = (vmax - toff) * tscl * n_lut - 0.5
-    q_lo = torch.clamp(torch.minimum(q_a, q_b) - _ESS_Q_MARGIN, 0.0, n_lut - 1.0)
-    q_hi = torch.clamp(torch.maximum(q_a, q_b) + _ESS_Q_MARGIN, 0.0, n_lut - 1.0)
+    q_lo = torch.clamp(torch.minimum(q_a, q_b) - q_margin, 0.0, n_lut - 1.0)
+    q_hi = torch.clamp(torch.maximum(q_a, q_b) + q_margin, 0.0, n_lut - 1.0)
 
     def alpha_at(q):
         i0 = torch.floor(q)
@@ -843,13 +878,27 @@ def ess_bitmap_reference(plane_stats, zs, origin, slopes, tf_lut, tf_off,
     return (amax > 0.0).permute(2, 0, 1).contiguous().to(torch.uint8)
 
 
+def _ess_q_margin(ess_stats, tf_lut, transfer_scale, bf16: bool) -> float:
+    """The bitmap's LUT-coordinate margin: :data:`_ESS_Q_MARGIN` for f32;
+    in the bf16 mode also the LUT-coordinate image of a resampled value's
+    bf16 spread (:data:`_BF16_SPREAD` of the largest plane magnitude), which
+    the interval argument does not see. Reads the stats' largest magnitude
+    back to the host in the bf16 mode."""
+    if not bf16:
+        return _ESS_Q_MARGIN
+    vabs = max(float(t.abs().max()) for t in ess_stats)
+    return (_ESS_Q_MARGIN + _BF16_SPREAD * vabs * abs(float(transfer_scale))
+            * len(tf_lut))
+
+
 def _resolve_ess(empty_space_skip, ess_stats, planes_all, zs, origin, slopes,
                  tf_lut, transfer_offset, transfer_scale, *, width, height,
-                 plane_chunk, march, tex_offset, axis_scale, reverse_planes):
+                 plane_chunk, march, tex_offset, axis_scale, reverse_planes,
+                 bf16=False):
     """The ESS bitmap of a sweep over ``planes_all``, or None without ESS.
     ``ess_stats`` describe the logical (front-to-back) plane order; without
     them the stats come from the stack, flipped when it is walked back to
-    front."""
+    front. ``bf16``: the sweep's resample rounds (:func:`_ess_q_margin`)."""
     if not empty_space_skip:
         return None
     n_planes, ny, nx = planes_all.shape
@@ -865,6 +914,7 @@ def _resolve_ess(empty_space_skip, ess_stats, planes_all, zs, origin, slopes,
         transfer_scale, width=width, height=height, ny=ny, nx=nx,
         plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
         axis_scale=axis_scale,
+        q_margin=_ess_q_margin(ess_stats, tf_lut, transfer_scale, bf16),
     )
 
 
@@ -874,6 +924,7 @@ def sweep_preblended_planes_reference(
     march: MarchConfig = MarchConfig(), length_correction=True,
     plane_chunk=8, tex_offset=0.5, plane_spacing=None, axis_scale=(1.0, 1.0),
     filter_linear=True, reverse_planes=False, ess=None, acc_init=None,
+    precision="f32",
 ):
     """Plain torch version of K1, on the device of ``planes_all``: the slope
     grid ``mx0 + dmx * j`` is built in float32 exactly as the kernel builds
@@ -881,7 +932,8 @@ def sweep_preblended_planes_reference(
     the stack when ``reverse_planes``), from the seed ``acc_init`` when
     given. ``ess``: the bitmap of :func:`ess_bitmap` over chunks of
     ``plane_chunk`` planes; culled samples get alpha exactly 0, as the
-    kernel skips them."""
+    kernel skips them. ``precision``: 'f32' or 'bf16' (JAX's bf16
+    resample)."""
     mx, my = _slope_grids(slopes, width, height)
     if reverse_planes:
         planes_all = planes_all.flip(0)
@@ -892,7 +944,7 @@ def sweep_preblended_planes_reference(
         plane_chunk=plane_chunk, tex_offset=tex_offset,
         axis_scale=axis_scale, filter_linear=filter_linear,
         ess=None if ess is None else (ess, plane_chunk, ESS_TILE),
-        acc_init=acc_init,
+        acc_init=acc_init, precision=precision,
     )
 
 
@@ -918,9 +970,10 @@ def sweep_preblended_planes(
     :func:`ess_plane_stats` of the logical plane order) or from the stack;
     the image is the one without ESS. ``acc_init`` ``(height, width, 4)``
     seeds the sweep (premultiplied RGBA the recursion resumes from; not with
-    ``empty_space_skip``). Returns ``(height, width, 4)``.
+    ``empty_space_skip``). ``precision``: 'f32' or 'bf16' (JAX's bf16
+    resample; module docstring). Returns ``(height, width, 4)``.
     """
-    _check_unported(precision)
+    bf16 = _precision_flag(precision)
     _check_seed(acc_init, empty_space_skip)
     n_planes, ny, nx = planes_all.shape
     if plane_spacing is None:
@@ -934,7 +987,7 @@ def sweep_preblended_planes(
         empty_space_skip, ess_stats, planes_all, zs, origin, slopes, tf_lut,
         transfer_offset, transfer_scale, width=width, height=height,
         plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
-        axis_scale=axis_scale, reverse_planes=reverse_planes,
+        axis_scale=axis_scale, reverse_planes=reverse_planes, bf16=bf16,
     )
     if not _on_card(planes_all):
         return sweep_preblended_planes_reference(
@@ -944,7 +997,7 @@ def sweep_preblended_planes(
             plane_chunk=plane_chunk, tex_offset=tex_offset,
             plane_spacing=plane_spacing, axis_scale=axis_scale,
             filter_linear=filter_linear, reverse_planes=reverse_planes,
-            ess=ess, acc_init=acc_init,
+            ess=ess, acc_init=acc_init, precision=precision,
         )
     if not pallas_supported(planes_all.shape, width, height, n_planes,
                             n_lut=len(tf_lut)):
@@ -958,7 +1011,7 @@ def sweep_preblended_planes(
         n_planes=n_planes, n_layers=n_planes, dz_sign=dz_sign,
         reverse=reverse_planes, length_correction=length_correction,
         tex_offset=tex_offset, axis_scale=axis_scale,
-        filter_linear=filter_linear,
+        filter_linear=filter_linear, precision=bf16,
     )
     out, staged = _launch(planes_all, "none", zs, tf_lut, None, params,
                           ess=ess, ess_chunk=plane_chunk, seed=acc_init,
@@ -967,10 +1020,13 @@ def sweep_preblended_planes(
     sweep_preblended_planes.staged_launches += staged
     sweep_preblended_planes.ess_launches += ess is not None
     sweep_preblended_planes.seed_launches += acc_init is not None
+    sweep_preblended_planes.bf16_launches += bf16
     return out
 
 
 sweep_preblended_planes.launches = 0
+#: the launches among ``launches`` in the bf16 mode
+sweep_preblended_planes.bf16_launches = 0
 #: the launches among ``launches`` that took the staged fetch path
 sweep_preblended_planes.staged_launches = 0
 #: the launches among ``launches`` that culled by an ESS bitmap
@@ -1138,11 +1194,12 @@ def hist_render_reference(
     brightness=1.0, transfer_offset=0.0, transfer_scale=1.0, *, width: int,
     height: int, march: MarchConfig = MarchConfig(),
     length_correction: bool = True, plane_chunk: int = 0, focal: float = 2.0,
-    stat: str = "linear",
+    stat: str = "linear", precision: str = "f32",
 ) -> torch.Tensor:
     """Plain torch version of K2 on the device of ``hist_bm``: materialized
     :func:`decode_with_rows`, then the plain sweep over the decoded layers
-    walked back to front."""
+    walked back to front (in the bf16 mode the decoded values are the
+    rounded operand, as the TPU kernel's ``dec_ref``)."""
     nz, B, ny, nx = hist_bm.shape
     rows = _decode_rows(weights, stat, B, hist_bm.device)
     zs, slopes, spacing = _hist_geometry(nz, width, height, focal, march)
@@ -1151,7 +1208,7 @@ def hist_render_reference(
         density, brightness, transfer_offset, transfer_scale, dz_sign=-1,
         width=width, height=height, march=march,
         length_correction=length_correction, plane_chunk=plane_chunk or 8,
-        plane_spacing=spacing, reverse_planes=True,
+        plane_spacing=spacing, reverse_planes=True, precision=precision,
     )
 
 
@@ -1184,10 +1241,11 @@ def pallas_hist_render(
     ``(4, B)`` rows and ``'entropy'`` with the ``(1, B)`` normalizer row of
     :func:`decode_weight_rows`. One plane per z-layer (``n_planes == nz``),
     unrotated camera at ``origin``; any image size. ``plane_chunk`` sizes
-    the plain version's batches; the kernel ignores it. Returns
+    the plain version's batches; the kernel ignores it. ``precision``: 'f32'
+    or 'bf16' (JAX's bf16 resample of the decoded values). Returns
     ``(height, width, 4)`` premultiplied RGBA.
     """
-    _check_unported(precision)
+    bf16 = _precision_flag(precision)
     nz, B, ny, nx = hist_bm.shape
     rows = _decode_rows(weights, stat, B, hist_bm.device)
     if not _on_card(hist_bm):
@@ -1196,6 +1254,7 @@ def pallas_hist_render(
             transfer_offset, transfer_scale, width=width, height=height,
             march=march, length_correction=length_correction,
             plane_chunk=plane_chunk, focal=focal, stat=stat,
+            precision=precision,
         )
     if not hist_render_supported(hist_bm.shape, width, height,
                                  n_lut=len(tf_lut)):
@@ -1210,13 +1269,15 @@ def pallas_hist_render(
         n_planes=nz, n_layers=nz, dz_sign=-1, reverse=True,
         length_correction=length_correction, tex_offset=0.5,
         axis_scale=(1.0, 1.0), filter_linear=True, n_bins=B,
-        n_rows=rows.shape[0],
+        n_rows=rows.shape[0], precision=bf16,
     )
     out, staged = _launch(hist_bm, stat, zs, tf_lut, rows, params)
     pallas_hist_render.launches += 1
     pallas_hist_render.staged_launches += staged
+    pallas_hist_render.bf16_launches += bf16
     return out
 
 
 pallas_hist_render.launches = 0
 pallas_hist_render.staged_launches = 0
+pallas_hist_render.bf16_launches = 0

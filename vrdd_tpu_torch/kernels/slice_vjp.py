@@ -11,9 +11,12 @@ signatures. Three kernels, hand-written in CUDA C++ for Hopper:
 - **K4** (``slice_vjp.py:714``, ``_fwd_ckpt_call``), the same sweep also
   writing the per-ray transmittance ``T`` at the start of every block of
   ``ck_stride`` planes, launched by :func:`sweep_fwd_ckpt` in the forward of
-  the autograd Functions;
+  the autograd Functions, and on request its live map
+  (:func:`live_fractions`);
 - **K5** (``slice_vjp.py:787``, ``_bwd_call``), the reverse sweep of
-  ``csrc/slice_vjp.cu``, launched by :func:`sweep_bwd` in their backward.
+  ``csrc/slice_vjp.cu``, launched by :func:`sweep_bwd` in their backward;
+  in the bf16 mode followed by the y-transpose of ``csrc/dplane_bf16.cu``
+  (:func:`dplane_bf16`, the ``_stage_dplane`` step of ``_bwd_call``).
 
 Each wrapper dispatches on the device of its volume: a CUDA tensor goes to
 the kernel or the wrapper raises; a CPU tensor takes the plain torch version
@@ -51,9 +54,18 @@ not listed gets exact zeros. Empty-space skipping (``empty_space_skip`` of
 :func:`pallas_slice_render_diff`) culls in K3/K4 with the bitmap of
 ``slice_kernel.ess_bitmap``; it is exact only for ``wrt=('volume',)`` and
 raises otherwise, as in JAX; it takes no seed. K5 takes no bitmap: it
-replays the culled samples, whose alpha and slope are zero. Not ported yet
-(they raise ``NotImplementedError``): ``precision='bf16'`` (ROADMAP.md
-queue 2 item 2) and :func:`live_fractions` (item 3).
+replays the culled samples, whose alpha and slope are zero.
+
+**``precision='bf16'``** (JAX's bf16 mode, ``mm_dtype`` of
+``slice_vjp.py:595``): K3/K4 and K5's replay resample as the forward
+kernels do in that mode (``slice_kernel`` module docstring), and the plane
+cotangent follows JAX's transpose: K5 adds ``bf16(d_res) bf16(wx)`` of each
+live sample into a row buffer ``dtmp (n_planes, H, nx)`` (the x-transpose,
+summed over each image row), and :func:`dplane_bf16` forms ``d_planes =
+bf16(wy)^T bf16(dtmp)`` per plane, rounding the whole-row sums as JAX
+does. The LUT, parameter and seed cotangents see only the bf16 ``res``.
+``dtmp`` is 4 P H nx bytes (1 GiB at 512 planes to 1024^2). Every wrapper
+counts its bf16 launches in ``.bf16_launches``.
 """
 
 from __future__ import annotations
@@ -66,12 +78,13 @@ import numpy as np
 import torch
 
 from vrdd_tpu_torch.march.slice import (
+    bf16_y_transpose,
     preblend_planes,
     sweep_p_total,
     transmittance_checkpoints,
 )
 from vrdd_tpu_torch.kernels.slice_kernel import (
-    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, _check_unported,
+    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, _precision_flag,
     _decode_plain, _decode_rows, _decode_rows_grad, _device_f32,
     _hist_geometry, _host_floats, _launch, _on_card, _pixel_slopes,
     _resolve_ess, _slope_grids, _stage_dims, _sweep_params,
@@ -150,7 +163,7 @@ class _Sweep:
     """Host-side configuration of one differentiable sweep: the plane
     schedule, the camera and the decode mode ('none' for a plane stack).
     ``ess``: the ESS bitmap K3/K4 cull by, over chunks of ``ck_stride``
-    planes (None: no culling)."""
+    planes (None: no culling); ``precision``: 'f32' or 'bf16'."""
 
     zs: np.ndarray
     origin: Tuple[float, float, float]
@@ -168,10 +181,16 @@ class _Sweep:
     axis_scale: Tuple[float, float] = (1.0, 1.0)
     filter_linear: bool = True
     ess: Optional[torch.Tensor] = None
+    precision: str = "f32"
 
     @property
     def n_chunks(self) -> int:
         return -(-len(self.zs) // self.ck_stride)
+
+    @property
+    def bf16(self) -> int:
+        """The kernels' SweepParams.precision."""
+        return _precision_flag(self.precision)
 
     def params(self, vol, rows, density, toff, tscl) -> dict:
         """The kernels' SweepParams (brightness 1: folded outside)."""
@@ -189,6 +208,7 @@ class _Sweep:
             length_correction=self.length_correction,
             tex_offset=self.tex_offset, axis_scale=self.axis_scale,
             filter_linear=self.filter_linear, n_bins=n_bins, n_rows=n_rows,
+            precision=self.bf16,
         )
 
     def check(self, vol, lut):
@@ -228,6 +248,7 @@ class _Sweep:
             plane_spacing=self.plane_spacing, axis_scale=self.axis_scale,
             filter_linear=self.filter_linear, reverse_planes=self.reverse,
             ess=self.ess if ess else None, acc_init=acc0,
+            precision=self.precision,
         )
 
     def slope_grids(self):
@@ -271,12 +292,14 @@ def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, acc0=None,
     sweep_fwd.staged_launches += st
     sweep_fwd.ess_launches += cfg.ess is not None
     sweep_fwd.seed_launches += acc0 is not None
+    sweep_fwd.bf16_launches += cfg.bf16
     sweep_fwd.size_launches[(cfg.height, cfg.width)] += 1
     sweep_fwd.size_staged_launches[(cfg.height, cfg.width)] += st
     return out
 
 
 sweep_fwd.launches = 0
+sweep_fwd.bf16_launches = 0
 sweep_fwd.staged_launches = 0
 sweep_fwd.ess_launches = 0
 sweep_fwd.seed_launches = 0
@@ -287,16 +310,19 @@ sweep_fwd.size_staged_launches = collections.Counter()
 # ---- K4 ----------------------------------------------------------------
 
 def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
-                             tscl, acc0=None):
+                             tscl, acc0=None, live_map=False):
     """Plain version of K4: the image and the plain transmittance
     recursion's checkpoints (``march.slice.transmittance_checkpoints``),
-    from the seed ``acc0``."""
+    from the seed ``acc0``; with ``live_map`` also the plain version of
+    K4's live map over :data:`ESS_TILE` tiles and the map of its tiles with
+    a ray within 1e-6 of a cutoff (``(img, tck, live, tied)``;
+    ``transmittance_checkpoints``)."""
     with torch.no_grad():
         planes = cfg.planes(vol, rows)
         img = cfg.reference_image(planes, lut, density, toff, tscl,
                                   acc0=acc0)
         mx, my = cfg.slope_grids()
-        tck = transmittance_checkpoints(
+        res = transmittance_checkpoints(
             cfg.stack(planes), cfg.zs, cfg.origin,
             mx, my, lut, density, toff, tscl, cfg.march,
             ck_stride=cfg.ck_stride, dz_sign=cfg.dz_sign,
@@ -306,36 +332,46 @@ def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
             filter_linear=cfg.filter_linear,
             ess=None if cfg.ess is None else (cfg.ess, cfg.ck_stride,
                                               ESS_TILE),
-            acc_init=acc0,
+            acc_init=acc0, precision=cfg.precision,
+            live_tile=ESS_TILE if live_map else None,
         )
-    return img, tck
+    return (img, *res) if live_map else (img, res)
 
 
 def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
-                   acc0=None, staged=None):
+                   acc0=None, staged=None, live_map=False):
     """K4: the primal plus ``tck (n_chunks, H, W)``, the transmittance at
     the start of every block of ``cfg.ck_stride`` planes under the
     backward's recursion ``T <- T - [T >= 1-thr] T a``, from ``1 - seed_a``
     for a seed ``acc0``. K4's image is bitwise K3's. ``staged`` forces a
-    fetch path (None: by geometry)."""
+    fetch path (None: by geometry). ``live_map``: also K4's live map, uint8
+    ``(n_chunks, ceil(H / 8), ceil(W / 32))`` over :data:`ESS_TILE` tiles, 1
+    where some ray of the tile is not done at the chunk's first plane
+    (``(img, tck, live)``; counted in ``.live_launches``)."""
     if not _on_card(vol):
-        return sweep_fwd_ckpt_reference(cfg, vol, rows, lut, density, toff,
-                                        tscl, acc0)
+        out = sweep_fwd_ckpt_reference(cfg, vol, rows, lut, density, toff,
+                                       tscl, acc0, live_map)
+        return out[:3] if live_map else out
     cfg.check(vol, lut)
     out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
                       cfg.params(vol, rows, density, toff, tscl),
                       ck_stride=cfg.ck_stride, ess=cfg.ess,
-                      ess_chunk=cfg.ck_stride, seed=acc0, staged=staged)
+                      ess_chunk=cfg.ck_stride, seed=acc0, staged=staged,
+                      live_map=live_map)
     sweep_fwd_ckpt.launches += 1
     sweep_fwd_ckpt.staged_launches += st
     sweep_fwd_ckpt.ess_launches += cfg.ess is not None
     sweep_fwd_ckpt.seed_launches += acc0 is not None
+    sweep_fwd_ckpt.bf16_launches += cfg.bf16
+    sweep_fwd_ckpt.live_launches += bool(live_map)
     sweep_fwd_ckpt.size_launches[(cfg.height, cfg.width)] += 1
     sweep_fwd_ckpt.size_staged_launches[(cfg.height, cfg.width)] += st
     return out
 
 
 sweep_fwd_ckpt.launches = 0
+sweep_fwd_ckpt.bf16_launches = 0
+sweep_fwd_ckpt.live_launches = 0
 sweep_fwd_ckpt.staged_launches = 0
 sweep_fwd_ckpt.ess_launches = 0
 sweep_fwd_ckpt.seed_launches = 0
@@ -387,6 +423,7 @@ def sweep_bwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g,
             length_correction=cfg.length_correction,
             plane_chunk=cfg.ck_stride, tex_offset=cfg.tex_offset,
             axis_scale=cfg.axis_scale, filter_linear=cfg.filter_linear,
+            precision=cfg.precision,
         )
     return d[0], _small(lut.shape[0], vol.device, d[1], d[2:]), None, s_img
 
@@ -402,7 +439,8 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     chain moments ``(n_layers, 2, ny, nx)``, and for a seeded sweep
     (``acc0``, the seed K4 ran from) each ray's ``P_total`` ``(H, W)`` that
     the seed cotangent needs (else None). ``staged`` forces a fetch path
-    (None: by geometry)."""
+    (None: by geometry). In the bf16 mode ``d_planes`` comes from K5's row
+    buffer through :func:`dplane_bf16`."""
     if not _on_card(vol):
         return sweep_bwd_reference(cfg, vol, rows, lut, density, toff, tscl,
                                    g, g_planes, g_lut, g_params, acc0)
@@ -426,6 +464,9 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     rows_t = None if rows is None else rows.detach().contiguous()
     d_planes = (torch.zeros((n_layers, ny, nx), dtype=torch.float32,
                             device=dev) if g_planes else None)
+    # bf16 mode: K5 fills the row buffer, the y-transpose kernel d_planes
+    dtmp = (torch.zeros((len(cfg.zs), H, nx), dtype=torch.float32,
+                        device=dev) if g_planes and cfg.bf16 else None)
     n_blocks = (-(-W // BWD_BLOCK[0])) * (-(-H // BWD_BLOCK[1]))
     partials = (torch.empty((n_blocks, 4 * n_lut + 3), dtype=torch.float32,
                             device=dev)
@@ -452,7 +493,7 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     p = _build.SweepParams(n_lut=n_lut, **params)
     bp = _build.BwdParams(ck_stride=cfg.ck_stride, n_chunks=cfg.n_chunks,
                           g_planes=int(g_planes), g_lut=int(g_lut),
-                          g_params=int(g_params))
+                          g_params=int(g_params), dtmp=ptr(dtmp))
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -467,18 +508,106 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     sweep_bwd.launches += 1
     sweep_bwd.staged_launches += stage[0] > 0
     sweep_bwd.seed_launches += acc0 is not None
+    sweep_bwd.bf16_launches += cfg.bf16
     sweep_bwd.size_launches[(H, W)] += 1
     sweep_bwd.size_staged_launches[(H, W)] += stage[0] > 0
+    if dtmp is not None:
+        dplane_bf16(cfg, dtmp, d_planes)
     small = (partials.sum(0) if partials is not None
              else torch.zeros(4 * n_lut + 3, dtype=torch.float32, device=dev))
     return d_planes, small, mom, s_img
 
 
 sweep_bwd.launches = 0
+sweep_bwd.bf16_launches = 0
 sweep_bwd.staged_launches = 0
 sweep_bwd.seed_launches = 0
 sweep_bwd.size_launches = collections.Counter()
 sweep_bwd.size_staged_launches = collections.Counter()
+
+
+# ---- the bf16 mode's y-transpose ----------------------------------------
+
+def _row_taps(cfg: _Sweep, ny: int, dev):
+    """The y taps ``(y0, y1, w0, w1)``, each ``(P, H)``, of every image
+    row on every plane, with the kernels' float32 arithmetic (``make_ray``
+    and ``axis_taps`` of csrc/sweep_common.cuh, one rounding per
+    operation), and the rows' in-box mask."""
+    f32 = np.float32
+    _, my = cfg.slope_grids()
+    my = torch.as_tensor(my, device=dev)                          # (H,)
+    z = torch.as_tensor(cfg.zs, device=dev)[:, None]             # (P, 1)
+    oy, oz = f32(cfg.origin[1]), f32(cfg.origin[2])
+    ylo, yhi = f32(cfg.march.box_min[1]), f32(cfg.march.box_max[1])
+    yw = (z - oz) * my + oy                                       # (P, H)
+    p01 = (yw - ylo) / (yhi - ylo)
+    q = p01 * (f32(ny) * f32(cfg.axis_scale[1])) - f32(cfg.tex_offset)
+    q = q.clamp(0.0, ny - 1.0)
+    if not cfg.filter_linear:
+        q = torch.floor(q + 0.5)
+    f = torch.floor(q)
+    y0 = f.long()
+    y1 = (y0 + 1).clamp(max=ny - 1)
+    w0 = (1.0 - (q - f).abs()).clamp(min=0.0)
+    w1 = (1.0 - (q - (f + 1.0)).abs()).clamp(min=0.0)
+    return y0, y1, w0, w1, (p01 >= 0.0) & (p01 <= 1.0)
+
+
+def dplane_bf16_reference(cfg: _Sweep, dtmp, n_layers: int, ny: int):
+    """Plain version of :func:`dplane_bf16`: the dense ``wy (P, H, NY)``
+    of the kernels' taps (zero outside the box), then
+    ``march.slice.bf16_y_transpose``; in storage layer order."""
+    P, H, nx = dtmp.shape
+    y0, y1, w0, w1, inbox = _row_taps(cfg, ny, dtmp.device)
+    wy = torch.zeros((P, H, ny), dtype=torch.float32, device=dtmp.device)
+    wy.scatter_add_(2, y0[..., None], torch.where(inbox, w0, 0.0)[..., None])
+    wy.scatter_add_(2, y1[..., None], torch.where(inbox, w1, 0.0)[..., None])
+    out = torch.zeros((n_layers, ny, nx), dtype=torch.float32,
+                      device=dtmp.device)
+    d = bf16_y_transpose(wy, dtmp)
+    if cfg.reverse:
+        out[n_layers - P:] = d.flip(0)
+    else:
+        out[:P] = d
+    return out
+
+
+def dplane_bf16(cfg: _Sweep, dtmp, d_planes):
+    """The bf16 backward's y-transpose (``csrc/dplane_bf16.cu``):
+    ``d_planes[layer(k), y, x] = sum_r bf16(wy[k, r, y]) bf16(dtmp[k, r,
+    x])`` over the image rows, ``dtmp (P, H, nx)`` the row buffer K5 fills,
+    ``wy`` recomputed from each row's slope as the sweep does; the layers of
+    the P planes of ``d_planes (n_layers, ny, nx)`` are overwritten. A CPU
+    ``dtmp`` takes the plain version (:func:`dplane_bf16_reference`).
+    Counts ``dplane_bf16.launches``."""
+    n_layers, ny, nx = d_planes.shape
+    if not _on_card(dtmp):
+        d_planes.copy_(dplane_bf16_reference(cfg, dtmp, n_layers, ny))
+        return d_planes
+    from vrdd_tpu_torch.kernels import _build
+
+    if (tuple(dtmp.shape) != (len(cfg.zs), cfg.height, nx)
+            or dtmp.dtype != torch.float32 or not dtmp.is_contiguous()
+            or d_planes.dtype != torch.float32
+            or not d_planes.is_contiguous() or n_layers < len(cfg.zs)):
+        raise ValueError(f"dtmp {tuple(dtmp.shape)} / d_planes "
+                         f"{tuple(d_planes.shape)} do not fit the sweep")
+    # the kernel reads the geometry alone: decode mode and LUT unused
+    params = dataclasses.replace(cfg, mode="none").params(
+        d_planes, None, 0.0, 0.0, 1.0)
+    p = _build.SweepParams(n_lut=1, **params)
+    zs_t = _device_f32(cfg.zs, dtmp.device)
+    with torch.cuda.device(dtmp.device):
+        stream = torch.cuda.current_stream(dtmp.device).cuda_stream
+        rc = _build.library().vrdd_dplane_bf16(
+            p, zs_t.data_ptr(), dtmp.data_ptr(), d_planes.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"vrdd_dplane_bf16 launch failed: CUDA error {rc}")
+    dplane_bf16.launches += 1
+    return d_planes
+
+
+dplane_bf16.launches = 0
 
 
 # ---- autograd ------------------------------------------------------------
@@ -617,14 +746,15 @@ def planes_config(zs, origin, slopes, *, dz_sign=-1, width, height,
                   march=MarchConfig(), plane_spacing=None, n_planes,
                   length_correction=True, plane_chunk=4, tex_offset=0.5,
                   axis_scale=(1.0, 1.0), reverse_planes=False,
-                  ess=None) -> _Sweep:
+                  ess=None, precision="f32") -> _Sweep:
     """The sweep of a scalar ``(n_planes, NY, NX)`` plane stack with depths
     ``zs`` and ``slopes = [mx0, dmx, my0, dmy]``, culled by the ESS bitmap
     ``ess`` (of :func:`~vrdd_tpu_torch.kernels.slice_kernel.ess_bitmap` over
     chunks of ``plane_chunk`` planes) when given: the handle to call
     :func:`sweep_fwd`, :func:`sweep_fwd_ckpt` and :func:`sweep_bwd` (or
     their plain versions) on a stack directly, as :func:`render_config` is
-    for one plane per layer."""
+    for one plane per layer. ``precision``: 'f32' or 'bf16'."""
+    _precision_flag(precision)
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
     return _Sweep(
@@ -634,19 +764,21 @@ def planes_config(zs, origin, slopes, *, dz_sign=-1, width, height,
         ck_stride=_ck_stride(plane_chunk), dz_sign=int(dz_sign),
         reverse=bool(reverse_planes), length_correction=length_correction,
         tex_offset=float(tex_offset), axis_scale=tuple(axis_scale), ess=ess,
+        precision=precision,
     )
 
 
 def hist_config(zs, origin, slopes, *, stat: str, dz_sign=-1, width,
                 height, march=MarchConfig(), plane_spacing=None,
                 plane_chunk=4, length_correction=True,
-                reverse_planes=True) -> _Sweep:
+                reverse_planes=True, precision="f32") -> _Sweep:
     """The sweep of a bins-major histogram slab, one plane per layer, with
     depths ``zs`` (front to back) and ``slopes = [mx0, dmx, my0, dmy]``,
     decoded by ``stat``: the handle :func:`sweep_preblended_hist_diff`
     builds, to call :func:`sweep_fwd`, :func:`sweep_fwd_ckpt` and
     :func:`sweep_bwd` (or their plain versions) on one slab directly, as
     :func:`planes_config` is for a scalar stack."""
+    _precision_flag(precision)
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / len(zs)
     return _Sweep(
@@ -655,6 +787,7 @@ def hist_config(zs, origin, slopes, *, stat: str, dz_sign=-1, width,
         height=int(height), march=march, plane_spacing=float(plane_spacing),
         ck_stride=_ck_stride(plane_chunk), mode=stat, dz_sign=int(dz_sign),
         reverse=bool(reverse_planes), length_correction=length_correction,
+        precision=precision,
     )
 
 
@@ -690,14 +823,15 @@ def sweep_preblended_planes_diff(
     autograd the forward is K4 and the backward K5; otherwise K3.
     ``plane_chunk`` (4 or 8) is the backward's chunk. ``acc_init (H, W,
     4)`` seeds the sweep and gets its own cotangent (see the module
-    docstring); ``plane_spacing`` must then be the full stack's."""
-    _check_unported(precision)
+    docstring); ``plane_spacing`` must then be the full stack's.
+    ``precision``: 'f32' or 'bf16' (module docstring)."""
     cfg = planes_config(
         zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
         march=march, plane_spacing=plane_spacing,
         n_planes=planes_all.shape[0], length_correction=length_correction,
         plane_chunk=plane_chunk, tex_offset=tex_offset,
         axis_scale=axis_scale, reverse_planes=reverse_planes,
+        precision=precision,
     )
     out = _diff_sweep(cfg, _norm_wrt(wrt), planes_all, None, tf_lut, density,
                       transfer_offset, transfer_scale, acc_init)
@@ -735,13 +869,12 @@ def sweep_preblended_hist_diff(
     'linear' / 'var' / 'entropy' with the rows of ``decode_weight_rows``).
     ``wrt``: 'hist', 'weights' (linear only), 'lut', 'params'; ``acc_init``
     seeds the sweep, as in :func:`sweep_preblended_planes_diff`."""
-    _check_unported(precision)
     rows = _decode_rows(weights, stat, hist_bm.shape[1], hist_bm.device)
     cfg = hist_config(
         zs, origin, slopes, stat=stat, dz_sign=dz_sign, width=width,
         height=height, march=march, plane_spacing=plane_spacing,
         plane_chunk=plane_chunk, length_correction=length_correction,
-        reverse_planes=reverse_planes)
+        reverse_planes=reverse_planes, precision=precision)
     out = _diff_sweep(cfg, _norm_hist_wrt(wrt, stat), hist_bm, rows, tf_lut,
                       density, transfer_offset, transfer_scale, acc_init)
     return out * brightness
@@ -754,7 +887,7 @@ def _diff_call(
     wrt=("volume", "lut", "params"), empty_space_skip=False,
     axis_scale=(1.0, 1.0, 1.0),
 ):
-    _check_unported(precision)
+    bf16 = _precision_flag(precision)
     nz = volume.shape[0]
     if n_planes <= 0:
         n_planes = 2 * nz
@@ -789,7 +922,7 @@ def _diff_call(
         transfer_offset, transfer_scale, width=width, height=height,
         plane_chunk=_ck_stride(plane_chunk), march=march,
         tex_offset=tex_offset, axis_scale=axis_scale[:2],
-        reverse_planes=False,
+        reverse_planes=False, bf16=bf16,
     )
     cfg = planes_config(
         zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
@@ -797,6 +930,7 @@ def _diff_call(
         length_correction=length_correction, plane_chunk=plane_chunk,
         tex_offset=tex_offset, axis_scale=axis_scale[:2],
         reverse_planes=pure_sel and dz_sign < 0, ess=ess,
+        precision=precision,
     )
     out = _diff_sweep(cfg, wrt, planes_all, None, tf_lut, density,
                       transfer_offset, transfer_scale)
@@ -921,7 +1055,8 @@ def pallas_hist_render_diff(
     (``decode_with_rows``, whose backward is the same chain) and runs the
     scalar sweep's kernels; 'auto' is :func:`auto_route`. ``wrt``: 'hist',
     'weights' (linear only), 'lut', 'params'; ``d_hist`` comes back in the
-    storage dtype."""
+    storage dtype. ``precision``: 'f32' or 'bf16' (module docstring)."""
+    _precision_flag(precision)
     if route == "auto":
         route = auto_route(hist_bm.shape, hist_bm.dtype, stat)
     if route == "materialized":
@@ -940,11 +1075,11 @@ def pallas_hist_render_diff(
     if route != "inkernel":
         raise ValueError(f"unknown route {route!r}; use inkernel / "
                          "materialized / auto")
-    _check_unported(precision)
     cfg = render_config(hist_bm.shape, origin, stat=stat, width=width,
                         height=height, march=march, focal=focal,
                         plane_chunk=plane_chunk or 4,
-                        length_correction=length_correction)
+                        length_correction=length_correction,
+                        precision=precision)
     rows = _decode_rows(weights, stat, hist_bm.shape[1], hist_bm.device)
     out = _diff_sweep(cfg, _norm_hist_wrt(wrt, stat), hist_bm, rows, tf_lut,
                       density, transfer_offset, transfer_scale)
@@ -954,26 +1089,87 @@ def pallas_hist_render_diff(
 def render_config(shape, origin, *, stat: str = "none", width: int,
                   height: int, march: MarchConfig = MarchConfig(),
                   focal: float = 2.0, plane_chunk: int = 4,
-                  length_correction: bool = True) -> _Sweep:
+                  length_correction: bool = True,
+                  precision: str = "f32") -> _Sweep:
     """The sweep of an unrotated render with one plane per layer, walked
     back to front: of a scalar ``(nz, ny, nx)`` volume (``stat='none'``) or
     a bins-major ``(nz, B, ny, nx)`` histogram volume (``stat`` 'linear' /
     'var' / 'entropy'). The in-kernel route's configuration, and the handle
     to call :func:`sweep_fwd`, :func:`sweep_fwd_ckpt` and :func:`sweep_bwd`
     (or their plain versions) directly."""
+    _precision_flag(precision)
     zs, slopes, spacing = _hist_geometry(shape[0], width, height, focal, march)
     return _Sweep(
         zs=zs, origin=tuple(_host_floats(origin, 3)), slopes=slopes,
         width=int(width), height=int(height), march=march,
         plane_spacing=spacing, ck_stride=_ck_stride(plane_chunk), mode=stat,
         reverse=True, length_correction=length_correction,
+        precision=precision,
     )
 
 
-def live_fractions(*args, **kwargs) -> dict:
-    """Not ported: the TPU kernel's live-tile bitmap is a (strip, chunk,
-    x-tile) quantity of its tiling; what it means per warp or block on the
-    card is still to decide (ROADMAP.md queue 2 item 3)."""
-    raise NotImplementedError(
-        "live_fractions is not ported yet (ROADMAP.md queue 2 item 3)"
+def live_fractions(
+    volume,
+    origin,
+    tf_lut,
+    density=0.05,
+    transfer_offset=0.0,
+    transfer_scale=1.0,
+    *,
+    width: int,
+    height: int,
+    march: MarchConfig = MarchConfig(),
+    n_planes: int = 0,
+    plane_chunk: int = 4,
+    focal: float = 2.0,
+) -> dict:
+    """MEASURED culling effectivity of the checkpointing forward (K4) at one
+    configuration (JAX ``live_fractions``, slice_vjp.py:1468).
+
+    Runs K4 on the scalar ``(nz, ny, nx)`` volume (pure selection when
+    ``n_planes == nz``, else the pre-blended stack; the plain version on a
+    CPU volume) with its live map: one byte per (checkpoint chunk of
+    ``plane_chunk`` planes, tile of :data:`ESS_TILE` = 8 x 32 rays), 1 when
+    some ray of the tile has not reached the cutoff at the chunk's first
+    plane (image alpha at most the opacity threshold, or the backward's T
+    still at least 1 - threshold). On this card a tile is the forward's CUDA
+    block: a tile with no live ray is a block the sweep has left, and K5
+    skips the chunks in which its rays are frozen. Rays that miss the box
+    never reach the cutoff, so their tiles count live in every chunk. The
+    keys keep JAX's names and meanings on these tiles:
+
+    - ``tile_live_frac``: the share of (chunk, tile) pairs that are live;
+    - ``strip_live_frac``: the share of (chunk, row of tiles) pairs with a
+      live tile (JAX's strip: a row of tiles);
+    - ``n_xt``: the tiles per row, ``ceil(width / 32)``.
+
+    Counts K4's launches with a map in ``sweep_fwd_ckpt.live_launches``."""
+    nz = volume.shape[0]
+    if n_planes <= 0:
+        n_planes = 2 * nz
+    pure_sel = n_planes == nz
+    if pure_sel:
+        zlo, zhi = march.box_min[2], march.box_max[2]
+        spacing = (zhi - zlo) / n_planes
+        zs = (zlo + spacing * (np.arange(n_planes, dtype=np.float32) + 0.5)
+              ).astype(np.float32)[::-1].copy()
+        planes_all = volume
+    else:
+        planes_all, zs = preblend_planes(volume, n_planes, march.box_min,
+                                         march.box_max, -1, 0.5)
+    _, slopes, _ = _hist_geometry(nz, width, height, focal, march)
+    cfg = planes_config(
+        zs, origin, slopes, width=width,
+        height=height, march=march, n_planes=n_planes,
+        plane_chunk=plane_chunk, reverse_planes=pure_sel,
     )
+    dev = volume.device
+    _, _, live = sweep_fwd_ckpt(
+        cfg, planes_all, None, _f32(tf_lut, dev), _f32(density, dev),
+        _f32(transfer_offset, dev), _f32(transfer_scale, dev), live_map=True)
+    bits = live.cpu().numpy().astype(bool)  # (n_chunks, n_ty, n_tx)
+    return {
+        "tile_live_frac": float(bits.mean()),
+        "strip_live_frac": float(bits.any(axis=2).mean()),
+        "n_xt": int(bits.shape[2]),
+    }

@@ -21,6 +21,12 @@ with a premultiplied RGBA image and resumes the "over" recursion from it
 (a streamed decode chunk, the back half of a split stack); its cotangent is
 ``d seed_rgb = g_rgb``, ``d seed_a = g_a - P_total / T_0`` with
 ``T_0 = 1 - seed_a``. ``compute_dtype`` is float32 throughout.
+
+``precision='bf16'`` is the plain version of the kernels' bf16 mode (JAX's
+``precision='bf16'``, ``vrdd_tpu/pallas/slice_kernel.py:1324``): the two
+matmuls of the resample take bf16-rounded operands, the intermediate
+``tmp`` included, and accumulate in f32; the planes' cotangent is JAX's
+transpose (:class:`_Bf16Resample`).
 """
 
 from __future__ import annotations
@@ -59,6 +65,67 @@ def _axis_weights(
         + torch.where(cols == hi_idx[:, None], a[:, None], 0.0)
     )
     return torch.where(in_box[:, None], w, 0.0)
+
+
+def _tent_weights(
+    coords: torch.Tensor, n: int, lo: float, hi: float,
+    tex_offset: float = 0.5, scale: float = 1.0, linear: bool = True,
+) -> torch.Tensor:
+    """The dense weights of :func:`_axis_weights` in JAX's tent form
+    (``vrdd_tpu/pallas/slice_kernel.py`` ``_tent_weights``, :222): ``q =
+    clip(p01 * n * scale - tex_offset, 0, n - 1)``, ``w_l = max(0, 1 - |q -
+    l|)``, zero rows outside the box. The same values up to rounding; the
+    bf16 mode takes these, whose rounding the kernels' ``axis_taps`` and
+    the TPU kernel share, so that bf16 rounds the same weights."""
+    p01 = (coords - lo) / (hi - lo)
+    q = torch.clamp(p01 * float(np.float32(n) * np.float32(scale))
+                    - tex_offset, 0.0, n - 1.0)
+    if not linear:
+        q = torch.floor(q + 0.5)
+    cols = torch.arange(n, device=coords.device, dtype=coords.dtype)
+    w = torch.clamp(1.0 - torch.abs(q[:, None] - cols), min=0.0)
+    in_box = (p01 >= 0.0) & (p01 <= 1.0)
+    return torch.where(in_box[:, None], w, 0.0)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bfloat16 (ties to even), in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class _Bf16Resample(torch.autograd.Function):
+    """JAX's bf16 resample of a chunk of planes and its transpose.
+
+    Forward: ``tmp = r(wy) @ r(planes)``, ``res = r(tmp) @ r(wx)^T`` with
+    ``r`` the rounding to bf16 and f32 sums (vrdd_tpu/pallas/
+    slice_kernel.py:969-973, :1011-1015). Backward, the planes' cotangent
+    of vrdd_tpu/pallas/slice_vjp.py:486-528: ``dtmp = r(d_res) @ r(wx)``
+    summed over the image row, then ``d_planes = r(wy)^T @ r(dtmp)``. The
+    weights are geometry and get no cotangent. Autograd through the casts
+    would round the cotangents elsewhere (torch's backward of ``.to(bf16)``
+    rounds the gradient), so the transpose is written out."""
+
+    @staticmethod
+    def forward(ctx, wy, planes, wx):
+        wy, wx = _bf16(wy), _bf16(wx)
+        ctx.save_for_backward(wy, wx)
+        tmp = _bf16(torch.bmm(wy, _bf16(planes)))
+        return torch.bmm(tmp, wx.transpose(1, 2))
+
+    @staticmethod
+    def backward(ctx, d_res):
+        wy, wx = ctx.saved_tensors
+        d_planes = None
+        if ctx.needs_input_grad[1]:
+            d_planes = bf16_y_transpose(wy, torch.bmm(_bf16(d_res), wx))
+        return None, d_planes, None
+
+
+def bf16_y_transpose(wy: torch.Tensor, dtmp: torch.Tensor) -> torch.Tensor:
+    """``r(wy)^T @ r(dtmp)`` per plane: ``wy (P, H, NY)``, the row sums
+    ``dtmp (P, H, NX)`` -> ``(P, NY, NX)``; the plain version of the bf16
+    backward's y-transpose kernel (``csrc/dplane_bf16.cu``)."""
+    return torch.bmm(_bf16(wy).transpose(1, 2), _bf16(dtmp))
 
 
 def _tf_onehot_matmul(sample, lut, offset, scale) -> torch.Tensor:
@@ -158,7 +225,7 @@ def sweep_slope_space(
 
 def _chunk_rgba_fn(n_planes, ny, nx, zs, origin, mx, my, march, dz_sign,
                    plane_spacing, length_correction, tex_offset, axis_scale,
-                   filter_linear, dev, ess=None):
+                   filter_linear, dev, ess=None, precision="f32"):
     """The per-chunk plane decode of the sweep (``chunk_rgba`` of
     ``vrdd_tpu/march/slice.py:297``): ``f(c0, planes, lut, density, toff,
     tscl)`` -> premultiplied RGBA ``(C, H, W, 4)`` of planes ``c0 ..
@@ -168,7 +235,9 @@ def _chunk_rgba_fn(n_planes, ny, nx, zs, origin, mx, my, march, dz_sign,
 
     ``ess = (bitmap, chunk, (tile_h, tile_w))``: the empty-space-skipping
     bitmap of ``kernels.slice_kernel.ess_bitmap``; samples of a culled
-    (tile, chunk) get alpha exactly 0, as the kernel skips them."""
+    (tile, chunk) get alpha exactly 0, as the kernel skips them.
+    ``precision='bf16'``: the resample of :class:`_Bf16Resample` on the
+    tent-form weights (:func:`_tent_weights`)."""
     (xlo, ylo, zlo) = march.box_min
     (xhi, yhi, zhi) = march.box_max
     mx = np.asarray(mx, dtype=np.float32)
@@ -194,19 +263,24 @@ def _chunk_rgba_fn(n_planes, ny, nx, zs, origin, mx, my, march, dz_sign,
         tile_i = torch.arange(height, device=dev) // tile_h
         tile_j = torch.arange(width, device=dev) // tile_w
 
+    weights = _tent_weights if precision == "bf16" else _axis_weights
+
     def chunk_rgba(c0, planes, lut, density, toff, tscl):
         chunk = planes.shape[0]
         z = zs_t[c0:c0 + chunk]
         x_at = ox + (z[:, None] - oz) * mx_t[None, :]  # (C, W)
         y_at = oy + (z[:, None] - oz) * my_t[None, :]  # (C, H)
-        wx = _axis_weights(
+        wx = weights(
             x_at.reshape(-1), nx, xlo, xhi, tex_offset, sx, filter_linear
         ).reshape(chunk, width, nx)
-        wy = _axis_weights(
+        wy = weights(
             y_at.reshape(-1), ny, ylo, yhi, tex_offset, sy, filter_linear
         ).reshape(chunk, height, ny)
-        tmp = torch.bmm(wy, planes)  # (C, H, X)
-        resampled = torch.bmm(tmp, wx.transpose(1, 2))  # (C, H, W)
+        if precision == "bf16":
+            resampled = _Bf16Resample.apply(wy, planes, wx)
+        else:
+            tmp = torch.bmm(wy, planes)  # (C, H, X)
+            resampled = torch.bmm(tmp, wx.transpose(1, 2))  # (C, H, W)
         col = _tf_onehot_matmul(resampled, lut, toff, tscl)
         in_front = (torch.sign(z - oz) * dz_sign) > 0  # (C,)
         covered = (
@@ -368,6 +442,7 @@ def sweep_preblended_planes_xla(
     filter_linear: bool = True,
     ess=None,
     acc_init=None,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """Masked "over" sweep over an ALREADY pre-blended plane stack.
 
@@ -384,7 +459,7 @@ def sweep_preblended_planes_xla(
     ``use_custom_vjp`` (the default) the backward is the analytic two-pass
     VJP (:class:`_AnalyticSweep`, O(chunk) memory); ``False`` is plain
     autograd through the forward, the oracle the tests hold it against.
-    ``ess``: see :func:`_chunk_rgba_fn`.
+    ``ess`` and ``precision``: see :func:`_chunk_rgba_fn`.
     """
     dev = planes_all.device
     planes_all = planes_all.to(torch.float32)
@@ -393,6 +468,7 @@ def sweep_preblended_planes_xla(
     chunk_rgba = _chunk_rgba_fn(
         n_planes, ny, nx, zs, origin, mx, my, march, dz_sign, plane_spacing,
         length_correction, tex_offset, axis_scale, filter_linear, dev, ess,
+        precision,
     )
 
     def f32(x):
@@ -418,33 +494,75 @@ def transmittance_checkpoints(
     plane_spacing=None, length_correction: bool = True,
     tex_offset: float = 0.5, axis_scale=(1.0, 1.0),
     filter_linear: bool = True, ess=None, acc_init=None,
-) -> torch.Tensor:
+    precision: str = "f32", live_tile=None,
+):
     """The backward's transmittance ``T`` at the start of every block of
     ``ck_stride`` planes: ``(ceil(P / ck_stride), H, W)``, with the
     recursion ``T <- T - [T >= 1 - thr] T a`` (vrdd_tpu/pallas/slice_kernel.py
     :1046-1051) from ``T_0 = 1 - seed_a`` (1 without ``acc_init``). The
-    plain version of the checkpoints K4 writes; ``ess``: see
-    :func:`_chunk_rgba_fn`."""
+    plain version of the checkpoints K4 writes; ``ess`` and ``precision``:
+    see :func:`_chunk_rgba_fn`.
+
+    ``live_tile = (tile_h, tile_w)`` also returns the plain version of K4's
+    live map: uint8 ``(n_chunks, ceil(H / tile_h), ceil(W / tile_w))``, 1
+    where some ray of the tile is not done at the chunk's first plane (its
+    image alpha at most the cutoff, or its T still at least ``1 - thr``),
+    and the map of the tiles where some ray's alpha or T lies within
+    :data:`LIVE_TIE` of its cutoff there (a kernel that rounds in another order may
+    decide those rays either way). The result is then ``(tck, live,
+    tied)``."""
     dev = planes_all.device
     planes_all = planes_all.to(torch.float32)
     n_planes, ny, nx = planes_all.shape
     chunk_rgba = _chunk_rgba_fn(
         n_planes, ny, nx, zs, origin, mx, my, march, dz_sign, plane_spacing,
         length_correction, tex_offset, axis_scale, filter_linear, dev, ess,
+        precision,
     )
     lut = torch.as_tensor(tf_lut, dtype=torch.float32, device=dev)
     thr = march.opacity_threshold
-    T = _seed_t0(None if acc_init is None else torch.as_tensor(
-        acc_init, dtype=torch.float32, device=dev),
-        (np.asarray(my).shape[0], np.asarray(mx).shape[0]), dev)
-    rows = []
+    acc0 = (None if acc_init is None
+            else torch.as_tensor(acc_init, dtype=torch.float32, device=dev))
+    shape = (np.asarray(my).shape[0], np.asarray(mx).shape[0])
+    T = _seed_t0(acc0, shape, dev)
+    # the image's alpha, for the live map's done test
+    acc_a = (torch.zeros(shape, dtype=torch.float32, device=dev)
+             if acc0 is None else acc0[..., 3])
+    rows, live, tied = [], [], []
     for c0 in range(0, n_planes, ck_stride):
         rows.append(T)
+        if live_tile is not None:
+            live.append(_tile_any(~((acc_a > thr) & ~(T >= 1.0 - thr)),
+                                  live_tile))
+            tied.append(_tile_any(((acc_a - thr).abs() <= LIVE_TIE)
+                                  | ((T - (1.0 - thr)).abs() <= LIVE_TIE),
+                                  live_tile))
         a = chunk_rgba(c0, planes_all[c0:c0 + ck_stride], lut, density,
                        transfer_offset, transfer_scale)[..., 3]
         for k in range(a.shape[0]):
             T = T - torch.where(T >= 1.0 - thr, T, 0.0) * a[k]
+            acc_a = torch.where(acc_a > thr, acc_a,
+                                acc_a + a[k] * (1.0 - acc_a))
+    if live_tile is not None:
+        return torch.stack(rows), torch.stack(live), torch.stack(tied)
     return torch.stack(rows)
+
+
+#: how close to a cutoff a ray's alpha or T may lie for a kernel that rounds
+#: in another order to decide its liveness either way (the live map's ties)
+LIVE_TIE = 1e-6
+
+
+def _tile_any(mask: torch.Tensor, tile) -> torch.Tensor:
+    """uint8 ``(ceil(H / th), ceil(W / tw))``: 1 where some element of the
+    ``(th, tw)`` tile of the ``(H, W)`` mask is set."""
+    th, tw = tile
+    H, W = mask.shape
+    pad = torch.zeros((-(-H // th) * th, -(-W // tw) * tw), dtype=torch.bool,
+                      device=mask.device)
+    pad[:H, :W] = mask
+    return pad.reshape(pad.shape[0] // th, th, pad.shape[1] // tw,
+                       tw).any(3).any(1).to(torch.uint8)
 
 
 def sweep_p_total(
@@ -453,7 +571,7 @@ def sweep_p_total(
     march: MarchConfig = MarchConfig(), *, g, acc_init=None,
     dz_sign: int = -1, plane_spacing=None, length_correction: bool = True,
     plane_chunk: int = 8, tex_offset: float = 0.5, axis_scale=(1.0, 1.0),
-    filter_linear: bool = True,
+    filter_linear: bool = True, precision: str = "f32",
 ) -> torch.Tensor:
     """``P_total = sum_k m_k (g . c_k) T_{k-1}`` per ray for the image
     cotangent ``g (H, W, 4)``, T starting at ``1 - seed_a``: the ``(H, W)``
@@ -465,6 +583,7 @@ def sweep_p_total(
     chunk_rgba = _chunk_rgba_fn(
         n_planes, ny, nx, zs, origin, mx, my, march, dz_sign, plane_spacing,
         length_correction, tex_offset, axis_scale, filter_linear, dev,
+        precision=precision,
     )
     args = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in
             (tf_lut, density, transfer_offset, transfer_scale)]
