@@ -164,6 +164,10 @@ Phases (each prints its lines; any failure exits non-zero):
          "lut")``) and the materialized mean, against the plain bf16
          backward (JAX's transpose; 1e-3 relative L2), K4, K5 and the
          y-transpose kernel (``csrc/dplane_bf16.cu``) launched in bf16;
+         K5 + the transpose's decoded-plane cotangent also within the share
+         limit (``BF16_SHARE_LIMIT``), read beside a noise floor and
+         planted faults (the row sums or the cotangent unrounded, the f32
+         kernels), each of which must miss a limit;
          K4, K5 (with its transpose) and the transpose alone timed against
          their plain versions, the transpose also against ``torch.bmm`` of
          the bf16-rounded dense ``wy`` (its ``library_ms``); Mrays/s and
@@ -175,8 +179,8 @@ Phases (each prints its lines; any failure exits non-zero):
          against K4 without it in turns;
     12d. a 128^3 x 16 file through ``io/native.py
          read_histograms_bins_major`` (bf16 and f32), byte for byte the
-         Python reader's, both timed; ``render-hist`` must name the native
-         loader;
+         Python reader's, both timed in turns (host clock): the native load
+         must not be the slower, and ``render-hist`` must name it;
     12e. ``ViewerServer`` on port 0 over a ``RenderPipeline`` on the card
          (Isabel's 50 x 50 x 10 x 32 raw blocks, 512^2): four ``/frame``
          requests (one rotated, two ``fmt=rgb``) byte for byte the
@@ -214,6 +218,7 @@ repository, torch, numpy, nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -2954,6 +2959,54 @@ def phase_11(dev, card, smi, tf, work):
 BF16_SAMPLE_OPS = 20
 
 
+#: the bf16 backward's second limit, on the decoded-plane cotangent: at
+#: most BF16_SHARE_LIMIT of its nonzero entries off the plain bf16
+#: version's by more than BF16_SHARE_TAU of the entry. Where the kernels'
+#: f32 arithmetic differs from the plain version's in the last bits, the
+#: bf16 roundings turn a little of it into whole bf16 steps of a row sum;
+#: a skipped rounding moves a third or more of all entries, at a relative
+#: L2 within 1.4-2.1x of GRAD_TOL. 12b reads the kernel, a noise floor and
+#: planted faults at the main path's shape and fails if a fault passes
+#: both limits (on an H100: the kernel 0.11% at 8.1e-5, the floor 1.8%,
+#: the faults 33-94% at 1.4e-3 to 1.8e-2).
+BF16_SHARE_TAU = 2.0 ** -12
+BF16_SHARE_LIMIT = 0.08
+
+
+def share_off(got, ref, tau=BF16_SHARE_TAU):
+    """Share of the nonzero entries of ``ref`` that ``got`` misses by more
+    than ``tau`` of the entry."""
+    nz = ref != 0
+    return float(((got - ref).abs() > tau * ref.abs())[nz].float().mean())
+
+
+@contextlib.contextmanager
+def y_transpose_fault(sv, skip):
+    """A planted fault of the bf16 backward: K5's row buffer goes through the
+    plain y-transpose with one of JAX's roundings skipped (``'dtmp'``: the
+    row sums, ``'wy'``: the y weights), for every caller of
+    ``slice_vjp.dplane_bf16`` inside the block."""
+    import torch
+
+    def r(t):
+        return t.to(torch.bfloat16).float()
+
+    def transpose(wy, dtmp):
+        return torch.bmm((wy if skip == "wy" else r(wy)).transpose(1, 2),
+                         dtmp if skip == "dtmp" else r(dtmp))
+
+    def dplane(cfg, dtmp, d_planes):
+        d_planes.copy_(sv.dplane_bf16_reference(cfg, dtmp,
+                                                *d_planes.shape[:2]))
+
+    keep = sv.dplane_bf16, sv.bf16_y_transpose
+    sv.dplane_bf16, sv.bf16_y_transpose = dplane, transpose
+    try:
+        yield
+    finally:
+        sv.dplane_bf16, sv.bf16_y_transpose = keep
+
+
 def phase_12a(dev, card, smi, hist, tf, origin, n, B, W, counts):
     """K2 at precision='bf16' for mean, var and entropy on both fetch paths
     against the plain bf16 version; returns the kernel records."""
@@ -3038,12 +3091,12 @@ def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
     lut0 = torch.as_tensor(tf, device=dev)
     counters = diff_counters() + (sv.dplane_bf16,)
 
-    def fwd_bwd(route):
+    def fwd_bwd(route, precision="bf16"):
         h = hist.detach().requires_grad_()
         lut = lut0.clone().requires_grad_()
         img = sv.pallas_hist_render_diff(
             h, rows, origin, lut, width=W, height=W, stat=mode,
-            wrt=("hist", "lut"), route=route, precision="bf16")
+            wrt=("hist", "lut"), route=route, precision=precision)
         loss = torch.mean((img - 0.25) ** 2)
         return (loss, img) + torch.autograd.grad(loss, [h, lut])
 
@@ -3080,6 +3133,17 @@ def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
         rel_l2(gh, ghp, f"[{route}] bf16 d_hist vs plain bf16")
         rel_l2(gl, glp, f"[{route}] bf16 d_lut vs plain bf16")
         del loss, img, gh, gl
+    # witnesses: the same limit on kernels that skip JAX's roundings
+    for name in ("dtmp unrounded", "f32 kernel"):
+        if name == "f32 kernel":
+            gh = fwd_bwd("inkernel", "f32")[2]
+        else:
+            with y_transpose_fault(sv, name.split()[0]):
+                gh = fwd_bwd("inkernel")[2]
+        if rel_l2(gh, ghp, f"[witness: {name}] d_hist vs plain bf16",
+                  math.inf) <= GRAD_TOL:
+            print(f"  (the d_hist limit alone passes '{name}')")
+        del gh
     del lossp, imgp, ghp, glp
     for route in ("inkernel", "materialized"):
         torch.cuda.empty_cache()
@@ -3118,6 +3182,13 @@ def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
         rel_l2(got[s][1], small_r, f"K5 bf16 d_lut, {path}")
     bitwise(got[True][1], got[False][1], "K5 bf16 d_lut staged vs direct")
     k5_err = float((got[True][0] - d_r).abs().max())
+    for s in (True, False):
+        share = share_off(got[s][0], d_r)
+        print(f"  K5+transpose bf16 d_dec, {'staged' if s else 'direct'}: "
+              f"{share:.4%} of entries off by more than 2^-12")
+        if share > BF16_SHARE_LIMIT:
+            fail(f"12b: the bf16 d_dec is off on {share:.4%} of its entries")
+    bf16_witnesses(dev, sv, args, g, tck, flags, got[True][0], d_r)
     del got, d_r
 
     # the transpose kernel on a row buffer of the main path's shape
@@ -3128,7 +3199,10 @@ def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
     tr_ms = time_ms(lambda: sv.dplane_bf16(cfg, dtmp, d_planes), TIMED_RUNS)
     tr_plain_ms, d_ref = timed_once(
         lambda: sv.dplane_bf16_reference(cfg, dtmp, n, ny))
-    tr_err = rel_l2(d_planes, d_ref, "transpose kernel vs plain", 1e-6)
+    tr_rel = rel_l2(d_planes, d_ref, "transpose kernel vs plain", 1e-6)
+    tr_err = float((d_planes - d_ref).abs().max())
+    print(f"  transpose kernel vs plain: max_abs_err {tr_err:.3e} (entries "
+          f"up to {float(d_ref.abs().max()):.3e})")
     del d_ref
     # the library call on the same function: torch.bmm of the bf16-rounded
     # dense wy (the plain version's) and dtmp, f32 accumulation
@@ -3185,6 +3259,111 @@ def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
     return records
 
 
+def where_off(d, ref, what, tau=2.0 ** -8):
+    """Where ``d`` misses ``ref`` by more than ``tau`` of the entry: the
+    count, the share of the squared L2 gap they carry, their layers and y
+    edges, and the five largest misses."""
+    import torch
+
+    diff = d - ref
+    off = (diff.abs() > tau * ref.abs()) & (ref != 0)
+    idx = off.nonzero()
+    gap2 = float((diff.double() ** 2).sum())
+    off2 = float((diff[off].double() ** 2).sum())
+    mag = ref.abs()
+    print(f"  {what}: {idx.shape[0]} entries off by > {tau:g} carry "
+          f"{off2 / max(gap2, 1e-300):.2%} of the squared gap; their median "
+          f"|entry| {float(mag[off].median()) if idx.shape[0] else 0.0:.3e}"
+          f" against {float(mag[ref != 0].median()):.3e} over all nonzero "
+          f"entries (rms {float(ref.double().pow(2).mean().sqrt()):.3e})")
+    if idx.shape[0] == 0:
+        return
+    z, y, x = idx.unbind(1)
+    ny, nx = d.shape[1:]
+    print(f"    layers {int(z.min())}-{int(z.max())} "
+          f"({int(torch.unique(z).numel())} distinct), y edge "
+          f"{float(((y == 0) | (y == ny - 1)).float().mean()):.2%}, x edge "
+          f"{float(((x == 0) | (x == nx - 1)).float().mean()):.2%}")
+    flat = diff.abs().reshape(-1)
+    for i in torch.topk(flat, 5).indices.tolist():
+        zz, rem = divmod(i, ny * nx)
+        yy, xx = divmod(rem, nx)
+        print(f"    ({zz}, {yy}, {xx}): {float(d[zz, yy, xx]):.6e} vs "
+              f"{float(ref[zz, yy, xx]):.6e}")
+
+
+def bf16_witnesses(dev, sv, args, g, tck, flags, d_dec, d_ref):
+    """K5 + the transpose's decoded-plane cotangent ``d_dec`` against the
+    plain bf16 version's ``d_ref``, beside what the limits must tell apart:
+    the noise floor (the plain bf16 backward against itself, its cotangent
+    perturbed so that the plain f32 backward moves by the kernels' f32 gap)
+    and kernels that skip JAX's roundings (a planted transpose fault, the
+    f32 kernels). Fails if the kernel or the floor misses the share limit,
+    or if a fault meets both limits."""
+    import dataclasses
+
+    import torch
+
+    from vrdd_tpu_torch.march import slice as ms
+
+    def _d_res_unrounded(ctx, d_res):
+        wy, wx = ctx.saved_tensors
+        return None, ms.bf16_y_transpose(wy, torch.bmm(d_res, wx)), None
+
+    cfg = args[0]
+    args32 = (dataclasses.replace(cfg, precision="f32"),) + args[1:]
+    got = {"kernel": d_dec}
+    with y_transpose_fault(sv, "dtmp"):
+        got["dtmp unrounded"] = sv.sweep_bwd(*args, g, tck, *flags)[0]
+    _, tck32 = sv.sweep_fwd_ckpt(*args32)
+    got["f32 kernel"] = sv.sweep_bwd(*args32, g, tck32, *flags)[0]
+    del tck32
+    d32 = sv.sweep_bwd_reference(*args32, g, *flags)[0]
+    gap = rel_l2(got["f32 kernel"], d32, "f32 K5 vs plain f32 d_dec (the "
+                 "kernels' f32 gap)", math.inf)
+    where_off(got["f32 kernel"], d32, "f32 K5 vs plain f32")
+    where_off(d_dec, d_ref, "bf16 K5 vs plain bf16")
+    noise = torch.randn(g.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(9))
+    eps0 = 2.0 ** -16
+    r0 = rel_l2(sv.sweep_bwd_reference(*args32, g * (1 + eps0 * noise),
+                                       *flags)[0], d32,
+                f"plain f32 d_dec, cotangent x (1 + {eps0:g} N)", math.inf)
+    eps = eps0 * gap / r0
+    del d32
+    got["noise floor"] = sv.sweep_bwd_reference(
+        *args, g * (1 + eps * noise), *flags)[0]
+    print(f"  noise floor: the cotangent x (1 + {eps:.3e} N) moves the plain "
+          f"f32 d_dec by the f32 gap {gap:.3e}")
+    keep = ms._Bf16Resample.backward
+    ms._Bf16Resample.backward = staticmethod(_d_res_unrounded)
+    try:
+        got["d_res unrounded (plain)"] = sv.sweep_bwd_reference(
+            *args, g, *flags)[0]
+    finally:
+        ms._Bf16Resample.backward = keep
+    readings = {}
+    for name, d in got.items():
+        rel = rel_l2(d, d_ref, f"[{name}] d_dec vs plain bf16", math.inf)
+        shares = {t: share_off(d, d_ref, 2.0 ** -t) for t in (14, 12, 10, 8)}
+        readings[name] = (rel, shares[12])
+        print(f"  [{name}] d_dec entries off by more than 2^-k of the entry: "
+              + ", ".join(f"k={t}: {v:.4%}" for t, v in shares.items()))
+    del got
+    torch.cuda.empty_cache()
+    limit = f"{BF16_SHARE_LIMIT:.0%} of entries off by 2^-12"
+    if readings["kernel"][1] > BF16_SHARE_LIMIT:
+        fail(f"12b: the bf16 d_dec misses the limit ({limit})")
+    if readings["noise floor"][1] > BF16_SHARE_LIMIT:
+        fail(f"12b: the noise floor misses the limit ({limit}): the limit "
+             "would fail a correct kernel")
+    for name in ("dtmp unrounded", "f32 kernel", "d_res unrounded (plain)"):
+        rel, share = readings[name]
+        if share <= BF16_SHARE_LIMIT and rel <= GRAD_TOL:
+            fail(f"12b: the planted fault '{name}' passes both limits")
+    return readings
+
+
 def phase_12c(dev, card, smi, hist, tf, origin, n, B, W):
     """K4's live map and live_fractions on the decoded mean channel at
     density 0.05 and 0.2: the kernel's bytes (both paths) against the plain
@@ -3217,10 +3396,15 @@ def phase_12c(dev, card, smi, hist, tf, origin, n, B, W):
                  f"{launches}")
         got = {s: sv.sweep_fwd_ckpt(*args, staged=s, live_map=True)
                for s in (True, False)}
-        plain_ms, (_, _, live_r, tied) = timed_once(
+        plain_ms, (img_r, tck_r, live_r, tied) = timed_once(
             lambda: sv.sweep_fwd_ckpt_reference(*args, live_map=True))
+        err = 0.0
         for s in (True, False):
             path = "staged" if s else "direct"
+            err = max(err, compare(got[s][0], img_r, f"K4 with the map, "
+                                   f"{path}: image vs plain"))
+            compare(got[s][1][..., None], tck_r[..., None],
+                    f"K4 with the map, {path}: checkpoints vs plain")
             live = got[s][2]
             differ = (live != live_r) & (tied == 0)
             print(f"  K4 live map, {path}: {int((live != live_r).sum())} of "
@@ -3238,7 +3422,7 @@ def phase_12c(dev, card, smi, hist, tf, origin, n, B, W):
         bitwise(got[True][0], plain_img, "K4 image with the map vs without")
         bitwise(got[True][1], plain_tck, "K4 checkpoints with the map vs "
                 "without")
-        del got, live_r, tied, plain_img, plain_tck
+        del got, img_r, tck_r, live_r, tied, plain_img, plain_tck
         # in turns: without, with, with, without (each on the staged path)
         t = {False: [], True: []}
         for with_map in (False, True, True, False):
@@ -3258,7 +3442,7 @@ def phase_12c(dev, card, smi, hist, tf, origin, n, B, W):
             "name": f"sweep_fwd_ckpt[live,density {density}]",
             "route": "cuda", "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
             "replaces": "vrdd_tpu/pallas/slice_vjp.py:714",
-            "launches": launches[1], "max_abs_err": 0.0, "ms": ms,
+            "launches": launches[1], "max_abs_err": err, "ms": ms,
             "no_map_ms": ms_plain_k4, "plain_ms": plain_ms, **bd,
         })
     del mean_vol
@@ -3287,17 +3471,21 @@ def phase_12d(work):
     formats.write_raw_histograms(str(path), random_histogram_volume(
         (n, n, n), n_bins=B, seed=3).reshape(-1, B))
     for dtype in ("bfloat16", "float32"):
-        t0 = time.perf_counter()
-        got = native.read_histograms_bins_major(str(path), (n, n, n), B,
-                                                dtype=dtype)
-        t1 = time.perf_counter()
-        ref = formats.read_histograms_bins_major(str(path), (n, n, n), B,
-                                                 dtype=dtype)
-        t2 = time.perf_counter()
-        if not torch.equal(got, ref):
+        ms, out = {"native": [], "python": []}, {}
+        for which in ("native", "python", "python", "native"):  # in turns
+            reader = native if which == "native" else formats
+            t0 = time.perf_counter()
+            out[which] = reader.read_histograms_bins_major(
+                str(path), (n, n, n), B, dtype=dtype)
+            ms[which].append(1e3 * (time.perf_counter() - t0))
+        if not torch.equal(out["native"], out["python"]):
             fail(f"12d: native {dtype} load differs from the Python reader")
-        print(f"  {dtype}: native {1e3 * (t1 - t0):.1f} ms, python "
-              f"{1e3 * (t2 - t1):.1f} ms, bytes equal (host clock)")
+        del out
+        print(f"  {dtype}: native {ms['native']} ms, python {ms['python']} "
+              f"ms, bytes equal (host clock, in turns)")
+        if sum(ms["native"]) > sum(ms["python"]):
+            fail(f"12d: the native {dtype} load is slower than the Python "
+                 "reader, which render-hist would then take")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(["render-hist", "--hist-file", str(path), "--dims",

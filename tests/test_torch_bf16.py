@@ -30,6 +30,8 @@ from vrdd_tpu.pallas import slice_vjp as jv
 from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
 from vrdd_tpu_torch.kernels import slice_kernel as tk
 from vrdd_tpu_torch.kernels import slice_vjp as tv
+from vrdd_tpu_torch.march import slice as ms
+from vrdd_tpu_torch.march.slice import bf16_y_transpose
 
 TF = default_transfer_function()
 O = np.array([0.0, 0.0, 4.0], np.float32)
@@ -167,6 +169,75 @@ def test_hist_backward_bf16_matches_jax_grad(route):
             assert max(errs) <= GRAD_TOL, errs
         else:
             assert errs[0] > 10 * GRAD_TOL, errs
+
+
+#: chip_smoke.py 12b's second limit on the bf16 decoded-plane cotangent:
+#: at most 8% of its nonzero entries off by more than 2^-12 of the entry
+SHARE_TAU, SHARE_LIMIT = 2.0 ** -12, 0.08
+
+
+def _share_off(got, ref) -> float:
+    nz = ref != 0
+    return float(((got - ref).abs() > SHARE_TAU * ref.abs())[nz]
+                 .float().mean())
+
+
+def _d_res_unrounded(ctx, d_res):
+    """_Bf16Resample.backward with the cotangent's rounding skipped."""
+    wy, wx = ctx.saved_tensors
+    return None, bf16_y_transpose(wy, torch.bmm(d_res, wx)), None
+
+
+@pytest.mark.parametrize("case", ["noise floor", "dtmp unrounded",
+                                  "d_res unrounded", "f32"])
+def test_bf16_share_limit_tells_noise_from_a_skipped_rounding(case,
+                                                              monkeypatch):
+    """The plain bf16 backward at 48^3 x 16 -> 96^2 (mean) against itself
+    with the cotangent perturbed so that the f32 backward moves by 3.5e-5
+    relative L2 (the kernels' f32 gap on the card): within the share limit
+    (measured 1.7% of entries, at 3.6e-4 relative L2). With one of JAX's
+    roundings skipped, or in f32, many more entries move (measured: the row
+    sums unrounded 86.8% at 1.3e-3, the cotangent unrounded 37.1% at
+    1.8e-3, f32 94.0% at 1.6e-2), though the first two read within 2x of
+    the 1e-3 relative L2 limit."""
+    from vrdd_tpu_torch.io.synthetic import blob_histogram_volume
+
+    hist = blob_histogram_volume(48, 16, dtype=torch.bfloat16, device="cpu")
+    rows, mode = tk.decode_weight_rows("mean", 16, family="unit")
+
+    def args(prec):
+        cfg = tv.render_config(hist.shape, O, stat=mode, width=96,
+                               height=96, precision=prec)
+        return (cfg, hist, torch.as_tensor(rows), torch.as_tensor(TF),
+                torch.tensor(0.05), torch.tensor(0.0), torch.tensor(1.0))
+
+    a16, a32, flags = args("bf16"), args("f32"), (True, False, False)
+    img, _ = tv.sweep_fwd_ckpt(*a16)
+    g = (2.0 / img.numel()) * (img - 0.25)
+    ref = tv.sweep_bwd_reference(*a16, g, *flags)[0]
+    if case == "noise floor":
+        d32 = tv.sweep_bwd_reference(*a32, g, *flags)[0]
+        noise = torch.randn(g.shape, generator=torch.Generator().manual_seed(9))
+        moved = tv.sweep_bwd_reference(*a32, g * (1 + 2.0 ** -16 * noise),
+                                       *flags)[0]
+        eps = 2.0 ** -16 * 3.5e-5 / _rel_l2(moved, d32)
+        got = tv.sweep_bwd_reference(*a16, g * (1 + eps * noise), *flags)[0]
+    elif case == "f32":
+        got = tv.sweep_bwd_reference(*a32, g, *flags)[0]
+    else:
+        if case == "dtmp unrounded":
+            monkeypatch.setattr(ms, "bf16_y_transpose", lambda wy, dtmp: (
+                torch.bmm(ms._bf16(wy).transpose(1, 2), dtmp)))
+        else:
+            monkeypatch.setattr(ms._Bf16Resample, "backward",
+                                staticmethod(_d_res_unrounded))
+        got = tv.sweep_bwd_reference(*a16, g, *flags)[0]
+    assert float(ref.abs().max()) > 0.0, "vacuous: zero cotangent"
+    share = _share_off(got, ref)
+    if case == "noise floor":
+        assert 0.0 < share <= SHARE_LIMIT, share
+    else:
+        assert share > SHARE_LIMIT, share
 
 
 def test_bf16_route_auto_resolves_and_runs():

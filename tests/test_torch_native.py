@@ -144,6 +144,32 @@ def test_bins_major_load_matches(nat, tmp_path, dtype):
         nat.read_histograms_bins_major(path, (nz, ny, nx), B, dtype="int8")
 
 
+def test_bins_major_rounds_specials_as_torch(nat, tmp_path):
+    """bf16 rounding of infinities, ties, denormals and the largest finite
+    values is torch's, bit for bit, over enough layers to split across
+    threads; every NaN stays a NaN (torch's NaN bits differ by CPU path),
+    the all-ones one included, which a bare round-to-nearest-even carries
+    into -0."""
+    nan_bits = np.array([0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001], np.uint32)
+    specials = np.array([*nan_bits.view(np.float32), np.inf, -np.inf, 0.0, -0.0,
+                         np.finfo(np.float32).max, 1.00390625, 1.01171875,
+                         -1.00390625, 3e-41], np.float32)
+    nz, ny, nx, B = 9, 3, 7, 4
+    rng = np.random.default_rng(5)
+    flat = rng.standard_normal(nz * ny * nx * B).astype(np.float32)
+    flat[rng.choice(flat.size, 4 * specials.size, replace=False)] = np.tile(
+        specials, 4)
+    path = str(tmp_path / "specials.bin")
+    flat.tofile(path)
+    got = nat.read_histograms_bins_major(path, (nz, ny, nx), B)
+    ref = formats.read_histograms_bins_major(path, (nz, ny, nx), B)
+    nan = torch.isnan(ref)
+    assert int(nan.sum()) == 4 * nan_bits.size
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int16)[~nan],
+                       ref.view(torch.int16)[~nan])
+
+
 def _bad_templates(path):
     jformats.write_templates(path, np.array([[0.5, 1.5]], np.float32))
     return lambda m: m.read_templates(path, 2)
@@ -162,6 +188,11 @@ def _truncated_raw(path):
     return lambda m: m.read_raw_histograms(path, 4, 8)
 
 
+def _truncated_bins_major(path):
+    np.zeros(5 * 2 * 3 * 4 - 7, np.float32).tofile(path)
+    return lambda m: m.read_histograms_bins_major(path, (5, 2, 3), 4)
+
+
 def _missing_file(path):
     return lambda m: m.read_span_list(path + ".missing")
 
@@ -169,6 +200,7 @@ def _missing_file(path):
 BAD = {"templates out of range": _bad_templates,
        "duplicate codebook bins": _dup_codebook,
        "truncated raw blob": _truncated_raw,
+       "truncated bins-major blob": _truncated_bins_major,
        "missing file": _missing_file}
 
 

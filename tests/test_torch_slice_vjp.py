@@ -335,3 +335,61 @@ def test_build_hash_covers_headers(tmp_path):
     src = csrc / "slice_vjp.cu"
     src.write_bytes(src.read_bytes() + b"\n")
     assert _build._source_hash(csrc) not in (before, after)
+
+
+def test_freeze_threshold_is_jax_value():
+    """K4 and K5 freeze a ray once T < 1 - threshold, with 1 - threshold
+    formed as JAX's kernel forms it (the Python float against an f32 T,
+    vrdd_tpu/pallas/slice_vjp.py:426) and as the plain versions compare:
+    f32(1 - 0.95). 1.0f - 0.95f lies three ulps higher; rays whose T fell
+    between the two froze one sample early on the card, moving the
+    cotangents of their every sample through P_total."""
+    cfg = tv.render_config((16, 24, 24), O, width=32, height=16)
+    p = _build.SweepParams(n_lut=8, **cfg.params(
+        torch.zeros(16, 24, 24), None, 0.05, 0.0, 1.0))
+    thr = cfg.march.opacity_threshold
+    assert p.threshold == np.float32(thr)
+    assert p.thr1 == np.float32(1.0 - thr)
+    assert p.thr1 < np.float32(1.0) - np.float32(thr)
+    below = np.nextafter(np.float32(p.thr1), np.float32(0.0))
+    t = np.array([p.thr1, below], np.float32)
+    assert (torch.from_numpy(t) >= 1.0 - thr).tolist() == [True, False]
+    assert np.asarray(jnp.asarray(t) >= 1.0 - thr).tolist() == [True, False]
+
+
+def test_lut_slope_at_a_knot_is_jax_kernels():
+    """A constant 0.5 volume puts the samples on the TF's knot q = 4 (0.5 x
+    9 - 0.5, exact): the plain K5 (d_volume, d_toff, d_tscl) takes JAX's
+    fused VJP's slope there, the interval below the knot
+    (vrdd_tpu/pallas/slice_vjp.py:466), as the CUDA K5 does. Autograd
+    through the tent would add both intervals' slopes; JAX's own
+    march/slice reference (jax.grad of jnp.maximum) takes their mean."""
+    vol = np.full((16, 16, 16), 0.5, np.float32)
+    kw = dict(width=32, height=24, n_planes=16)
+    # a 9-knot LUT whose slopes change at every knot, in every channel
+    ramp = np.array([0.0, 0.1, 0.3, 0.6, 1.0, 0.9, 0.5, 0.2, 0.0], np.float32)
+    lut = np.stack([ramp, ramp[::-1], ramp ** 2, 0.1 + 0.5 * ramp], -1)
+
+    def jloss(v, lut, to, ts):
+        img = jv.pallas_slice_render_diff(v, jnp.asarray(O), lut, 0.3, 1.0,
+                                          to, ts, **kw)
+        return jnp.sum(img ** 2)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+            jnp.asarray(vol), jnp.asarray(lut), jnp.float32(0.0),
+            jnp.float32(1.0))
+    leaves = [torch.tensor(vol, requires_grad=True),
+              torch.tensor(lut, requires_grad=True),
+              torch.tensor(0.0, requires_grad=True),
+              torch.tensor(1.0, requires_grad=True)]
+    img = tv.pallas_slice_render_diff(leaves[0], O, leaves[1], 0.3, 1.0,
+                                      leaves[2], leaves[3], **kw)
+    got = torch.autograd.grad(torch.sum(img ** 2), leaves)
+    assert float(np.abs(np.asarray(ref[0])).max()) > 0.0, "vacuous"
+    for name, g, r in zip(("volume", "lut", "toff", "tscl"), got, ref):
+        assert mre(g.numpy(), r) < 5e-4, name
+    jref = jax.grad(lambda v: jnp.sum(jslice.slice_render_image(
+        v, jnp.asarray(O), 32, 24, jnp.asarray(lut), 0.3, 1.0, 0.0, 1.0,
+        n_planes=16) ** 2))(jnp.asarray(vol))
+    assert mre(got[0].numpy(), jref) > 0.1  # the reference's mean slope

@@ -111,9 +111,13 @@ __device__ __forceinline__ float reverse_sample(
   if (g_par) st.d_dens = __fmaf_rn(__fmul_rn(d_open, ca), ascale, st.d_dens);
   if (g_lut) run.add(tn, mta, gv, d_ca, col);
   if (!want_dres || !(tn.qraw > 0.0f && tn.qraw < nl - 1.0f)) return 0.0f;
-  // inside the clamp the lookup's slope is lut[l1] - lut[l0]
-  const float* L0 = s_lut + 4 * tn.l0;
-  const float* L1 = s_lut + 4 * tn.l1;
+  // inside the clamp the lookup's slope is that of the knot interval below
+  // q, JAX's c_0 + sum_l c_l [q > l] (vrdd_tpu/pallas/slice_vjp.py:466): at
+  // a knot (q an integer, frequent in the bf16 mode) the interval that ends
+  // there, not the one that starts there
+  const int ls = tn.qraw == floorf(tn.qraw) ? tn.l0 - 1 : tn.l0;
+  const float* L0 = s_lut + 4 * ls;
+  const float* L1 = L0 + 4;
   const float grgb = __fmaf_rn(
       gv.z, __fsub_rn(L1[2], L0[2]),
       __fmaf_rn(gv.y, __fsub_rn(L1[1], L0[1]),

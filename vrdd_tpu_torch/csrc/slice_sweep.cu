@@ -217,7 +217,7 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
   const Ray ray = make_ray(p, i, j);
   const size_t pix = (size_t)i * p.width + j;
   const size_t hw = (size_t)p.height * p.width;
-  const float thr1 = __fsub_rn(1.0f, p.threshold);
+  const float thr1 = p.thr1;
   // ESS: this block's byte of the next chunk (chunk c is c * ess_stride
   // bytes after chunk 0), read when the plane loop reaches ess_next
   const unsigned char* ess_cur =
@@ -322,7 +322,7 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
                           min(j0 + (int)blockDim.x, p.width) - 1);
   const size_t pix = valid ? (size_t)i * p.width + j : 0;
   const size_t hw = (size_t)p.height * p.width;
-  const float thr1 = __fsub_rn(1.0f, p.threshold);
+  const float thr1 = p.thr1;
   const unsigned char* ess_blk =
       ess == nullptr ? nullptr
                      : ess + (size_t)blockIdx.y * gridDim.x + blockIdx.x;

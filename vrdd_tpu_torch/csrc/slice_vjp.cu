@@ -111,7 +111,7 @@ slice_bwd_kernel(const SweepParams p, const BwdParams bp,
     const size_t pix = (size_t)i * p.width + j;
     const size_t hw = (size_t)p.height * p.width;
     const float4 gv = reinterpret_cast<const float4*>(g)[pix];
-    const float thr1 = __fsub_rn(1.0f, p.threshold);
+    const float thr1 = p.thr1;
     const size_t plane_elems = (size_t)p.ny * (size_t)p.nx;
     const bool g_lut = GSMALL && bp.g_lut;
     const bool g_par = GSMALL && bp.g_params;

@@ -115,7 +115,7 @@ slice_bwd_staged(const SweepParams p, const BwdParams bp,
   const size_t plane_elems = (size_t)p.ny * (size_t)p.nx;
   const float4 gv = valid ? reinterpret_cast<const float4*>(g)[pix]
                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float thr1 = __fsub_rn(1.0f, p.threshold);
+  const float thr1 = p.thr1;
   const bool g_lut = GSMALL && bp.g_lut;
   const bool g_par = GSMALL && bp.g_params;
   RevState st{0.0f, 0.0f, 0.0f, 0.0f};

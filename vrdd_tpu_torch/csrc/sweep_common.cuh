@@ -27,6 +27,11 @@ struct SweepParams {
   float mx0, dmx, my0, dmy;
   float xlo, ylo, xhi, yhi;
   float tstep, threshold, tex_offset, sx, sy;
+  // 1 - threshold, formed on the host in double and rounded once: the
+  // freeze test T >= 1 - thr compares with JAX's value (an f32 T against
+  // the Python float, vrdd_tpu/pallas/slice_vjp.py:426), which at 0.95 lies
+  // three ulps below 1.0f - 0.95f
+  float thr1;
   int height, width, ny, nx;
   int n_planes, n_layers, n_lut, n_bins, n_rows;
   int dz_sign, reverse, length_correction, filter_linear;
@@ -283,7 +288,8 @@ __device__ __forceinline__ float alpha_raw(float ca, float density,
 }
 
 // One step of the backward's transmittance recursion
-// T <- T - [T >= 1 - thr] T a  (thr1 = 1 - thr), the same in K4 and K5.
+// T <- T - [T >= 1 - thr] T a  (thr1 = SweepParams.thr1), the same in K4
+// and K5.
 __device__ __forceinline__ float t_step(float T, float a, float thr1) {
   return T >= thr1 ? __fsub_rn(T, __fmul_rn(T, a)) : T;
 }

@@ -11,11 +11,13 @@
 // the reference's checks (span ordering, frequency ranges, sum-to-one) and is
 // reported through negative return codes instead of printf + exit.
 
+#include <algorithm>
 #include <cctype>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -38,6 +40,29 @@ struct File {
   }
   bool skip(long bytes) { return std::fseek(fp, bytes, SEEK_CUR) == 0; }
 };
+
+// bins-major load helpers (vrdd_read_histograms_bins_major)
+
+inline uint16_t to_bf16(float v) {
+  uint32_t bits;
+  std::memcpy(&bits, &v, 4);
+  if ((bits & 0x7FFFFFFFu) > 0x7F800000u) return 0x7FC0u;
+  // round to nearest even on the dropped 16 bits
+  return static_cast<uint16_t>((bits + 0x7FFFu + ((bits >> 16) & 1u)) >> 16);
+}
+
+template <typename T, typename Cvt>
+void transpose_layer(const float* layer, long ny, long nx, long n_bins,
+                     T* out_z, Cvt cvt) {
+  for (long y = 0; y < ny; ++y) {
+    const float* row = layer + static_cast<size_t>(y) * nx * n_bins;
+    for (long b = 0; b < n_bins; ++b) {
+      T* dst = out_z + (b * ny + y) * nx;
+      const float* src = row + b;
+      for (long x = 0; x < nx; ++x) dst[x] = cvt(src[x * n_bins]);
+    }
+  }
+}
 
 }  // namespace
 
@@ -324,41 +349,61 @@ long vrdd_compare_ppm(const uint8_t* rgb, const char* ref_path, int w, int h,
 // volumeRender.cpp:583-597) and emit it TRANSPOSED to the framework's
 // bins-MAJOR device layout (nz, n_bins, ny, nx) — the layout the fused
 // in-kernel decode streams (kernels/slice_kernel.py pallas_hist_render:
-// a voxel's bins sit one (ny, nx) plane apart). Doing the
-// transpose during the sequential file read costs one strided store per
-// element and avoids materializing a second full-size array in Python.
-// out_bf16 != 0: emit IEEE bfloat16 (round-to-nearest-even) into `out`
-// reinterpreted as uint16 — bf16 histogram storage is the kernel's
-// throughput default (half the HBM stream).
+// a voxel's bins sit one (ny, nx) plane apart). Up to 8 threads each take
+// a range of z-layers with a file handle of their own; a layer is read in
+// one fread, then transposed a voxel row at a time: for each bin the row's
+// nx values are gathered from the cache-resident row and stored
+// contiguously, so every store stream is sequential. No second full-size
+// array exists.
+// out_bf16 != 0: emit IEEE bfloat16 (round-to-nearest-even, NaN to the
+// quiet 0x7FC0, as torch rounds) into `out` reinterpreted as uint16 —
+// bf16 histogram storage is the kernel's throughput default (half the
+// HBM stream).
 
 int vrdd_read_histograms_bins_major(const char* path, long nz, long ny,
                                     long nx, long n_bins, int out_bf16,
                                     void* out) {
-  File f(path);
-  if (!f.ok()) return kErrOpen;
-  std::vector<float> row(static_cast<size_t>(nx) * n_bins);
-  float* out_f = static_cast<float*>(out);
-  uint16_t* out_h = static_cast<uint16_t*>(out);
-  for (long z = 0; z < nz; ++z) {
-    for (long y = 0; y < ny; ++y) {
-      if (!f.read(row.data(), row.size())) return kErrTruncated;
-      for (long x = 0; x < nx; ++x) {
-        for (long b = 0; b < n_bins; ++b) {
-          const float v = row[static_cast<size_t>(x) * n_bins + b];
-          const long idx = ((z * n_bins + b) * ny + y) * nx + x;
-          if (out_bf16) {
-            uint32_t bits;
-            std::memcpy(&bits, &v, 4);
-            // round to nearest even on the dropped 16 bits
-            const uint32_t rounded =
-                bits + 0x7FFFu + ((bits >> 16) & 1u);
-            out_h[idx] = static_cast<uint16_t>(rounded >> 16);
-          } else {
-            out_f[idx] = v;
-          }
-        }
+  const size_t plane = static_cast<size_t>(ny) * nx;
+  const size_t layer_floats = plane * n_bins;
+  // z-ranges on up to 8 threads, each with its own file handle and layer
+  const long n_threads = std::max(1L, std::min<long>(
+      {nz, 8L, static_cast<long>(std::thread::hardware_concurrency())}));
+  std::vector<int> rcs(n_threads, 0);
+  auto work = [&](long t) {
+    const long z0 = nz * t / n_threads, z1 = nz * (t + 1) / n_threads;
+    File f(path);
+    if (!f.ok()) {
+      rcs[t] = kErrOpen;
+      return;
+    }
+    if (std::fseek(f.fp, static_cast<long>(z0 * layer_floats * 4),
+                   SEEK_SET) != 0) {
+      rcs[t] = kErrTruncated;
+      return;
+    }
+    std::vector<float> layer(layer_floats);
+    for (long z = z0; z < z1; ++z) {
+      if (!f.read(layer.data(), layer.size())) {
+        rcs[t] = kErrTruncated;
+        return;
+      }
+      const size_t off = static_cast<size_t>(z) * n_bins * plane;
+      if (out_bf16) {
+        transpose_layer(layer.data(), ny, nx, n_bins,
+                        static_cast<uint16_t*>(out) + off, to_bf16);
+      } else {
+        transpose_layer(layer.data(), ny, nx, n_bins,
+                        static_cast<float*>(out) + off,
+                        [](float v) { return v; });
       }
     }
+  };
+  std::vector<std::thread> pool;
+  for (long t = 1; t < n_threads; ++t) pool.emplace_back(work, t);
+  work(0);
+  for (auto& th : pool) th.join();
+  for (int rc : rcs) {
+    if (rc != 0) return rc;
   }
   return 0;
 }

@@ -11,10 +11,11 @@ nothing. The readers have the signatures, semantics and validation of
 :func:`available` is False and callers take the Python readers.
 
 ``read_histograms_bins_major`` transposes to the bins-major device layout
-during the sequential read and rounds to bf16 there (to nearest even, as
-``torch.Tensor.to(torch.bfloat16)``), so no full-size float32 copy or
-Python transpose exists; it returns a CPU tensor, as the Python reader
-does.
+as it reads (up to 8 threads, each a range of z-layers: one read a layer,
+then a voxel row at a time into contiguous per-bin runs) and rounds to bf16
+there (to nearest even, as ``torch.Tensor.to(torch.bfloat16)``), so no
+full-size float32 copy or Python transpose exists; it returns a CPU
+tensor, as the Python reader does.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "vrdd_io.cpp"
 #: where the library is built; tests point it at a temporary directory
 BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall",
+             "-Wextra")
 
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
@@ -131,7 +133,7 @@ def read_histograms_bins_major(path: str, dims, n_bins: int,
                                dtype="bfloat16") -> torch.Tensor:
     """Block-histogram blob -> bins-major ``(nz, n_bins, ny, nx)`` CPU
     tensor in ``dtype`` ('bfloat16' / 'bf16' or 'float32'), transposed and
-    rounded by the C++ reader during the sequential read (see
+    rounded by the C++ reader as it reads (see
     ``formats.read_histograms_bins_major``)."""
     nz, ny, nx = (int(d) for d in dims)
     if str(dtype) in ("bfloat16", "bf16"):

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 _FLOAT_FIELDS = (
     "ox", "oy", "oz", "density", "brightness", "tf_off", "tf_scale",
     "spacing", "mx0", "dmx", "my0", "dmy", "xlo", "ylo", "xhi", "yhi",
-    "tstep", "threshold", "tex_offset", "sx", "sy",
+    "tstep", "threshold", "tex_offset", "sx", "sy", "thr1",
 )
 _INT_FIELDS = (
     "height", "width", "ny", "nx", "n_planes", "n_layers", "n_lut",

@@ -634,6 +634,7 @@ def _sweep_params(origin, slopes, density, brightness, transfer_offset,
         xlo=march.box_min[0], ylo=march.box_min[1],
         xhi=march.box_max[0], yhi=march.box_max[1],
         tstep=march.tstep, threshold=march.opacity_threshold,
+        thr1=1.0 - float(march.opacity_threshold),
         tex_offset=float(tex_offset), sx=float(axis_scale[0]),
         sy=float(axis_scale[1]), height=int(height), width=int(width),
         ny=int(ny), nx=int(nx), n_planes=int(n_planes),

@@ -128,20 +128,52 @@ def bf16_y_transpose(wy: torch.Tensor, dtmp: torch.Tensor) -> torch.Tensor:
     return torch.bmm(_bf16(wy).transpose(1, 2), _bf16(dtmp))
 
 
+class _TentLookup(torch.autograd.Function):
+    """``col = sum_l max(0, 1 - |q - l|) lut[l]`` at the clamped coordinate
+    ``q (...,)`` -> ``(..., 4)``, with JAX's kernel's derivative in ``q``
+    (vrdd_tpu/pallas/slice_vjp.py:466): the slope of the knot interval below
+    ``q``, ``lut[ceil(q)] - lut[ceil(q) - 1]``, for ``0 < q < n - 1`` and 0
+    at the clamp's ends. At a knot (an integer ``q``: frequent in the bf16
+    mode) that is the interval ending there; autograd through the tent would
+    add both intervals' slopes. The LUT's cotangent is the tent weights'."""
+
+    @staticmethod
+    def forward(ctx, q, lut):
+        ctx.save_for_backward(q, lut)
+        col = None
+        for li in range(lut.shape[0]):
+            w = torch.clamp(1.0 - torch.abs(q - li), min=0.0)[..., None]
+            term = w * lut[li]
+            col = term if col is None else col + term
+        return col
+
+    @staticmethod
+    def backward(ctx, g):
+        q, lut = ctx.saved_tensors
+        n = lut.shape[0]
+        d_q = d_lut = None
+        if ctx.needs_input_grad[0]:
+            ls = (torch.ceil(q) - 1.0).clamp(0, n - 2).long()
+            slope = lut[ls + 1] - lut[ls]
+            d_q = torch.where((q > 0.0) & (q < n - 1.0),
+                              (g * slope).sum(-1), 0.0)
+        if ctx.needs_input_grad[1]:
+            d_lut = torch.stack([
+                (torch.clamp(1.0 - torch.abs(q - li), min=0.0)[..., None] * g)
+                .reshape(-1, g.shape[-1]).sum(0) for li in range(n)])
+        return d_q, d_lut
+
+
 def _tf_onehot_matmul(sample, lut, offset, scale) -> torch.Tensor:
     """TF lookup as an unrolled tent-basis sum: scalars (...,) -> RGBA (..., 4).
 
     With ``q = clip(u * n - 0.5, 0, n - 1)``, clamped linear LUT interpolation
-    is ``col = sum_l max(0, 1 - |q - l|) * lut[l]``.
+    is ``col = sum_l max(0, 1 - |q - l|) * lut[l]`` (:class:`_TentLookup`:
+    its derivative in ``q`` is JAX's kernel's).
     """
     n = lut.shape[0]
     q = torch.clamp((sample - offset) * scale * n - 0.5, 0.0, n - 1.0)
-    col = None
-    for li in range(n):
-        w = torch.clamp(1.0 - torch.abs(q - li), min=0.0)[..., None]
-        term = w * lut[li]
-        col = term if col is None else col + term
-    return col
+    return _TentLookup.apply(q, lut)
 
 
 def preblend_planes(volume, n_planes, box_min, box_max, dz_sign=-1,
