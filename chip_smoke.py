@@ -153,6 +153,28 @@ Phases (each prints its lines; any failure exits non-zero):
     11e. ``bricks.distributed_render_image`` at bricks=2 on Isabel's 50 x
          50 x 10 x 32 stats -> 512^2 against ``RenderPipeline``'s scan
          frame;
+    11f. (run after 11b, on its volume) processes that split the ray
+         strips: 11a's mean at density 0.2 on two worlds of worker
+         processes of this script (``--worker-11f``), ``(2 processes,
+         bricks=1 x rays=2)``, JAX's ``global_mesh()`` default, and ``(4,
+         2 x 2)``, one shard a process; each joins a Gloo group whose mesh
+         is on the card (NCCL, one card a process, where there are as many
+         cards as processes), reads its bricks from a ``.npy`` copy of the
+         volume, and renders and differentiates its strips with the
+         counters reset before and read after: each process must launch
+         K3 (and, with more than one brick, the seeded pass 2), K4 and K5
+         on the card for its shards; the gathered frame within 1e-6 abs of
+         the same mesh in one process and within the image tolerance of
+         K2; the loss and ``d_lut`` within 1e-5 (relative L2) of one
+         process's, ``d_hist`` within 1e-5 or 1.5 times the floor, two
+         runs in one process measured in the same run (they differ: K5's
+         f32 atomics through the bf16 rounding), whichever is larger; all
+         three within 11a's limits of the single-device ones; frame and fwd+bwd
+         ms of rank 0 (host clock, median of 3,
+         the collectives through host memory included) beside the same
+         mesh in one process; the last rank (the front brick, where the
+         rays cross the cutoff) then replays its shards' K3/K4/K5 launches
+         against their plain versions (11a's records);
 12. (run right after phase 6, on its 512^3 x 16 bf16 volume, before phase
     7) ``precision='bf16'``, K4's live map, the native loader and the
     viewer, each drive with its counters reset before and read after:
@@ -2931,8 +2953,308 @@ def phase_11e(dev, card, smi, S=512):
           f"{scan_ms:.3f} ms (host clock; torch ops, no hand-written kernel)")
 
 
+#: 11f's worlds, (processes, bricks, rays): JAX's ``global_mesh()`` default
+#: on two processes (each one ray strip), then one shard a process
+RAY_WORLDS = ((2, 1, 2), (4, 2, 2))
+#: how long a world's workers may take, start-up included
+WORKER_LIMIT_S = 120
+#: 11f's d_hist against the same mesh in one process: rel L2 within
+#: DIST_DHIST_TOL, or within DIST_FLOOR_FACTOR times the same run's floor
+#: (two one-process runs, 7.5e-6 to 8.5e-6 on an H100) where that is
+#: larger; a factor of 2 in the gradient reads 0.5 or 1
+DIST_DHIST_TOL = 1e-5
+DIST_FLOOR_FACTOR = 1.5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(cfg, out):
+    """Run ``cfg["world"]`` worker processes of this script on the card
+    (``--worker-11f``), each logging to ``out``; fails if one fails or
+    outlives ``WORKER_LIMIT_S``, and kills every one it started."""
+    world = cfg["world"]
+    addr = f"127.0.0.1:{free_port()}"
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(out / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--worker-11f",
+                 json.dumps(dict(cfg, rank=r, addr=addr, out=str(out)))],
+                cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + WORKER_LIMIT_S
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"11f world {world}: rank {r} still running after "
+                     f"{WORKER_LIMIT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (out / f"rank{r}.log").read_text()[-3000:]
+            fail(f"11f world {world}: rank {r} exited {p.returncode}:\n{tail}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def worker_11f(cfg):
+    """One process of an 11f world: joins the group, renders and
+    differentiates its ray strips of the 512^3 x 16 mean through
+    ``distributed_hist_render`` on the card, writes what the parent checks;
+    the last rank (the front brick: pass 2 re-sweeps it) then replays its
+    shards' K3/K4/K5 launches against their plain versions."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vrdd_tpu_torch.core.transfer import default_transfer_function
+    from vrdd_tpu_torch.kernels import _build
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.parallel import multihost
+    from vrdd_tpu_torch.parallel import sweep as ps
+    from vrdd_tpu_torch.parallel.mesh import image_mean
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world, rank, B, W = cfg["world"], cfg["rank"], cfg["B"], cfg["W"]
+    out = Path(cfg["out"])
+    _build.library()  # built by the parent
+    multihost.initialize(cfg["addr"], world, rank, backend=cfg["backend"])
+    mesh = multihost.global_mesh(cfg["bricks"], cfg["rays"])
+    dev = mesh.device
+    res = {"rank": rank, "device": str(dev),
+           "bricks": list(mesh.local_bricks), "rays": list(mesh.local_rays)}
+    if dev.type != "cuda":
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+        sys.exit(f"rank {rank}: the mesh is on {dev}, not the card")
+    # this process's bricks, read from the parent's file
+    vol = np.load(cfg["path"], mmap_mode="r")
+    zl = vol.shape[0] // mesh.bricks
+    b = mesh.local_bricks
+    hist = torch.from_numpy(np.array(
+        vol[b.start * zl:b.stop * zl])).view(torch.bfloat16).to(dev)
+    del vol
+    tf = default_transfer_function()
+    origin = torch.tensor(ORIGIN)
+    rows, mode = sk.decode_weight_rows("mean", B, family="unit")
+
+    def render(h=hist, lut=tf, wrt=("hist", "lut", "params")):
+        return ps.distributed_hist_render(
+            h, rows, origin, lut, DIST_DENSITY, width=W, height=W,
+            mesh=mesh, stat=mode, wrt=wrt)
+
+    def frame():
+        return multihost.gather_image(render(), mesh)
+
+    def fwdbwd():
+        h = hist.detach().requires_grad_(True)
+        lut = torch.tensor(tf, device=dev, requires_grad=True)
+        loss = image_mean((render(h, lut, ("hist", "lut")) - 0.25) ** 2,
+                          mesh)
+        loss.backward()
+        return loss.detach(), h.grad, lut.grad
+
+    def timed3(fn):
+        """``fn()`` three times on the host clock: ``(the first run's
+        result, its launch counts (set to 0 just before, read just after),
+        its recorded shard calls, the median ms)``."""
+        times = []
+        reset_diff_counters()
+        with ShardCalls("sweep_preblended_hist_diff") as calls:
+            t0 = time.perf_counter()
+            first = fn()
+            torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        counts = diff_launches()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return first, counts, calls, sorted(times)[1]
+
+    # the main-path runs, each checked on its first run
+    img, res["frame_counts"], frame_calls, res["frame_ms"] = timed3(frame)
+    if rank == 0:
+        np.save(out / "frame.npy", img)
+    (loss, g_hist, g_lut), res["fwdbwd_counts"], fb_calls, \
+        res["fwdbwd_ms"] = timed3(fwdbwd)
+    if mesh.local_rays.start == 0:  # one writer per brick run
+        np.save(out / f"dhist{b.start}.npy",
+                g_hist.view(torch.int16).cpu().numpy())
+    if rank == 0:
+        np.save(out / "dlut.npy", g_lut.cpu().numpy())
+        res["loss"] = float(loss)
+    del g_hist, g_lut
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == world - 1:
+        # this process's shards alone, against their plain versions
+        passes = {False: [], True: []}
+        for c in frame_calls:
+            passes[c[1].get("acc_init") is not None].append(hist_shard(c))
+        tag = f"dist_rays{world},{mesh.bricks}x{mesh.rays},{mode}"
+        k3 = res["frame_counts"]["sweep_fwd"]
+        records = [k3_shard_record(
+            f"sweep_fwd[{tag},pass{1 + seeded}]", passes[seeded], mode, B,
+            hist.element_size(), k3[1] if seeded else k3[0] - k3[1],
+            f"[11f rank {rank}] K3 pass {1 + seeded}")
+            for seeded in (False, True) if passes[seeded]]
+        records += k4_k5_records([hist_shard(c) for c in fb_calls], mode, B,
+                                 hist.element_size(), res["fwdbwd_counts"],
+                                 ("hist", "lut"), tag, f"[11f rank {rank}]")
+        res["records"] = records
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def phase_11f(dev, card, smi, tf, hist, n, B, W, work):
+    """Processes that split the ray strips (JAX's rays-on-hosts) on the
+    card: each world against the same mesh in one process and the
+    single-device render; returns the replaying rank's kernel records."""
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.parallel import multihost
+    from vrdd_tpu_torch.parallel import sweep as ps
+    from vrdd_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    origin = torch.tensor(ORIGIN)
+    rows, mode = sk.decode_weight_rows("mean", B, family="unit")
+    path = work / "hist11f.npy"
+    np.save(path, hist.view(torch.int16).cpu().numpy())
+
+    def fwdbwd(fn):
+        h = hist.detach().requires_grad_(True)
+        lut = torch.tensor(tf, device=dev, requires_grad=True)
+        loss = torch.mean((fn(h, lut) - 0.25) ** 2)
+        loss.backward()
+        return loss.detach(), h.grad, lut.grad
+
+    def single(h, lut):
+        return sv.pallas_hist_render_diff(
+            h, rows, origin, lut, DIST_DENSITY, width=W, height=W,
+            wrt=("hist", "lut"), stat=mode, route="inkernel")
+
+    frame_s = sk.pallas_hist_render(hist, rows, origin, tf, DIST_DENSITY,
+                                    width=W, height=W, stat=mode)
+    loss_s, g_hist_s, g_lut_s = fwdbwd(single)
+    records = []
+    for world, bricks, rays in RAY_WORLDS:
+        backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+        transport = "nccl, one card a process" if backend == "nccl" else (
+            "gloo via host, every process on card 0")
+        mesh1 = make_mesh(bricks, rays)
+
+        def render1(h=hist, lut=tf, wrt=("hist", "lut", "params"),
+                    mesh1=mesh1):
+            return ps.distributed_hist_render(
+                h, rows, origin, lut, DIST_DENSITY, width=W, height=W,
+                mesh=mesh1, stat=mode, wrt=wrt)
+
+        def fwdbwd1():
+            return fwdbwd(lambda h, lut: render1(h, lut, ("hist", "lut")))
+
+        frame1 = render1()
+        loss1, g_hist1, g_lut1 = fwdbwd1()
+        # two runs of one process differ: K5's f32 atomics, through the
+        # bf16 rounding of d_hist; the world's d_hist is held against this
+        # run's floor
+        floor = rel_l2(fwdbwd1()[1], g_hist1, f"[11f {world}p] d_hist of two "
+                       "runs in one process (the floor)", limit=math.inf)
+        dhist_limit = max(DIST_DHIST_TOL, DIST_FLOOR_FACTOR * floor)
+        frame1_ms = host_ms(
+            lambda: multihost.gather_image(render1(), mesh1), 3)
+        fb1_ms = host_ms(fwdbwd1, 3)
+        out = work / f"world{world}"
+        out.mkdir(exist_ok=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_workers(dict(world=world, bricks=bricks, rays=rays,
+                                 backend=backend, path=str(path), B=B, W=W),
+                            out)
+        wall = time.perf_counter() - t0
+        print(f"[11f] distributed_hist_render mean on {world} processes, "
+              f"bricks={bricks} x rays={rays}, {n}^3 x {B} bf16 -> {W}^2, "
+              f"density {DIST_DENSITY}, transport {transport}, on {card} "
+              f"({smi}); the workers took {wall:.1f} s")
+        log = (out / f"rank{world - 1}.log").read_text().strip()
+        print("  " + log.replace("\n", "\n  "))
+        for r in ranks:
+            s = len(r["bricks"]) * len(r["rays"])
+            print(f"  rank {r['rank']} on {r['device']}: bricks {r['bricks']}"
+                  f", rays {r['rays']}; frame launches {r['frame_counts']}, "
+                  f"fwd+bwd launches {r['fwdbwd_counts']}")
+            if not r["device"].startswith("cuda"):
+                fail(f"11f: rank {r['rank']} ran on {r['device']}")
+            passes = 2 if bricks > 1 else 1
+            k3 = r["frame_counts"]["sweep_fwd"]
+            if tuple(k3) != (passes * s, (passes - 1) * s):
+                fail(f"11f: rank {r['rank']} ran K3 {k3} (launches, seeded)"
+                     f" for its {s} shards")
+            for name in ("sweep_fwd_ckpt", "sweep_bwd"):
+                if r["fwdbwd_counts"][name][0] != passes * s:
+                    fail(f"11f: rank {r['rank']} ran {name} "
+                         f"{r['fwdbwd_counts'][name]} for its {s} shards")
+        img = torch.from_numpy(np.load(out / "frame.npy")).to(dev)
+        e = float((img - frame1).abs().max())
+        print(f"  frame vs the same mesh in one process: max abs "
+              f"{e:.3e} ({'bitwise' if e == 0.0 else 'not bitwise'})")
+        if e > 1e-6:
+            fail(f"11f world {world}: the frame is {e:.3e} from the same "
+                 "mesh in one process (limit 1e-6)")
+        compare(img, frame_s, f"[11f {world}p] frame vs single-device K2")
+        loss = ranks[0]["loss"]
+        print(f"  loss {loss:.8f}, one process {float(loss1):.8f}, "
+              f"single-device {float(loss_s):.8f}")
+        if abs(loss - float(loss1)) > 1e-5 * abs(float(loss1)):
+            fail(f"11f world {world}: the loss differs from one process's")
+        if abs(loss - float(loss_s)) > 1e-4 * abs(float(loss_s)):
+            fail(f"11f world {world}: the loss differs from the "
+                 "single-device one")
+        g_hist = torch.cat([torch.from_numpy(np.load(
+            out / f"dhist{b0}.npy")).view(torch.bfloat16)
+            for b0 in range(0, bricks, bricks // len({
+                tuple(r["bricks"]) for r in ranks}))]).to(dev)
+        rel_l2(g_hist, g_hist1, f"[11f {world}p] d_hist vs one process "
+               f"(limit {dhist_limit:.3e})", limit=dhist_limit)
+        rel_l2(g_hist, g_hist_s, f"[11f {world}p] d_hist vs single-device",
+               limit=2.0 ** -8)
+        del g_hist, g_hist1
+        g_lut = torch.from_numpy(np.load(out / "dlut.npy")).to(dev)
+        rel_l2(g_lut, g_lut1, f"[11f {world}p] d_lut vs one process",
+               limit=1e-5)
+        rel_l2(g_lut, g_lut_s, f"[11f {world}p] d_lut vs single-device")
+        print(f"  frame {ranks[0]['frame_ms']:.3f} ms, fwd+bwd "
+              f"{ranks[0]['fwdbwd_ms']:.3f} ms on {world} processes (rank "
+              f"0, host clock, median of 3, {transport} collectives "
+              f"included); the same mesh in one process {frame1_ms:.3f} / "
+              f"{fb1_ms:.3f} ms")
+        records += ranks[-1]["records"]
+        shutil.rmtree(out)
+        del frame1
+        torch.cuda.empty_cache()
+    path.unlink()
+    print(f"  phase 11f: {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def phase_11(dev, card, smi, tf, work):
-    """The distributed sweep of parallel/ on one card: 11a-11e. Returns the
+    """The distributed sweep of parallel/ on one card: 11a-11f. Returns the
     kernel records."""
     import torch
 
@@ -2943,6 +3265,7 @@ def phase_11(dev, card, smi, tf, work):
     hist = blob_histogram_volume(n, B, device=dev, dtype=torch.bfloat16)
     records = phase_11a(dev, card, smi, tf, hist, n, B, W, make_mesh(4, 2))
     records += phase_11b(dev, card, smi, tf, hist, n, B, W)
+    records += phase_11f(dev, card, smi, tf, hist, n, B, W, work)
     del hist
     torch.cuda.empty_cache()
     phase_11c(work)
@@ -3866,4 +4189,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--worker-11f"]:
+        sys.path.insert(0, str(ROOT))
+        worker_11f(json.loads(sys.argv[2]))
+    else:
+        sys.exit(main())

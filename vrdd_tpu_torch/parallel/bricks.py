@@ -36,6 +36,7 @@ from vrdd_tpu_torch.core.transfer import apply_transfer_function
 from vrdd_tpu_torch.march.scan import _ALIVE_CHECK
 from vrdd_tpu_torch.parallel.mesh import (
     Mesh,
+    grad_sum,
     halo_exchange,
     replicate,
     replicated_output,
@@ -148,13 +149,14 @@ def distributed_render_image(
 ) -> torch.Tensor:
     """Render with the stats volume split over bricks and pixel rows over
     rays. ``stats`` is this process's run of ``(Z, Y, X, C)`` slabs
-    (:func:`shard_stats_volume`); any camera. Returns the ``(H, W, 4)``
-    float32 RGBA image on every process. Differentiable by autograd."""
+    (:func:`shard_stats_volume`); any camera. Returns this process's rows
+    of the ``(H, W, 4)`` float32 RGBA image (``(H * |local_rays| / rays, W,
+    4)``; all of it in a world of one). Differentiable by autograd."""
     nb, nr = mesh.bricks, mesh.rays
     local = mesh.local_bricks
     if stats.shape[0] % len(local):
-        raise ValueError(f"Z={stats.shape[0] * mesh.world} must divide over "
-                         f"{nb} bricks")
+        raise ValueError(f"Z={stats.shape[0] * mesh.brick_procs} must divide "
+                         f"over {nb} bricks")
     zl = stats.shape[0] // len(local)
     nz = zl * nb
     if height % nr:
@@ -167,7 +169,8 @@ def distributed_render_image(
                                      transfer_offset, transfer_scale))
     zmin, zmax = march.box_min[2], march.box_max[2]
     thr = march.opacity_threshold
-    padded_run = halo_exchange(stats, mesh)
+    # the slab run is held by the ray group: its gradient sums there
+    padded_run = halo_exchange(grad_sum(stats, mesh.ray_group), mesh)
     n_strip = (height // nr) * width
 
     def strip(r):
@@ -191,5 +194,5 @@ def distributed_render_image(
                                   march.box_max)
         return torch.where(hit[:, None], rgba * brightness, rgba)
 
-    out = torch.cat([strip(r) for r in range(nr)])
-    return replicated_output(out, mesh).reshape(height, width, 4)
+    out = torch.cat([strip(r) for r in mesh.local_rays])
+    return replicated_output(out, mesh).reshape(-1, width, 4)

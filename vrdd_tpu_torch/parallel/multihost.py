@@ -1,15 +1,18 @@
 """Multi-process support (counterpart of ``vrdd_tpu/parallel/multihost.py``).
 
-Each process joins one ``torch.distributed`` process group (NCCL on the
-card, Gloo on the CPU); the ``(bricks, rays)`` mesh then spans the processes
-and the SAME renderers of ``parallel/sweep.py`` and ``parallel/bricks.py``
-run unchanged: each process holds a contiguous run of bricks and every ray
-strip, and the bricks' collectives (``parallel/mesh.py``) cross the process
-boundaries. Nothing here reads a cluster from the environment: the caller
-names the address, the world size and the rank (or sets torch's
+Each process joins one ``torch.distributed`` process group (NCCL with one
+card a process, or Gloo); the ``(bricks, rays)`` mesh then spans the
+processes as JAX's spans their devices (``parallel/mesh.py placement``:
+rays-on-hosts by default, each process rendering its image rows) and the
+SAME renderers of ``parallel/sweep.py`` and ``parallel/bricks.py`` run
+unchanged: each returns this process's rows, the bricks' collectives cross
+the processes of a brick group, and :func:`gather_image` joins the rows.
+Nothing here reads a cluster from the environment: the caller names the
+address, the world size and the rank (or sets torch's
 ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` and passes None).
 
-Tested with a real 2-process Gloo run in ``tests/test_torch_multihost.py``.
+Tested with real 2- and 4-process Gloo runs in
+``tests/test_torch_multihost.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from vrdd_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, Mesh
+from vrdd_tpu_torch.parallel.mesh import (
+    BRICK_AXIS, RAY_AXIS, Mesh, _all_gather, placement, process_groups)
 
 
 def initialize(
@@ -31,8 +35,9 @@ def initialize(
 ) -> None:
     """Join the process group (idempotent). ``coordinator_address`` is
     ``host:port`` (None: torch's environment variables); ``backend``
-    defaults to NCCL when a GPU is present, else Gloo. On the card each
-    process takes the GPU of its rank modulo the count."""
+    defaults to NCCL when a GPU is present, else Gloo. With a GPU present
+    each process takes the GPU of its rank modulo the count, whatever the
+    backend."""
     if dist.is_initialized():
         return
     if backend is None:
@@ -44,34 +49,56 @@ def initialize(
         world_size=-1 if num_processes is None else int(num_processes),
         rank=-1 if process_id is None else int(process_id),
     )
-    if backend == "nccl":
+    if torch.cuda.is_available():
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
 
 
-def global_mesh(bricks: int = 1, rays: Optional[int] = None) -> Mesh:
-    """The ``(bricks, rays)`` mesh over every process of the group: each
-    holds ``bricks / world`` bricks, on its GPU under NCCL, else the CPU."""
-    world = dist.get_world_size()
-    rays = 1 if rays is None else rays
-    if bricks % world:
-        raise ValueError(f"bricks={bricks} must divide over {world} processes")
-    if dist.get_backend() == "nccl":
+def _subgroup(groups, rank):
+    """Create every group of more than one process (the call is collective:
+    every rank makes them all, in one order) and return this rank's."""
+    mine = None
+    for ranks in groups:
+        if len(ranks) > 1:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+    return mine
+
+
+def global_mesh(bricks: int = 1, rays: Optional[int] = None,
+                device=None) -> Mesh:
+    """The ``(bricks, rays)`` mesh over every process of the group, placed
+    as JAX places devices (``rays`` None: ``world // bricks``, JAX's
+    default). Every process must call it, with the same arguments: it
+    creates the brick and ray groups. ``device`` None is this process's
+    GPU, whatever the backend; pass ``"cpu"`` for the CPU."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if rays is None:
+        rays = world // bricks
+    placement(bricks, rays, world, rank)  # refuses a ragged layout
+    if device is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        device = torch.device("cpu")
-    return Mesh(int(bricks), int(rays), device, dist.group.WORLD)
+    brick_groups, ray_groups = process_groups(bricks, rays, world)
+    brick_group = _subgroup(brick_groups, rank)
+    ray_group = _subgroup(ray_groups, rank)
+    return Mesh(int(bricks), int(rays), torch.device(device),
+                dist.group.WORLD, brick_group, ray_group)
 
 
 def make_global(x, mesh: Mesh, spec: tuple) -> torch.Tensor:
     """This process's part of an array every process passes whole: its run
-    of bricks along the axis ``spec`` names ``bricks``, every ray strip
-    (processes hold all of them), on the mesh's device."""
+    of bricks along the axis ``spec`` names ``bricks``, its run of ray
+    strips along the axis it names ``rays``, on the mesh's device."""
     x = torch.as_tensor(np.asarray(x))
     for axis, name in enumerate(spec):
         if name == BRICK_AXIS:
-            per = x.shape[axis] // mesh.bricks
-            b = mesh.local_bricks
-            x = x.narrow(axis, b.start * per, len(b) * per)
+            run, n = mesh.local_bricks, mesh.bricks
+        elif name == RAY_AXIS:
+            run, n = mesh.local_rays, mesh.rays
+        else:
+            continue
+        per = x.shape[axis] // n
+        x = x.narrow(axis, run.start * per, len(run) * per)
     return x.contiguous().to(mesh.device)
 
 
@@ -83,7 +110,11 @@ def image_spec() -> tuple:
     return (RAY_AXIS, None, None)
 
 
-def gather_image(img: torch.Tensor) -> np.ndarray:
-    """The full ``(H, W, 4)`` image on the host of every process (each one
-    already holds every ray strip)."""
-    return img.detach().cpu().numpy()
+def gather_image(img: torch.Tensor, mesh: Mesh) -> np.ndarray:
+    """The full ``(H, W, 4)`` image on the host of every process, from this
+    process's rows ``img`` of a render on ``mesh`` (an all-gather over its
+    ray group)."""
+    img = img.detach()
+    if mesh.ray_group is not None:
+        img = _all_gather(img, mesh.ray_group)
+    return img.cpu().numpy()

@@ -51,9 +51,9 @@ def measure_scaling(
     ``devices``: this process's device (a sequence of one; None: the
     current CUDA device). N is the process group's world size (1 without
     one). Defaults: the headline shape on the card (512^3 -> 1024^2), a
-    small one on the CPU. The N-process mesh holds one brick per process
-    and JAX's ray split for N devices (:func:`_factor_mesh`): the port's
-    processes split bricks, never rays."""
+    small one on the CPU. The N-process mesh is JAX's for N devices
+    (:func:`_factor_mesh`), one shard a process: both axes split over the
+    processes, the problem rounded up as JAX rounds it."""
     from vrdd_tpu_torch.core.transfer import default_transfer_function
     from vrdd_tpu_torch.parallel import multihost
     from vrdd_tpu_torch.parallel.mesh import make_mesh
@@ -72,11 +72,12 @@ def measure_scaling(
         image = 1024 if on_card else 128
     if backend == "auto":
         backend = "pallas" if on_card else "xla"
-    _, rays = _factor_mesh(n_dev)
-    bricks = n_dev
-    # round the problem up to the mesh's divisibility contract
+    bricks, rays = _factor_mesh(n_dev)
+    # round the problem up to the mesh's divisibility contract as JAX does
+    # (on the kernels: 8 rows a strip at least, images a multiple of 128)
     size += -size % bricks
-    image += -image % rays
+    row_mult = rays * (8 if backend == "pallas" else 1)
+    image += -image % max(row_mult, 128 if backend == "pallas" else 1)
     if n_planes <= 0:
         n_planes = size
     n_planes += -n_planes % bricks
@@ -139,7 +140,7 @@ def measure_scaling(
             "1 device; harness ready (forward and training step) - run one "
             "process per device in a process group to measure scaling")
         return out
-    mesh_n = multihost.global_mesh(bricks, rays)
+    mesh_n = multihost.global_mesh(bricks, rays, device=device)
     tn = timed(mesh_n)
     tn_fb = timed_step(mesh_n)
     out.update(

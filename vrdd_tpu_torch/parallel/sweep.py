@@ -25,7 +25,11 @@ The single-device slice sweep (``march/slice.py``; kernels K3/K4/K5 of
   registers the crossing.
 
 The shards of one process run in turn on its device; the bricks of other
-processes join through the collectives of ``parallel/mesh.py``. Everything
+processes join through the collectives of ``parallel/mesh.py`` (over the
+brick group), and each process returns its own ray strips: rows ``H *
+|local_rays| / rays`` of the image, JAX's ``P(RAY_AXIS)`` output as that
+process holds it (``multihost.gather_image`` joins them; the rotated paths
+gather the m-grid over the ray group before the warp). Everything
 is differentiable: the kernels' VJP (with the pass-2 seed cotangent
 ``d seed_a = g_a - S / T_0`` into the upstream bricks' prefixes) and autograd
 through the pre-blend, the halo, the gather and the fold.
@@ -57,6 +61,8 @@ from vrdd_tpu_torch.march.slice import _chunk_rgba_fn, _composite
 from vrdd_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather,
+    gather_rays,
+    grad_sum,
     halo_exchange,
     psum,
     replicate,
@@ -78,11 +84,9 @@ def _local_run(x, mesh: Mesh) -> torch.Tensor:
     n = x.shape[0]
     if n % mesh.bricks:
         raise ValueError(f"extent {n} must divide over {mesh.bricks} bricks")
-    if mesh.world > 1:
-        per = n // mesh.bricks
-        b = mesh.local_bricks
-        x = x[b.start * per:b.stop * per]
-    return x.to(mesh.device)
+    per = n // mesh.bricks
+    b = mesh.local_bricks
+    return x[b.start * per:b.stop * per].to(mesh.device)
 
 
 def shard_scalar_volume(volume, mesh: Mesh) -> torch.Tensor:
@@ -193,10 +197,12 @@ def _forward(dz_sign: int, hl: int, width: int, mesh: Mesh) -> torch.Tensor:
 
 
 def _strips(strip_fn, mesh: Mesh, height: int):
-    """The image: ``strip_fn(r, my_rows)`` per ray strip, concatenated."""
+    """This process's rows of the image: ``strip_fn(r, my_rows)`` per ray
+    strip it holds, concatenated (every member of a brick group walks the
+    same strips in the same order: their collectives pair up)."""
     hl = height // mesh.rays
     return torch.cat([strip_fn(r, slice(r * hl, (r + 1) * hl))
-                      for r in range(mesh.rays)])
+                      for r in mesh.local_rays])
 
 
 def _sweep_slope_space_call(
@@ -226,8 +232,8 @@ def _sweep_slope_space_call(
                 "use volume_mode='replicated' for tex_offset/axis_scale "
                 "variants")
         if volume.shape[0] % len(local):
-            raise ValueError(f"Z={volume.shape[0] * mesh.world} must divide "
-                             f"over {nb} bricks")
+            raise ValueError(f"Z={volume.shape[0] * mesh.brick_procs} must "
+                             f"divide over {nb} bricks")
         zl = volume.shape[0] // len(local)
         nz = zl * nb
     elif volume_mode == "replicated":
@@ -376,13 +382,17 @@ def distributed_sweep_slope_space(
     halo exchange; default filter grid only), 'replicated' keeps the whole
     volume on every brick and splits the plane schedule instead (coarse
     flexible-block grids, any ``tex_offset``/``axis_scale``); 'auto' picks
-    'replicated' exactly when a non-default filter grid needs it."""
+    'replicated' exactly when a non-default filter grid needs it. Returns
+    this process's rows, as :func:`distributed_sweep_render`."""
     if volume_mode == "auto":
         volume_mode = (
             "slab"
             if tex_offset == 0.5 and tuple(axis_scale) == (1.0, 1.0, 1.0)
             else "replicated"
         )
+    # a slab run is held by the ray group, a whole volume by every process
+    volume = grad_sum(volume, mesh.ray_group if volume_mode == "slab"
+                      else mesh.group)
     return _sweep_slope_space_call(
         volume, origin, tf_lut, density, brightness, transfer_offset,
         transfer_scale, mx=mx, my=my, march=march, mesh=mesh,
@@ -421,8 +431,9 @@ def distributed_sweep_render(
 
     ``volume`` is this process's run of ``(Z, Y, X)`` slabs
     (:func:`shard_scalar_volume`); unrotated camera at ``origin`` looking
-    down -z. Returns the ``(H, W, 4)`` float32 RGBA image on every process.
-    Matches ``slice_render_image`` to float32 rounding (exact two-pass
+    down -z. Returns this process's rows of the ``(H, W, 4)`` float32 RGBA
+    image (``(H * |local_rays| / rays, W, 4)``; all of it in a world of
+    one). Matches ``slice_render_image`` to float32 rounding (exact two-pass
     termination). Rotated cameras: :func:`distributed_shearwarp_render`.
 
     ``backend``: 'pallas' runs both passes of every shard on the sweep
@@ -459,8 +470,8 @@ def _hist_sweep_slope_space_call(
     nb, nr = mesh.bricks, mesh.rays
     local = mesh.local_bricks
     if hist_bm.shape[0] % len(local):
-        raise ValueError(f"Z={hist_bm.shape[0] * mesh.world} must divide "
-                         f"over {nb} bricks")
+        raise ValueError(f"Z={hist_bm.shape[0] * mesh.brick_procs} must "
+                         f"divide over {nb} bricks")
     zl = hist_bm.shape[0] // len(local)
     n_planes = zl * nb  # pure selection: layers ARE planes
     if height % nr:
@@ -476,10 +487,16 @@ def _hist_sweep_slope_space_call(
                                      brightness))
     origin = _host_floats(origin, 3)
 
-    slabs = hist_bm.split(zl)  # one gradient for all bricks (see above)
+    slabs_all = hist_bm.split(zl)  # one gradient for all bricks (see above)
 
     def strip(r, rows):
         slopes = _strip_slopes(mx, my[rows])
+        # a view of each slab a strip: a strip's passes sum their bf16
+        # cotangents there before the strips add up in the split, the order
+        # of JAX's per-device cotangents and their psum over rays (and of a
+        # world whose processes split the strips); a view passes its
+        # gradient on without a copy
+        slabs = [s.view_as(s) for s in slabs_all]
 
         def sweep(d, seed):
             zs = zs_global[d * zl:(d + 1) * zl]
@@ -527,11 +544,13 @@ def distributed_hist_render(
     seed cotangent into upstream bricks; LUT and parameter gradients summed
     over the mesh). One plane per layer, unrotated -z camera, Z % bricks ==
     0, any image size. A CPU volume takes the kernels' plain versions.
+    Returns this process's rows, as :func:`distributed_sweep_render`.
     Rotated cameras: :func:`distributed_shearwarp_hist_render`."""
     mx, my = _pixel_slopes(int(width), int(height), focal)
+    # the slab run is held by the ray group: its gradient sums there
     return _hist_sweep_slope_space_call(
-        hist_bm, weights, origin, tf_lut, density, brightness,
-        transfer_offset, transfer_scale, mx=mx, my=my, march=march,
+        grad_sum(hist_bm, mesh.ray_group), weights, origin, tf_lut, density,
+        brightness, transfer_offset, transfer_scale, mx=mx, my=my, march=march,
         mesh=mesh, dz_sign=-1, length_correction=length_correction,
         plane_chunk=int(plane_chunk), wrt=tuple(wrt), stat=str(stat))
 
@@ -639,9 +658,9 @@ def _rot_hist_frame(hist_p, weights, origin, tf_lut, density, brightness,
     permuted volume ``hist_p`` (``sweep``: the keywords of
     :func:`_hist_sweep_slope_space_call`), then the homography warp to
     pixels, its index maps built on the device from the rotation."""
-    img_m = _hist_sweep_slope_space_call(
+    img_m = gather_rays(_hist_sweep_slope_space_call(
         hist_p, weights, origin, tf_lut, density, brightness,
-        transfer_offset, transfer_scale, **sweep)
+        transfer_offset, transfer_scale, **sweep), sweep["mesh"])
     return _warp_from_rotation_traced(
         img_m, np.asarray(inv_view, np.float32)[:, :3], mgrid, width, height,
         focal, perm_world)
@@ -652,9 +671,9 @@ def _rot_sweep_frame(vol_perm, origin, tf_lut, density, brightness,
                      width, height, focal, perm_world, **sweep):
     """The scalar twin of :func:`_rot_hist_frame` (``sweep``: the keywords
     of :func:`_sweep_slope_space_call`)."""
-    img_m = _sweep_slope_space_call(
+    img_m = gather_rays(_sweep_slope_space_call(
         vol_perm, origin, tf_lut, density, brightness, transfer_offset,
-        transfer_scale, **sweep)
+        transfer_scale, **sweep), sweep["mesh"])
     return _warp_from_rotation_traced(
         img_m, np.asarray(inv_view, np.float32)[:, :3], mgrid, width, height,
         focal, perm_world)
@@ -728,7 +747,9 @@ def distributed_shearwarp_hist_render(
     rows split over rays, walked in storage order for ``dz > 0`` and back to
     front for ``dz < 0``, and the m-space image warps to pixels. The m-grid
     is JAX's: columns rounded up to 128, rows extended to ``rays * STRIP``.
-    Differentiable like :func:`distributed_hist_render`."""
+    The m-grid's strips are gathered over the ray group before the warp, so
+    every process returns the whole frame. Differentiable like
+    :func:`distributed_hist_render`."""
     if not isinstance(hist_bm, torch.Tensor):
         hist_bm = torch.as_tensor(hist_bm)
     perm_world, dz_sign, march_p, origin_p, mx, my, mgrid = _rotated_frame(
@@ -740,8 +761,8 @@ def distributed_shearwarp_hist_render(
         raise ValueError(
             f"principal axis extent {hist_bm.shape[sp(pz)]} must divide "
             f"over {mesh.bricks} bricks")
-    hist_p = _permuted_sharded(hist_bm, (sp(pz), 1, sp(py), sp(px)), mesh,
-                               slot="hist")
+    hist_p = _permuted_sharded(grad_sum(hist_bm, mesh.group),
+                               (sp(pz), 1, sp(py), sp(px)), mesh, slot="hist")
     return _rot_hist_frame(
         hist_p, weights, origin_p, tf_lut, density, brightness,
         transfer_offset, transfer_scale, inv_view, mgrid, mx=mx, my=my,
@@ -781,7 +802,8 @@ def distributed_shearwarp_render(
     m-grid swept with rows split over rays, then warped to pixels. Matches
     the single-device ``shearwarp_render_image`` on the same backend's
     m-grid ('xla': the grid as built; 'pallas' and 'auto' on the card: JAX's
-    128-rounded columns and rows extended to ``rays * STRIP``)."""
+    128-rounded columns and rows extended to ``rays * STRIP``). Every
+    process returns the whole frame."""
     if not isinstance(volume, torch.Tensor):
         volume = torch.as_tensor(volume)
     want_pallas = backend == "pallas" or (
@@ -799,7 +821,8 @@ def distributed_shearwarp_render(
         raise ValueError(
             f"principal axis extent {volume.shape[2 - pz]} must divide over "
             f"{mesh.bricks} bricks")
-    vol_perm = _permuted_sharded(volume, (2 - pz, 2 - py, 2 - px), mesh,
+    vol_perm = _permuted_sharded(grad_sum(volume, mesh.group),
+                                 (2 - pz, 2 - py, 2 - px), mesh,
                                  sharded=volume_mode == "slab")
     return _rot_sweep_frame(
         vol_perm, origin_p, tf_lut, density, brightness, transfer_offset,

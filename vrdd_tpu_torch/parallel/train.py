@@ -4,7 +4,10 @@
 Fit the transfer-function LUT (and optionally the volume) so rendered images
 match targets, through the distributed renderers of this package: gradients
 flow back through the mesh's collectives (``parallel/mesh.py``) and the
-LUT's gradient is summed over the mesh. ``torch.optim.Adam`` (lr 1e-2,
+LUT's gradient is summed over the mesh. Each process renders its rows; the
+loss is JAX's mean over the whole image, formed from them
+(:func:`~.mesh.image_mean`), so every process steps with the one-process
+loss and gradients. ``torch.optim.Adam`` (lr 1e-2,
 betas 0.9 / 0.999, eps 1e-8) stands where JAX has ``optax.adam(1e-2)``.
 
 Both factories return JAX's ``(init_fn, step_fn)``: ``init_fn`` makes the
@@ -20,7 +23,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from vrdd_tpu_torch.parallel.bricks import distributed_render_image
-from vrdd_tpu_torch.parallel.mesh import Mesh
+from vrdd_tpu_torch.parallel.mesh import Mesh, image_mean
 from vrdd_tpu_torch.utils.config import MarchConfig
 
 #: ``params -> torch.optim.Optimizer`` (JAX's ``optax.GradientTransformation``)
@@ -78,15 +81,18 @@ def make_tf_fit_step(
             stats, inv_view, params["tf_lut"], 0.05, 1.0, 0.0, 1.0,
             width=width, height=height, channel=channel, march=march,
             mesh=mesh)
-        return torch.mean((img - target) ** 2)
+        return image_mean((img - target) ** 2, mesh)
 
     return _factories(loss_fn, mesh, optimizer, "stats", learn_volume)
 
 
 def shard_target_image(target, mesh: Mesh) -> torch.Tensor:
-    """An ``(H, W, 4)`` target image for the mesh: every process holds all
-    of its ray strips, so the whole image on the mesh's device."""
-    return torch.as_tensor(target, dtype=torch.float32).to(mesh.device)
+    """This process's rows of an ``(H, W, 4)`` target image (its ray
+    strips, JAX's ``P(RAY_AXIS)``), on the mesh's device."""
+    target = torch.as_tensor(target, dtype=torch.float32)
+    per = target.shape[0] // mesh.rays
+    run = mesh.local_rays
+    return target[run.start * per:run.stop * per].to(mesh.device)
 
 
 def make_sweep_fit_step(
@@ -123,6 +129,6 @@ def make_sweep_fit_step(
             volume, origin, params["tf_lut"], density, width=width,
             height=height, march=march, mesh=mesh, n_planes=n_planes,
             backend=backend, plane_chunk=plane_chunk, wrt=wrt)
-        return torch.mean((img - target) ** 2)
+        return image_mean((img - target) ** 2, mesh)
 
     return _factories(loss_fn, mesh, optimizer, "volume", learn_volume)
