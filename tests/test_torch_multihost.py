@@ -2,23 +2,28 @@
 group on the CPU (``vrdd_tpu_torch/parallel/multihost.py``), against the
 same mesh held by one process; the mesh's placement against JAX's.
 
-Three worlds:
+Five worlds:
 
 - 2 processes, bricks=4 x rays=2: each holds two bricks and both ray
-  strips (the brick group is the world);
+  strips (each strip's group is the world);
 - 2 processes, bricks=1 x rays=2, JAX's ``global_mesh()`` default: each
-  holds one ray strip of the one brick (the ray group is the world);
-- 4 processes, bricks=2 x rays=2, one shard a process: both groups have
-  two processes.
+  holds one ray strip of the one brick (the slab group is the world);
+- 4 processes, bricks=2 x rays=2, one shard a process: every group has
+  two processes;
+- 3 processes, bricks=2 x rays=3 (ragged): rank 1 holds (0, 2) and (1, 0),
+  two bricks of different strips, its strips {0, 2} not contiguous;
+- 2 processes, bricks=3 x rays=2 (ragged): rank 0 holds bricks 0 and 1 of
+  strip 0 and brick 0 of strip 1, so strip 0's group gathers two bricks
+  from it and one from rank 1.
 
 The halo exchange (a send/recv across a process boundary, and its
 adjoint), the sort-last gather and its all-reduce transpose, the pass-2
 psum and the seed cotangent into a brick of another process, the gradient
-sums over the ray group and the world, the strips' gather before the
-rotated warp and in ``gather_image``, and the fit step's loss over the ray
-group are all in the loop. The worker is this file itself, run as a script
-by the tests (``python tests/test_torch_multihost.py ADDRESS WORLD RANK OUT
-BRICKS RAYS``); it imports no JAX."""
+sums over the slab groups and the world, the strips' gather before the
+rotated warp and in ``gather_image``, and the fit step's loss over the
+slab groups are all in the loop. The worker is this file itself, run as a
+script by the tests (``python tests/test_torch_multihost.py ADDRESS WORLD
+RANK OUT BRICKS RAYS``); it imports no JAX."""
 
 import os
 import socket
@@ -44,15 +49,23 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs():
+def _sizes(bricks, rays):
+    """``(nz, H, H_hist)``: the volumes' z-extent and the images' heights,
+    8, 16 and 20, or 12 where the bricks and 24 where the strips are three
+    (they must divide)."""
+    return (12 if bricks % 3 == 0 else 8,
+            24 if rays % 3 == 0 else 16, 24 if rays % 3 == 0 else 20)
+
+
+def _inputs(nz=8):
     from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
 
-    vol = gaussian_blob_volume((8, 8, 8), seed=11)
+    vol = gaussian_blob_volume((nz, 8, 8), seed=11)
     stats = np.stack([vol, vol * 0.5, 1.0 - vol], axis=-1).astype(np.float32)
     rng = np.random.default_rng(2)
-    h = rng.random((8, 4, 8, 8)).astype(np.float32) + 0.2
+    h = rng.random((nz, 4, 8, 8)).astype(np.float32) + 0.2
     h /= h.sum(axis=1, keepdims=True)
-    return stats, gaussian_blob_volume((8, 16, 16), seed=7), h
+    return stats, gaussian_blob_volume((nz, 16, 16), seed=7), h
 
 
 def distributed_case(mesh, gather):
@@ -64,20 +77,21 @@ def distributed_case(mesh, gather):
     from vrdd_tpu_torch.parallel import bricks, multihost, sweep, train
     from vrdd_tpu_torch.utils.config import MarchConfig
 
-    stats, vol, h = _inputs()
+    nz, hgt, hgt_hist = _sizes(mesh.bricks, mesh.rays)
+    stats, vol, h = _inputs(nz)
     tf = default_transfer_function()
     march = MarchConfig(**MARCH)
     out = {"scan": multihost.gather_image(bricks.distributed_render_image(
         multihost.make_global(stats, mesh, multihost.stats_volume_spec()),
-        default_benchmark_inv_view(), tf, 0.1, width=16, height=16,
+        default_benchmark_inv_view(), tf, 0.1, width=16, height=hgt,
         march=march, mesh=mesh), mesh)}
     # n_planes = 2 nz: the pre-blend reads the other rank's ghost layer
     for backend in ("xla", "pallas"):
         v = sweep.shard_scalar_volume(vol, mesh).requires_grad_(True)
         lut = torch.tensor(tf, requires_grad=True)
         img = sweep.distributed_sweep_render(
-            v, O, lut, 0.3, width=16, height=16, march=march, mesh=mesh,
-            n_planes=16, backend=backend,
+            v, O, lut, 0.3, width=16, height=hgt, march=march, mesh=mesh,
+            n_planes=2 * nz, backend=backend,
             plane_chunk=4 if backend == "pallas" else 8)
         loss = train.image_mean((img - 0.25) ** 2, mesh)
         loss.backward()
@@ -91,9 +105,9 @@ def distributed_case(mesh, gather):
     lut = torch.tensor(tf, requires_grad=True)
     img = sweep.distributed_hist_render(
         hist, (np.arange(4, dtype=np.float32) + 0.5) / 4, O, lut, 0.5,
-        width=24, height=20, mesh=mesh, wrt=("hist", "lut"))
+        width=24, height=hgt_hist, mesh=mesh, wrt=("hist", "lut"))
     # the whole image's sum, as one process forms it
-    (train.image_mean(img ** 2, mesh) * (24 * 20 * 4)).backward()
+    (train.image_mean(img ** 2, mesh) * (24 * hgt_hist * 4)).backward()
     out.update({"hist_img": multihost.gather_image(img, mesh),
                 "hist_g": gather(hist.grad).numpy(),
                 "hist_g_lut": lut.grad.numpy()})
@@ -103,14 +117,15 @@ def distributed_case(mesh, gather):
     lut = torch.tensor(tf, requires_grad=True)
     img = sweep.distributed_shearwarp_render(
         v, inv_view_from_rotation_translation(*ROT, (0.0, 0.0, -4.0)), 16,
-        16, lut, 0.3, march=march, mesh=mesh, n_planes=16, backend="xla")
+        16, lut, 0.3, march=march, mesh=mesh, n_planes=2 * nz,
+        backend="xla")
     torch.mean((img - 0.25) ** 2).backward()
     out.update({"rot_img": img.detach().numpy(),
                 "rot_g_vol": v.grad.numpy(), "rot_g_lut": lut.grad.numpy()})
     # one step of each fit, volume and LUT learned
-    target = np.full((16, 16, 4), 0.25, np.float32)
+    target = np.full((hgt, 16, 4), 0.25, np.float32)
     init_fn, step_fn = train.make_sweep_fit_step(
-        mesh, 16, 16, march, learn_volume=True, n_planes=16,
+        mesh, 16, hgt, march, learn_volume=True, n_planes=2 * nz,
         backend="pallas")
     vs = sweep.shard_scalar_volume(vol, mesh)
     params, opt = init_fn(tf, volume=vs)
@@ -120,7 +135,7 @@ def distributed_case(mesh, gather):
                 "fit_g_lut": params["tf_lut"].grad.numpy(),
                 "fit_g_vol": gather(params["volume"].grad).numpy(),
                 "fit_lut": params["tf_lut"].detach().numpy()})
-    init_fn, step_fn = train.make_tf_fit_step(mesh, 16, 16, march=march,
+    init_fn, step_fn = train.make_tf_fit_step(mesh, 16, hgt, march=march,
                                               learn_volume=True)
     st = multihost.make_global(stats, mesh, multihost.stats_volume_spec())
     params, opt = init_fn(tf, st)
@@ -205,6 +220,16 @@ def test_gloo_world_splits_rays_matches_one_process(world, bricks, rays,
     _check_world(world, bricks, rays, tmp_path_factory)
 
 
+@pytest.mark.parametrize("world,bricks,rays", [(3, 2, 3), (2, 3, 2)],
+                         ids=["3proc-2x3", "2proc-3x2"])
+def test_gloo_ragged_world_matches_one_process(world, bricks, rays,
+                                               tmp_path_factory):
+    """Ragged runs of shards (JAX places them): a process holds bricks of
+    different strips (2 x 3 on 3), or unequal counts of a strip's bricks
+    (3 x 2 on 2)."""
+    _check_world(world, bricks, rays, tmp_path_factory)
+
+
 def _rel_l2(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.linalg.norm(a - b) / np.linalg.norm(b)
@@ -242,6 +267,48 @@ def test_gloo_rays_world_matches_jax(tmp_path_factory):
             assert _rel_l2(got[f"{backend}_g_lut"], g_lut) < 1e-3, backend
 
 
+def test_gloo_ragged_world_matches_jax(tmp_path_factory):
+    """The gathered 3-process bricks=2 x rays=3 sweep images and LUT
+    gradient against JAX's ``distributed_sweep_render`` on its CPU mesh
+    ``make_mesh(2, 3)`` of six devices (the tolerances above)."""
+    import jax
+    import jax.numpy as jnp
+
+    from vrdd_tpu.core.transfer import default_transfer_function
+    from vrdd_tpu.parallel import mesh as jmesh
+    from vrdd_tpu.parallel import sweep as jsweep
+    from vrdd_tpu.utils.config import MarchConfig as JMarchConfig
+
+    ranks = _run_world(3, 2, 3, tmp_path_factory)
+    nz, hgt, _ = _sizes(2, 3)
+    _, vol, _ = _inputs(nz)
+    m = jmesh.make_mesh(2, 3, devices=jax.devices()[:6])
+
+    def loss(lut):
+        img = jsweep.distributed_sweep_render(
+            jsweep.shard_scalar_volume(jnp.asarray(vol), m), jnp.asarray(O),
+            lut, jnp.float32(0.3), width=16, height=hgt,
+            march=JMarchConfig(**MARCH), mesh=m, n_planes=2 * nz,
+            backend="xla")
+        return jnp.mean((img - 0.25) ** 2), img
+
+    (_, img), g_lut = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(default_transfer_function()))
+    for got in ranks:
+        for backend in ("xla", "pallas"):
+            np.testing.assert_allclose(got[f"{backend}_img"], np.asarray(img),
+                                       atol=2e-5, rtol=0, err_msg=backend)
+            assert _rel_l2(got[f"{backend}_g_lut"], g_lut) < 1e-3, backend
+
+
+class _Device:
+    """A stand-in for a JAX device where the mesh has more shards than
+    the CPU has virtual devices: ``make_mesh`` only reshapes the list."""
+
+    def __init__(self, i):
+        self.id = i
+
+
 def _rect(cells):
     bs = sorted({b for b, _ in cells})
     rs = sorted({r for _, r in cells})
@@ -249,52 +316,65 @@ def _rect(cells):
 
 
 @pytest.mark.parametrize("bricks,rays", [
-    (b, r) for b in range(1, 9) for r in range(1, 9) if b * r <= 8])
+    (b, r) for b in range(1, 13) for r in range(1, 13) if b * r <= 12])
 def test_placement_matches_jax_device_reshape(bricks, rays):
     """Process ``p`` of ``world`` holds the shards where JAX's
     ``np.asarray(devices).reshape(bricks, rays)`` puts its devices, with
-    ``bricks * rays / world`` consecutive devices a process; a layout that
-    gives a process a ragged run (or does not split evenly) raises."""
+    ``bricks * rays / world`` consecutive devices a process, ragged runs
+    included; the strip and slab groups are the holders of each strip and
+    brick (in a rectangular layout, the processes holding the same strips
+    and the same bricks); a layout that does not split evenly raises."""
     import jax
 
     from vrdd_tpu.parallel import mesh as jmesh
-    from vrdd_tpu_torch.parallel.mesh import placement, process_groups
+    from vrdd_tpu_torch.parallel.mesh import (
+        halo_sources, holders, placement)
 
     n = bricks * rays
+    devices = jax.devices()
+    devices = (devices[:n] if n <= len(devices)
+               else [_Device(i) for i in range(n)])
     grid = np.vectorize(lambda d: d.id)(
-        jmesh.make_mesh(bricks, rays, devices=jax.devices()[:n]).devices)
+        jmesh.make_mesh(bricks, rays, devices=devices).devices)
     for world in range(1, 5):
         if n % world:
-            with pytest.raises(ValueError):
-                placement(bricks, rays, world, 0)
+            for p in range(world):
+                with pytest.raises(ValueError, match="do not split"):
+                    placement(bricks, rays, world, p)
             continue
         owner = (grid - grid.min()) // (n // world)
         runs = [list(zip(*np.nonzero(owner == p))) for p in range(world)]
-        if not all(_rect(c)[0] for c in runs):
-            for p in range(world):
-                with pytest.raises(ValueError, match="ragged"):
-                    placement(bricks, rays, world, p)
-            continue
         for p, cells in enumerate(runs):
-            _, bs, rs = _rect(cells)
-            b, r = placement(bricks, rays, world, p)
-            assert (list(b), list(r)) == (bs, rs), (world, p)
-        brick_groups, ray_groups = process_groups(bricks, rays, world)
-        for g in brick_groups:  # same strips, bricks ascending, all bricks
-            places = [placement(bricks, rays, world, p) for p in g]
-            assert len({(r.start, r.stop) for _, r in places}) == 1
-            assert [i for b, _ in places for i in b] == list(range(bricks))
-        for g in ray_groups:  # same bricks, strips ascending, all strips
-            places = [placement(bricks, rays, world, p) for p in g]
-            assert len({(b.start, b.stop) for b, _ in places}) == 1
-            assert [i for _, r in places for i in r] == list(range(rays))
+            assert placement(bricks, rays, world, p) == tuple(
+                (int(b), int(r)) for b, r in cells), (world, p)
+        strips, slabs = holders(bricks, rays, world)
+        for r in range(rays):  # bricks ascending over the group, all bricks
+            assert strips[r] == tuple(sorted(set(owner[:, r].tolist())))
+            assert [b for p in strips[r] for b, s in runs[p] if s == r] == (
+                list(range(bricks)))
+        for b in range(bricks):  # strips ascending over the group
+            assert slabs[b] == tuple(sorted(set(owner[b].tolist())))
+            assert [r for p in slabs[b] for d, r in runs[p] if d == b] == (
+                list(range(rays)))
+        for p, (lo, hi) in enumerate(halo_sources(bricks, rays, world)):
+            b0, b1 = runs[p][0][0], runs[p][-1][0]
+            assert (lo is None) == (b0 == 0) and (hi is None) == (
+                b1 == bricks - 1)
+            assert lo is None or any(d == b0 - 1 for d, _ in runs[lo])
+            assert hi is None or any(d == b1 + 1 for d, _ in runs[hi])
+        if all(_rect(c)[0] for c in runs):
+            # the old brick and ray groups: same strips, same bricks
+            for g in strips:
+                assert len({tuple(_rect(runs[p])[2]) for p in g}) == 1
+            for g in slabs:
+                assert len({tuple(_rect(runs[p])[1]) for p in g}) == 1
 
 
 def _worker(addr, world, rank, out, bricks, rays):
     import torch.distributed as dist
 
     from vrdd_tpu_torch.parallel import multihost
-    from vrdd_tpu_torch.parallel.mesh import placement
+    from vrdd_tpu_torch.parallel.mesh import holders, placement
     from vrdd_tpu_torch.parallel.scaling import measure_scaling
 
     torch.set_num_threads(1)
@@ -303,35 +383,43 @@ def _worker(addr, world, rank, out, bricks, rays):
     if (bricks, rays) == (1, world):  # JAX's default: rays = world // bricks
         assert multihost.global_mesh(device="cpu").local_rays == (
             mesh.local_rays)
-        try:  # a ragged layout is refused before any group is made
-            multihost.global_mesh(3, 2, device="cpu")
-            raise AssertionError("bricks=3 x rays=2 on 2 processes placed")
-        except ValueError as e:
-            assert "ragged" in str(e)
-    assert (mesh.local_bricks, mesh.local_rays) == placement(
-        bricks, rays, world, rank)
-    # an image's rows, JAX's P(RAY_AXIS): this process's strips
+        # a ragged layout is placed: rank 0 holds bricks 0 and 1 of strip 0
+        ragged = multihost.global_mesh(3, 2, device="cpu")
+        assert ragged.shards == placement(3, 2, world, rank)
+        assert ragged.strip_group(0) is not None
+    shards = placement(bricks, rays, world, rank)
+    assert mesh.shards == shards
+    assert mesh.local_bricks == tuple(range(shards[0][0], shards[-1][0] + 1))
+    assert mesh.local_rays == tuple(sorted({r for _, r in shards}))
+    # an image's rows, JAX's P(RAY_AXIS): this process's strips in order
     from vrdd_tpu_torch.parallel import train
 
-    img = np.arange(16 * 16 * 4, dtype=np.float32).reshape(16, 16, 4)
-    rows = img[mesh.local_rays.start * 16 // rays:
-               mesh.local_rays.stop * 16 // rays]
+    hgt = _sizes(bricks, rays)[1]
+    img = np.arange(hgt * 16 * 4, dtype=np.float32).reshape(hgt, 16, 4)
+    per = hgt // rays
+    rows = np.concatenate([img[r * per:(r + 1) * per]
+                           for r in mesh.local_rays])
     assert np.array_equal(multihost.make_global(
         img, mesh, multihost.image_spec()).numpy(), rows)
     assert np.array_equal(train.shard_target_image(img, mesh).numpy(), rows)
-    firsts = [p for p in range(world)
-              if placement(bricks, rays, world, p)[1].start == 0]
+    assert np.array_equal(multihost.gather_image(torch.from_numpy(rows),
+                                                 mesh), img)
+    slabs = holders(bricks, rays, world)[1]
 
     def gather(t):
-        """The whole volume's tensor from each brick run's first holder;
-        every holder of a run must agree (the ray group's sum)."""
-        parts = [torch.empty_like(t) for _ in range(world)]
-        dist.all_gather(parts, t.contiguous())
-        for p in range(world):
-            first = firsts[placement(bricks, rays, world, p)[0].start
-                           * len(firsts) // bricks]
-            assert torch.equal(parts[p], parts[first]), (p, first)
-        return torch.cat([parts[p] for p in firsts])
+        """The whole volume's tensor from the first holder of each slab;
+        every holder of a slab must agree (its slab group's sum)."""
+        runs = [None] * world
+        dist.all_gather_object(runs, t.detach().numpy())
+        zl = t.shape[0] // len(mesh.local_bricks)
+        whole = []
+        for b in range(bricks):
+            copies = [runs[p][(b - placement(bricks, rays, world, p)[0][0])
+                              * zl:][:zl] for p in slabs[b]]
+            for p, c in zip(slabs[b], copies):
+                assert np.array_equal(c, copies[0]), (b, p)
+            whole.append(copies[0])
+        return torch.from_numpy(np.concatenate(whole))
 
     res = distributed_case(mesh, gather)
     scaling = measure_scaling(["cpu"], size=8, image=16, iters=1)

@@ -41,7 +41,7 @@ def test_measure_scaling_single_device_reports_armed():
 def test_make_mesh_contract():
     mesh = make_mesh(4, 2, devices=["cpu"])
     assert (mesh.bricks, mesh.rays) == (4, 2)
-    assert mesh.world == 1 and mesh.local_bricks == range(4)
+    assert mesh.world == 1 and mesh.local_bricks == (0, 1, 2, 3)
     assert make_mesh(2, devices=["cpu"] * 2).rays == 1
     assert make_mesh(2, 1, devices=["cpu"]) == make_mesh(2, 1,
                                                          devices=["cpu"])

@@ -36,10 +36,10 @@ from vrdd_tpu_torch.core.transfer import apply_transfer_function
 from vrdd_tpu_torch.march.scan import _ALIVE_CHECK
 from vrdd_tpu_torch.parallel.mesh import (
     Mesh,
-    grad_sum,
     halo_exchange,
     replicate,
     replicated_output,
+    slab_sum,
 )
 from vrdd_tpu_torch.parallel.sweep import _local_run, _two_pass
 from vrdd_tpu_torch.utils.config import MarchConfig
@@ -155,8 +155,8 @@ def distributed_render_image(
     nb, nr = mesh.bricks, mesh.rays
     local = mesh.local_bricks
     if stats.shape[0] % len(local):
-        raise ValueError(f"Z={stats.shape[0] * mesh.brick_procs} must divide "
-                         f"over {nb} bricks")
+        raise ValueError(f"Z={stats.shape[0] * nb / len(local):g} must "
+                         f"divide over {nb} bricks")
     zl = stats.shape[0] // len(local)
     nz = zl * nb
     if height % nr:
@@ -169,8 +169,8 @@ def distributed_render_image(
                                      transfer_offset, transfer_scale))
     zmin, zmax = march.box_min[2], march.box_max[2]
     thr = march.opacity_threshold
-    # the slab run is held by the ray group: its gradient sums there
-    padded_run = halo_exchange(grad_sum(stats, mesh.ray_group), mesh)
+    # each slab is held by its slab group: its gradient sums there
+    padded_run = halo_exchange(slab_sum(stats, mesh), mesh)
     n_strip = (height // nr) * width
 
     def strip(r):
@@ -178,7 +178,7 @@ def distributed_render_image(
 
         def march_brick(d, threshold):
             z0 = d * zl
-            k = d - local.start
+            k = d - local[0]
             # the window bounds in float32, as JAX forms them
             zlo = float(np.float32(zmin) + np.float32(zmax - zmin)
                         * np.float32(z0) / np.float32(nz))
@@ -189,7 +189,7 @@ def distributed_render_image(
                 dl, lut, density, toff, tscl, march, zlo, zhi, threshold)
 
         # two passes, the bricks in per-ray front-to-back order
-        rgba = _two_pass(march_brick, mesh, dl[:, 2] >= 0.0, thr, False)
+        rgba = _two_pass(march_brick, mesh, r, dl[:, 2] >= 0.0, thr, False)
         _, _, hit = intersect_box(origin.expand(dl.shape), dl, march.box_min,
                                   march.box_max)
         return torch.where(hit[:, None], rgba * brightness, rgba)

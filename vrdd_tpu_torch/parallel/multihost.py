@@ -3,15 +3,17 @@
 Each process joins one ``torch.distributed`` process group (NCCL with one
 card a process, or Gloo); the ``(bricks, rays)`` mesh then spans the
 processes as JAX's spans their devices (``parallel/mesh.py placement``:
-rays-on-hosts by default, each process rendering its image rows) and the
-SAME renderers of ``parallel/sweep.py`` and ``parallel/bricks.py`` run
-unchanged: each returns this process's rows, the bricks' collectives cross
-the processes of a brick group, and :func:`gather_image` joins the rows.
+rays-on-hosts by default, each process rendering its image rows; any
+layout whose shards split evenly over the processes, ragged runs included)
+and the SAME renderers of ``parallel/sweep.py`` and ``parallel/bricks.py``
+run unchanged: each returns this process's rows, a strip's collectives
+cross the processes of its strip group, a slab's gradient sums over its
+slab group, and :func:`gather_image` joins the rows.
 Nothing here reads a cluster from the environment: the caller names the
 address, the world size and the rank (or sets torch's
 ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` and passes None).
 
-Tested with real 2- and 4-process Gloo runs in
+Tested with real 2-, 3- and 4-process Gloo runs in
 ``tests/test_torch_multihost.py``.
 """
 
@@ -24,7 +26,8 @@ import torch
 import torch.distributed as dist
 
 from vrdd_tpu_torch.parallel.mesh import (
-    BRICK_AXIS, RAY_AXIS, Mesh, _all_gather, placement, process_groups)
+    BRICK_AXIS, RAY_AXIS, Mesh, _gather_strips, holders, local_rows,
+    placement)
 
 
 def initialize(
@@ -53,16 +56,17 @@ def initialize(
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
 
 
-def _subgroup(groups, rank):
-    """Create every group of more than one process (the call is collective:
-    every rank makes them all, in one order) and return this rank's."""
-    mine = None
-    for ranks in groups:
-        if len(ranks) > 1:
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                mine = g
-    return mine
+def _subgroups(families, rank):
+    """Create every group of more than one process, once per set of ranks
+    (the call is collective: every rank makes them all, in one order), and
+    return, per family, this rank's group of each entry (None: a group of
+    one, or one this rank is not in)."""
+    made = {}
+    for ranks in (m for family in families for m in family):
+        if len(ranks) > 1 and ranks not in made:
+            made[ranks] = dist.new_group(list(ranks))
+    return tuple(tuple(made.get(m) if rank in m else None for m in family)
+                 for family in families)
 
 
 def global_mesh(bricks: int = 1, rays: Optional[int] = None,
@@ -70,35 +74,32 @@ def global_mesh(bricks: int = 1, rays: Optional[int] = None,
     """The ``(bricks, rays)`` mesh over every process of the group, placed
     as JAX places devices (``rays`` None: ``world // bricks``, JAX's
     default). Every process must call it, with the same arguments: it
-    creates the brick and ray groups. ``device`` None is this process's
+    creates the strip and slab groups. ``device`` None is this process's
     GPU, whatever the backend; pass ``"cpu"`` for the CPU."""
     world, rank = dist.get_world_size(), dist.get_rank()
     if rays is None:
         rays = world // bricks
-    placement(bricks, rays, world, rank)  # refuses a ragged layout
+    placement(bricks, rays, world, rank)  # a layout that does not split
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    brick_groups, ray_groups = process_groups(bricks, rays, world)
-    brick_group = _subgroup(brick_groups, rank)
-    ray_group = _subgroup(ray_groups, rank)
+    strip_groups, slab_groups = _subgroups(holders(bricks, rays, world), rank)
     return Mesh(int(bricks), int(rays), torch.device(device),
-                dist.group.WORLD, brick_group, ray_group)
+                dist.group.WORLD, strip_groups, slab_groups)
 
 
 def make_global(x, mesh: Mesh, spec: tuple) -> torch.Tensor:
     """This process's part of an array every process passes whole: its run
-    of bricks along the axis ``spec`` names ``bricks``, its run of ray
-    strips along the axis it names ``rays``, on the mesh's device."""
+    of bricks along the axis ``spec`` names ``bricks``, its ray strips (in
+    ascending order) along the axis it names ``rays``, on the mesh's
+    device."""
     x = torch.as_tensor(np.asarray(x))
     for axis, name in enumerate(spec):
         if name == BRICK_AXIS:
-            run, n = mesh.local_bricks, mesh.bricks
+            run = mesh.local_bricks
+            per = x.shape[axis] // mesh.bricks
+            x = x.narrow(axis, run[0] * per, len(run) * per)
         elif name == RAY_AXIS:
-            run, n = mesh.local_rays, mesh.rays
-        else:
-            continue
-        per = x.shape[axis] // n
-        x = x.narrow(axis, run.start * per, len(run) * per)
+            x = local_rows(x, mesh, axis)
     return x.contiguous().to(mesh.device)
 
 
@@ -112,9 +113,6 @@ def image_spec() -> tuple:
 
 def gather_image(img: torch.Tensor, mesh: Mesh) -> np.ndarray:
     """The full ``(H, W, 4)`` image on the host of every process, from this
-    process's rows ``img`` of a render on ``mesh`` (an all-gather over its
-    ray group)."""
-    img = img.detach()
-    if mesh.ray_group is not None:
-        img = _all_gather(img, mesh.ray_group)
-    return img.cpu().numpy()
+    process's rows ``img`` of a render on ``mesh`` (every strip in its place:
+    all-gathers over its slab groups)."""
+    return _gather_strips(img.detach(), mesh).cpu().numpy()

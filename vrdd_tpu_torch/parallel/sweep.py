@@ -24,12 +24,14 @@ The single-device slice sweep (``march/slice.py``; kernels K3/K4/K5 of
   crossing never truncate, and a truncated partial at or after it still
   registers the crossing.
 
-The shards of one process run in turn on its device; the bricks of other
-processes join through the collectives of ``parallel/mesh.py`` (over the
-brick group), and each process returns its own ray strips: rows ``H *
-|local_rays| / rays`` of the image, JAX's ``P(RAY_AXIS)`` output as that
-process holds it (``multihost.gather_image`` joins them; the rotated paths
-gather the m-grid over the ray group before the warp). Everything
+The shards of one process run in turn on its device, strip by strip in
+ascending order and, within a strip, its bricks of that strip in ascending
+order; the bricks of other processes join through the collectives of
+``parallel/mesh.py`` (over the strip's group), and each process returns
+its own ray strips in ascending order: rows ``H * |local_rays| / rays`` of
+the image, JAX's ``P(RAY_AXIS)`` output as that process holds it
+(``multihost.gather_image`` joins them; the rotated paths gather the m-grid
+over the slab groups before the warp). Everything
 is differentiable: the kernels' VJP (with the pass-2 seed cotangent
 ``d seed_a = g_a - S / T_0`` into the upstream bricks' prefixes) and autograd
 through the pre-blend, the halo, the gather and the fold.
@@ -67,6 +69,8 @@ from vrdd_tpu_torch.parallel.mesh import (
     psum,
     replicate,
     replicated_output,
+    slab_sum,
+    strip_slabs,
 )
 from vrdd_tpu_torch.utils.config import MarchConfig
 
@@ -86,7 +90,7 @@ def _local_run(x, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"extent {n} must divide over {mesh.bricks} bricks")
     per = n // mesh.bricks
     b = mesh.local_bricks
-    return x[b.start * per:b.stop * per].to(mesh.device)
+    return x[b[0] * per:(b[-1] + 1) * per].to(mesh.device)
 
 
 def shard_scalar_volume(volume, mesh: Mesh) -> torch.Tensor:
@@ -135,10 +139,11 @@ def _over(acc, part):
     return acc + part * (1.0 - acc[..., 3:4])
 
 
-def _two_pass(sweep, mesh: Mesh, forward: torch.Tensor, thr: float,
+def _two_pass(sweep, mesh: Mesh, r: int, forward: torch.Tensor, thr: float,
               seeded: bool):
-    """The sort-last composite of one ray strip (the parallel scan marcher
-    of ``parallel/bricks.py`` shares it).
+    """The sort-last composite of ray strip ``r`` (the parallel scan
+    marcher of ``parallel/bricks.py`` shares it), over this process's
+    bricks of the strip and, through the strip's group, the others'.
 
     ``sweep(d, arg)`` is brick ``d``'s partial premultiplied RGBA, ``(*rays,
     4)``: ``seeded`` (the kernels) with ``arg`` None (pass 1, the kernel's
@@ -148,13 +153,13 @@ def _two_pass(sweep, mesh: Mesh, forward: torch.Tensor, thr: float,
     shape = forward.shape
     dev = mesh.device
     nb = mesh.bricks
-    local = mesh.local_bricks
+    local = mesh.bricks_of(r)
     if nb == 1:
         # one brick: the sweep's own cutoff is the global termination
         return sweep(0, None if seeded else torch.full(shape, thr,
                                                        device=dev))
     no_cut = None if seeded else torch.full(shape, 2.0, device=dev)
-    parts = all_gather([sweep(d, no_cut) for d in local], mesh)
+    parts = all_gather([sweep(d, no_cut) for d in local], mesh, r)
     # per ray, the bricks in front-to-back order
     kk = torch.arange(nb, device=dev).reshape((nb,) + (1,) * len(shape))
     order = torch.where(forward[None], kk, nb - 1 - kk)
@@ -186,7 +191,7 @@ def _two_pass(sweep, mesh: Mesh, forward: torch.Tensor, thr: float,
             tau = (thr - a_up) / torch.clamp(1.0 - a_up, min=1e-6)
             out = sweep(d, torch.where(flag, tau, 2.0))
         contrib = contrib + torch.where(flag[..., None], out, 0.0)
-    contrib = psum(contrib, mesh)
+    contrib = psum(contrib, mesh, r)
     exact = contrib if seeded else prefix_at + contrib * (1.0 - a_up[..., None])
     return torch.where(saturating[..., None], exact, final_nc)
 
@@ -198,8 +203,8 @@ def _forward(dz_sign: int, hl: int, width: int, mesh: Mesh) -> torch.Tensor:
 
 def _strips(strip_fn, mesh: Mesh, height: int):
     """This process's rows of the image: ``strip_fn(r, my_rows)`` per ray
-    strip it holds, concatenated (every member of a brick group walks the
-    same strips in the same order: their collectives pair up)."""
+    strip it holds, in ascending order, concatenated (every process walks
+    its strips in that order: a strip group's collectives pair up)."""
     hl = height // mesh.rays
     return torch.cat([strip_fn(r, slice(r * hl, (r + 1) * hl))
                       for r in mesh.local_rays])
@@ -232,7 +237,7 @@ def _sweep_slope_space_call(
                 "use volume_mode='replicated' for tex_offset/axis_scale "
                 "variants")
         if volume.shape[0] % len(local):
-            raise ValueError(f"Z={volume.shape[0] * mesh.brick_procs} must "
+            raise ValueError(f"Z={volume.shape[0] * nb / len(local):g} must "
                              f"divide over {nb} bricks")
         zl = volume.shape[0] // len(local)
         nz = zl * nb
@@ -296,7 +301,7 @@ def _sweep_slope_space_call(
         zs_ftb = zs_global[d * ppd:(d + 1) * ppd]
         if dz_sign < 0:
             zs_ftb = zs_ftb[::-1].copy()
-        dl = d - local.start
+        dl = d - local[0]
         if volume_mode == "replicated":
             # plane-schedule sharding: the whole (coarse) volume on every
             # brick, the exact clamp-from-the-unclipped-floor taps of the
@@ -345,7 +350,7 @@ def _sweep_slope_space_call(
                 tscl, arg, march, plane_chunk, dz_sign, spacing,
                 length_correction, tex_offset, axis_scale[:2])
 
-        return _two_pass(sweep, mesh, _forward(dz_sign, hl, width, mesh),
+        return _two_pass(sweep, mesh, r, _forward(dz_sign, hl, width, mesh),
                          thr, use_pallas)
 
     return replicated_output(_strips(strip, mesh, height) * brightness, mesh)
@@ -390,9 +395,9 @@ def distributed_sweep_slope_space(
             if tex_offset == 0.5 and tuple(axis_scale) == (1.0, 1.0, 1.0)
             else "replicated"
         )
-    # a slab run is held by the ray group, a whole volume by every process
-    volume = grad_sum(volume, mesh.ray_group if volume_mode == "slab"
-                      else mesh.group)
+    # a slab is held by its slab group, a whole volume by every process
+    volume = (slab_sum(volume, mesh) if volume_mode == "slab"
+              else grad_sum(volume, mesh.group))
     return _sweep_slope_space_call(
         volume, origin, tf_lut, density, brightness, transfer_offset,
         transfer_scale, mx=mx, my=my, march=march, mesh=mesh,
@@ -457,20 +462,23 @@ def _hist_sweep_slope_space_call(
     hist_bm, weights, origin, tf_lut, density, brightness, transfer_offset,
     transfer_scale, *, mx, my, march: MarchConfig, mesh: Mesh, dz_sign: int,
     length_correction: bool, plane_chunk: int, wrt: tuple, stat: str,
+    slab_groups: bool,
 ) -> torch.Tensor:
     """The distribution-native distributed sweep over host slope grids (core
     of :func:`distributed_hist_render` and
     :func:`distributed_shearwarp_hist_render`): every brick sweeps its
     histogram slab through K3 (K4/K5 under autograd) with the statistic
     decoded in the kernel, one plane per layer, walked back to front for
-    ``dz_sign < 0``."""
+    ``dz_sign < 0``. ``slab_groups``: ``hist_bm``'s slabs are held by their
+    slab groups (their gradient sums there), else cut from a volume whose
+    gradient sums over the world."""
     mx = np.asarray(mx, np.float32)
     my = np.asarray(my, np.float32)
     width, height = mx.shape[0], my.shape[0]
     nb, nr = mesh.bricks, mesh.rays
     local = mesh.local_bricks
     if hist_bm.shape[0] % len(local):
-        raise ValueError(f"Z={hist_bm.shape[0] * mesh.brick_procs} must "
+        raise ValueError(f"Z={hist_bm.shape[0] * nb / len(local):g} must "
                          f"divide over {nb} bricks")
     zl = hist_bm.shape[0] // len(local)
     n_planes = zl * nb  # pure selection: layers ARE planes
@@ -487,28 +495,27 @@ def _hist_sweep_slope_space_call(
                                      brightness))
     origin = _host_floats(origin, 3)
 
-    slabs_all = hist_bm.split(zl)  # one gradient for all bricks (see above)
+    # a view of each of a strip's slabs: a strip's passes sum their bf16
+    # cotangents there before the strips add up, the order of JAX's
+    # per-device cotangents and their psum over rays, the same in one
+    # process and in a world whose processes split the strips
+    views = strip_slabs(hist_bm, mesh, slab_groups)
 
     def strip(r, rows):
         slopes = _strip_slopes(mx, my[rows])
-        # a view of each slab a strip: a strip's passes sum their bf16
-        # cotangents there before the strips add up in the split, the order
-        # of JAX's per-device cotangents and their psum over rays (and of a
-        # world whose processes split the strips); a view passes its
-        # gradient on without a copy
-        slabs = [s.view_as(s) for s in slabs_all]
+        slabs = views(r)
 
         def sweep(d, seed):
             zs = zs_global[d * zl:(d + 1) * zl]
             return sweep_preblended_hist_diff(
-                slabs[d - local.start], weights,
+                slabs[d], weights,
                 zs[::-1].copy() if dz_sign < 0 else zs, origin, slopes, lut,
                 density, 1.0, toff, tscl, dz_sign=dz_sign, width=width,
                 height=hl, march=march, length_correction=length_correction,
                 plane_chunk=plane_chunk, plane_spacing=spacing, wrt=wrt,
                 stat=stat, acc_init=seed, reverse_planes=dz_sign < 0)
 
-        return _two_pass(sweep, mesh, _forward(dz_sign, hl, width, mesh),
+        return _two_pass(sweep, mesh, r, _forward(dz_sign, hl, width, mesh),
                          march.opacity_threshold, True)
 
     return replicated_output(_strips(strip, mesh, height) * brightness, mesh)
@@ -547,12 +554,13 @@ def distributed_hist_render(
     Returns this process's rows, as :func:`distributed_sweep_render`.
     Rotated cameras: :func:`distributed_shearwarp_hist_render`."""
     mx, my = _pixel_slopes(int(width), int(height), focal)
-    # the slab run is held by the ray group: its gradient sums there
+    # each slab is held by its slab group: its gradient sums there
     return _hist_sweep_slope_space_call(
-        grad_sum(hist_bm, mesh.ray_group), weights, origin, tf_lut, density,
-        brightness, transfer_offset, transfer_scale, mx=mx, my=my, march=march,
+        hist_bm, weights, origin, tf_lut, density, brightness,
+        transfer_offset, transfer_scale, mx=mx, my=my, march=march,
         mesh=mesh, dz_sign=-1, length_correction=length_correction,
-        plane_chunk=int(plane_chunk), wrt=tuple(wrt), stat=str(stat))
+        plane_chunk=int(plane_chunk), wrt=tuple(wrt), stat=str(stat),
+        slab_groups=True)
 
 
 # ---- rotated views (shear-warp) -------------------------------------------
@@ -747,8 +755,8 @@ def distributed_shearwarp_hist_render(
     rows split over rays, walked in storage order for ``dz > 0`` and back to
     front for ``dz < 0``, and the m-space image warps to pixels. The m-grid
     is JAX's: columns rounded up to 128, rows extended to ``rays * STRIP``.
-    The m-grid's strips are gathered over the ray group before the warp, so
-    every process returns the whole frame. Differentiable like
+    The m-grid's strips are gathered over the slab groups before the warp,
+    so every process returns the whole frame. Differentiable like
     :func:`distributed_hist_render`."""
     if not isinstance(hist_bm, torch.Tensor):
         hist_bm = torch.as_tensor(hist_bm)
@@ -768,8 +776,8 @@ def distributed_shearwarp_hist_render(
         transfer_offset, transfer_scale, inv_view, mgrid, mx=mx, my=my,
         march=march_p, mesh=mesh, dz_sign=dz_sign,
         length_correction=length_correction, plane_chunk=int(plane_chunk),
-        wrt=tuple(wrt), stat=str(stat), width=int(width), height=int(height),
-        focal=float(focal), perm_world=perm_world)
+        wrt=tuple(wrt), stat=str(stat), slab_groups=False, width=int(width),
+        height=int(height), focal=float(focal), perm_world=perm_world)
 
 
 def distributed_shearwarp_render(

@@ -23,7 +23,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from vrdd_tpu_torch.parallel.bricks import distributed_render_image
-from vrdd_tpu_torch.parallel.mesh import Mesh, image_mean
+from vrdd_tpu_torch.parallel.mesh import Mesh, image_mean, local_rows
 from vrdd_tpu_torch.utils.config import MarchConfig
 
 #: ``params -> torch.optim.Optimizer`` (JAX's ``optax.GradientTransformation``)
@@ -88,11 +88,10 @@ def make_tf_fit_step(
 
 def shard_target_image(target, mesh: Mesh) -> torch.Tensor:
     """This process's rows of an ``(H, W, 4)`` target image (its ray
-    strips, JAX's ``P(RAY_AXIS)``), on the mesh's device."""
+    strips in ascending order, JAX's ``P(RAY_AXIS)``), on the mesh's
+    device."""
     target = torch.as_tensor(target, dtype=torch.float32)
-    per = target.shape[0] // mesh.rays
-    run = mesh.local_rays
-    return target[run.start * per:run.stop * per].to(mesh.device)
+    return local_rows(target, mesh).to(mesh.device)
 
 
 def make_sweep_fit_step(
