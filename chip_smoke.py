@@ -210,7 +210,22 @@ Phases (each prints its lines; any failure exits non-zero):
          (Isabel's 50 x 50 x 10 x 32 raw blocks, 512^2): four ``/frame``
          requests (one rotated, two ``fmt=rgb``) byte for byte the
          pipeline's uint8 render of the same parameters, and the pipelined
-         protocol's lag and flush.
+         protocol's lag and flush;
+13a. the shapes only the bench gives the kernels (its ``big`` section):
+    the bench's own calls on its own fixtures, K1 and the fwd+bwd (K4 + K5,
+    ``wrt=("volume", "lut")``) of the 1024^3 float32 volume -> 1024^2 and
+    K2's mean over the 512^3 x 32 bf16 volume (2^32 elements, past 32-bit
+    indexing), once with the counters reset before and read after (each
+    must launch once), each output against its plain version (image
+    tolerance; gradients 1e-3 relative L2), then K4 and K5 alone against
+    theirs; each kernel timed (median of 10, CUDA events) and bounded;
+13. (run last) ``python -m vrdd_tpu_torch.cli bench --full`` at its full
+    sizes as a subprocess, every section: it must exit 0 with a last line
+    under 1500 characters that parses and holds a ``value``, its route and
+    one number per BASELINE config, every number of its record finite (the
+    scaling efficiencies of a world of one excepted), every roofline share
+    at most 1.05, every kernel of its path launched, and its in-kernel mean
+    fwd+bwd rate within 25% of phase 6's (staged, CUDA events).
 
 Every sweep kernel runs by default on the fetch path its wrapper chooses
 (staged where the footprint fits shared memory, K5 on scalar planes
@@ -252,40 +267,19 @@ import sys
 import time
 from pathlib import Path
 
+from vrdd_tpu_torch.utils.compare import rel_l2 as compare_rel_l2
+from vrdd_tpu_torch.utils.compare import where_off
+from vrdd_tpu_torch.utils.roofline import (
+    K5_SAMPLE_OPS, SAMPLE_OPS, bound, decode_ops, ess_pair_ops,
+    live_samples,
+)
+
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4           # abs, per channel
 FLIP_BUDGET = 1e-3   # share of pixels allowed past TOL (cutoff flips)
 GRAD_TOL = 1e-3      # relative L2 of gradients (atomics, cutoff flips)
 ORIGIN = (0.0, 0.0, 4.0)
 TIMED_RUNS = 10
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-FP32_OPS_PER_S = 67e12      # H100 SXM, FP32 outside the tensor cores
-#: FP32 operations per evaluated sample of the forward sweep, counted from
-#: csrc/sweep_common.cuh and slice_sweep.cu (an FMA counts as two): the
-#: ray-plane taps 40, the bilinear resample 9, the LUT tent and lookup 24,
-#: the opacity 3, the "over" step 12
-SAMPLE_OPS = 88
-#: the reverse sweep (K5) replays the forward's samples and transposes
-#: them: counted as three forward samples
-K5_SAMPLE_FACTOR = 3
-
-
-def decode_ops(mode, B):
-    """FP32 operations of the in-kernel decode of one sample's four tap
-    voxels (log2 counted as one operation)."""
-    per_voxel = {"none": 0, "linear": 2 * B, "var": 8 * B + 6,
-                 "entropy": 4 * B + 1}[mode]
-    return 4 * per_voxel
-
-
-def ess_pair_ops(plane_chunk, n_lut):
-    """Operations of the ESS bitmap kernel for one (tile, chunk), counted
-    from csrc/ess_bitmap.cu (a float64 operation counts as one): the depth
-    range and the corner and block geometry 60, the block min and max over
-    the chunk's planes at 2 x 2 blocks, the LUT interval 20 and its knots."""
-    return 60 + 2 * 4 * plane_chunk + 20 + 2 * n_lut
-
-
 def fail(msg: str):
     sys.exit(f"chip_smoke FAIL: {msg}")
 
@@ -322,27 +316,15 @@ def compare(got, ref, what):
 
 
 def rel_l2(got, ref, what, limit=GRAD_TOL):
-    """Relative L2 error, summed a few z-layers at a time in float64 (the
-    full-size histogram cotangents are 2^31 values); fails past ``limit``."""
-    import torch
-
-    if got.shape != ref.shape:
-        fail(f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
-    if got.dim() <= 1:
-        got, ref = got.reshape(1, -1), ref.reshape(1, -1)
-    num = den = 0.0
-    step = max(1, (1 << 26) // max(1, got[0].numel()))
-    for z0 in range(0, got.shape[0], step):
-        a = got[z0:z0 + step].double()
-        b = ref[z0:z0 + step].double()
-        if not torch.isfinite(a).all():
-            fail(f"{what}: non-finite gradient")
-        num += float(((a - b) ** 2).sum())
-        den += float((b ** 2).sum())
-    err = (num / max(den, 1e-300)) ** 0.5
+    """Relative L2 error (``utils.compare.rel_l2``); fails past ``limit``,
+    on a non-finite ``got`` or an all-zero ``ref``."""
+    try:
+        err = compare_rel_l2(got, ref)
+    except ValueError as e:
+        fail(f"{what}: {e}")
     print(f"  {what}: rel L2 {err:.3e}")
-    if err > limit or den == 0.0:
-        fail(f"{what}: rel L2 {err:.3e} (limit {limit:g}, ref norm^2 {den})")
+    if err > limit:
+        fail(f"{what}: rel L2 {err:.3e} (limit {limit:g})")
     return err
 
 
@@ -404,91 +386,6 @@ def timed_once(fn):
     end.record()
     end.synchronize()
     return start.elapsed_time(end), out
-
-
-def bound(n_bytes, n_ops):
-    """``bound_ms`` and ``bound_by`` of a call that must move ``n_bytes``
-    and compute ``n_ops`` FP32 operations."""
-    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * n_ops / FP32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
-
-
-def live_samples(planes, zs, slopes, lut, density, toff, tscl, W, H, *,
-                 reverse=False, ess=None, chunk=8, tex_offset=0.5,
-                 origin=ORIGIN, dz_sign=-1, seed_alpha=None,
-                 axis_scale=(1.0, 1.0), spacing=None):
-    """``(samples, texels)``: the samples the sweep kernels evaluate on
-    these inputs, and the distinct plane texels those samples read. A sample
-    is evaluated where the plane is in front of the camera, the ray inside
-    the box there and not yet past the opacity cutoff, and the (tile,
-    chunk) not culled by the ESS bitmap ``ess``; it reads the two x by two y
-    taps of its resample. Counted with the plain version's per-plane alpha,
-    front to back (``reverse``: the stack is stored z-ascending), from the
-    camera at ``origin`` whose rays have d_z of sign ``dz_sign``, the
-    accumulated alpha starting at ``seed_alpha`` (H, W) for a seeded
-    sweep, on the filter grid scaled by ``axis_scale`` (flexible blocks),
-    the planes ``spacing`` apart (None: the box's depth over ``P``; a slab
-    of a longer stack passes the stack's)."""
-    import torch
-
-    from vrdd_tpu_torch.kernels import slice_kernel as sk
-    from vrdd_tpu_torch.march.slice import _chunk_rgba_fn
-    from vrdd_tpu_torch.utils.config import MarchConfig
-
-    march = MarchConfig()
-    dev = planes.device
-    P, ny, nx = planes.shape
-    mx, my = sk._slope_grids(slopes, W, H)
-    rgba = _chunk_rgba_fn(P, ny, nx, zs, torch.tensor(origin), mx, my, march,
-                          dz_sign, spacing, True, tex_offset,
-                          tuple(axis_scale), True, dev)
-    mx_t, my_t = torch.as_tensor(mx, device=dev), torch.as_tensor(my, device=dev)
-    th, tw = sk.ESS_TILE
-    ti = torch.arange(H, device=dev) // th
-    tj = torch.arange(W, device=dev) // tw
-    lut_t = torch.as_tensor(lut, dtype=torch.float32, device=dev)
-    ox, oy, oz = origin
-    (xlo, ylo, _), (xhi, yhi, _) = march.box_min, march.box_max
-    thr = march.opacity_threshold
-
-    def taps(w, lo, hi, n, scale):
-        """(rays, n) 0/1 matrix of the texels each ray's resample reads."""
-        q = ((w - lo) / (hi - lo) * (n * scale) - tex_offset).clamp(0.0,
-                                                                    n - 1.0)
-        i0 = torch.floor(q).long()
-        m = torch.zeros((w.shape[0], n), device=dev)
-        rows = torch.arange(w.shape[0], device=dev)
-        m[rows, i0] = 1.0
-        m[rows, (i0 + 1).clamp(max=n - 1)] = 1.0
-        return m
-
-    acc = (torch.zeros((H, W), device=dev) if seed_alpha is None
-           else seed_alpha.to(dev, torch.float32).clone())
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    texels = torch.zeros((), dtype=torch.int64, device=dev)
-    with torch.no_grad():
-        for c0 in range(0, P, chunk):
-            idx = torch.arange(c0, min(c0 + chunk, P), device=dev)
-            a = rgba(c0, planes[P - 1 - idx if reverse else idx].float(),
-                     lut_t, density, toff, tscl)[..., 3]
-            for k in range(a.shape[0]):
-                z = float(zs[c0 + k])
-                if (z - oz) * dz_sign > 0:
-                    xw, yw = ox + (z - oz) * mx_t, oy + (z - oz) * my_t
-                    live = ((acc <= thr) & ((yw >= ylo) & (yw <= yhi))[:, None]
-                            & ((xw >= xlo) & (xw <= xhi))[None, :])
-                    if ess is not None:
-                        live &= ess[(c0 + k) // chunk][ti][:, tj] != 0
-                    count += live.sum()
-                    read = (taps(yw, ylo, yhi, ny, axis_scale[1]).T
-                            @ live.float()
-                            @ taps(xw, xlo, xhi, nx, axis_scale[0]))
-                    texels += (read > 0).sum()
-                acc = torch.where(acc > thr, acc, acc + a[k] * (1.0 - acc))
-    return int(count), int(texels)
 
 
 def host_ms(fn, runs):
@@ -703,8 +600,8 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         n_live, n_texels = live_samples(decoded, cfg.zs, cfg.slopes, tf, 0.05,
                                         0.0, tscl, W, W, reverse=True)
         del decoded
-        fwd_ops = n_live * (SAMPLE_OPS
-                            + decode_ops(mode if inkernel else "none", B))
+        dec_ops = decode_ops(mode if inkernel else "none", B)
+        fwd_ops = n_live * (SAMPLE_OPS + dec_ops)
         # the volume bytes the live samples' taps read, each once
         vol_bytes = n_texels * (vol.numel() // (n * n * n)) * vol.element_size()
         img_bytes, tck_bytes = W * W * 16, cfg.n_chunks * W * W * 4
@@ -714,7 +611,7 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
             "sweep_fwd_ckpt": bound(vol_bytes + img_bytes + tck_bytes,
                                     fwd_ops),
             "sweep_bwd": bound(vol_bytes + tck_bytes + img_bytes + d_bytes,
-                               K5_SAMPLE_FACTOR * fwd_ops),
+                               n_live * (K5_SAMPLE_OPS + dec_ops)),
         }
         print(f"  [{tag}] evaluated samples {n_live} "
               f"({n_live / (W * W * n):.4f} of rays x planes), texels read "
@@ -796,7 +693,7 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         torch.cuda.empty_cache()
     print("  fwd+bwd Mrays/s (staged / direct): " + ", ".join(
         f"{t} {a:.2f} / {b:.2f}" for t, (a, b) in mrays.items()))
-    return records
+    return records, mrays
 
 
 def smooth_raw_histograms(n, B, dev, seed=0):
@@ -1331,7 +1228,7 @@ def seed_records(dev, tf, n, W, density):
                                  staged=st),
          lambda: sv.sweep_bwd_reference(*args, g, True, False, False, acc),
          bound(tex * 4 + tck_b + 2 * img_b + p_c.numel() * 4 + W * W * 4,
-               K5_SAMPLE_FACTOR * ops), 787, "slice_vjp_staged.cu"),
+               n_live * K5_SAMPLE_OPS), 787, "slice_vjp_staged.cu"),
     )
     for name, fn, ref_fn, bd, line, src in cases:
         ms, direct_ms = paths_ms(lambda st, fn=fn: lambda: fn(st))
@@ -1600,7 +1497,7 @@ def phase_8(dev, card, smi, tf, work, n=256, W=512, steps=5, n_raw=256,
                                      staged=st),
              lambda: sv.sweep_bwd_reference(*args, g, True, False, False),
              bound(tex * 4 + tck_b + img_b + planes.numel() * 4,
-                   K5_SAMPLE_FACTOR * ops), 787)):
+                   n_live * K5_SAMPLE_OPS), 787)):
         ms, direct_ms = paths_ms(lambda st, fn=fn: lambda: fn(st))
         p_ms, ref = timed_once(ref_fn)
         got, direct = fn(True), fn(False)
@@ -2227,7 +2124,7 @@ def phase_10(dev, card, smi, work):
                                      staged=st),
              lambda: sv.sweep_bwd_reference(*args, g, False, True, False),
              bound(tex * 4 + tck_b + img_b + (4 * n_lut + 3) * 4,
-                   K5_SAMPLE_FACTOR * ops), 787)):
+                   n_live * K5_SAMPLE_OPS), 787)):
         ms, direct_ms = paths_ms(lambda st, fn=fn: lambda: fn(st))
         p_ms, ref = timed_once(ref_fn)
         got, direct = fn(None), fn(False)
@@ -2502,7 +2399,8 @@ def k4_k5_records(shards, mode, B, elem, counts, wrt, tag, what):
              "slice_sweep.cu"),
             ("sweep_bwd", k5, k5_plain,
              bound(tex * (B * elem + 4 * flags[0]) + tck_b + img_b
-                   + (4 * n_lut + 3) * 4, K5_SAMPLE_FACTOR * ops), 787,
+                   + (4 * n_lut + 3) * 4,
+                   n_live * (K5_SAMPLE_OPS + decode_ops(mode, B))), 787,
              "slice_vjp.cu")):
         ms = time_ms(fn, 3)
         p_ms, ref = timed_once(ref_fn)
@@ -3577,7 +3475,8 @@ def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
     bounds = {
         "sweep_fwd_ckpt": bound(vol_bytes + img_bytes + tck_bytes, fwd_ops),
         "sweep_bwd": bound(vol_bytes + tck_bytes + img_bytes + d_bytes,
-                           K5_SAMPLE_FACTOR * fwd_ops),
+                           n_live * (K5_SAMPLE_OPS + BF16_SAMPLE_OPS
+                                     + decode_ops(mode, B))),
         "dplane_bf16": bound(dtmp_bytes + d_bytes, 4 * P * W * nx),
     }
     bounds["dplane_bf16"]["library_ms"] = lib_ms
@@ -3609,39 +3508,6 @@ def phase_12b(dev, card, smi, hist, tf, origin, n, B, W, counts):
     print("  (sweep_bwd's ms holds K5 and its transpose launch, as the "
           "wrapper runs them)")
     return records
-
-
-def where_off(d, ref, what, tau=2.0 ** -8):
-    """Where ``d`` misses ``ref`` by more than ``tau`` of the entry: the
-    count, the share of the squared L2 gap they carry, their layers and y
-    edges, and the five largest misses."""
-    import torch
-
-    diff = d - ref
-    off = (diff.abs() > tau * ref.abs()) & (ref != 0)
-    idx = off.nonzero()
-    gap2 = float((diff.double() ** 2).sum())
-    off2 = float((diff[off].double() ** 2).sum())
-    mag = ref.abs()
-    print(f"  {what}: {idx.shape[0]} entries off by > {tau:g} carry "
-          f"{off2 / max(gap2, 1e-300):.2%} of the squared gap; their median "
-          f"|entry| {float(mag[off].median()) if idx.shape[0] else 0.0:.3e}"
-          f" against {float(mag[ref != 0].median()):.3e} over all nonzero "
-          f"entries (rms {float(ref.double().pow(2).mean().sqrt()):.3e})")
-    if idx.shape[0] == 0:
-        return
-    z, y, x = idx.unbind(1)
-    ny, nx = d.shape[1:]
-    print(f"    layers {int(z.min())}-{int(z.max())} "
-          f"({int(torch.unique(z).numel())} distinct), y edge "
-          f"{float(((y == 0) | (y == ny - 1)).float().mean()):.2%}, x edge "
-          f"{float(((x == 0) | (x == nx - 1)).float().mean()):.2%}")
-    flat = diff.abs().reshape(-1)
-    for i in torch.topk(flat, 5).indices.tolist():
-        zz, rem = divmod(i, ny * nx)
-        yy, xx = divmod(rem, nx)
-        print(f"    ({zz}, {yy}, {xx}): {float(d[zz, yy, xx]):.6e} vs "
-              f"{float(ref[zz, yy, xx]):.6e}")
 
 
 def bf16_witnesses(dev, sv, args, g, tck, flags, d_dec, d_ref):
@@ -3938,6 +3804,254 @@ def phase_12(dev, card, smi, hist, tf, origin, n, B, W, counts, work):
     return records
 
 
+# ---- phase 13a: the bench's own shapes against the plain versions ----------
+
+def phase_13a(dev, card, smi, tf, n=1024, W=1024, n_hist=512, B=32):
+    """The kernels at the shapes only the bench gives them (its ``big``
+    section, JAX's defaults): K1 and the fwd+bwd (K4 + K5) of the n^3
+    float32 volume (4 GiB) -> W^2 with one plane per layer, and K2's mean
+    over the n_hist^3 x B bf16 volume, whose 2^32 elements are the first
+    past 32-bit indexing. The bench's own calls on its own fixtures run
+    once with the counters reset before and read after, and each output is
+    held against its plain version on the same inputs (image tolerance;
+    gradients GRAD_TOL); K4 and K5 also alone. Returns the kernel
+    records."""
+    import numpy as np
+    import torch
+
+    from vrdd_tpu_torch import bench
+    from vrdd_tpu_torch.io.synthetic import blob_histogram_volume
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+    from vrdd_tpu_torch.march.slice import slice_render_image
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    t0 = time.perf_counter()
+    print(f"[13a] the bench's big shapes: {n}^3 f32 -> {W}^2 (K1, K4 + K5) "
+          f"and {n_hist}^3 x {B} bf16 -> {W}^2 (K2 mean) on {card} ({smi})")
+    k1, k2 = sk.sweep_preblended_planes, sk.pallas_hist_render
+    counters = (k1, k2) + diff_counters()
+    origin = torch.tensor(ORIGIN)
+    lut = torch.as_tensor(tf, device=dev)
+    vol = bench.blob_volume_device(n, device=dev)
+    hist = blob_histogram_volume(n_hist, B, device=dev, dtype=torch.bfloat16)
+    dw = torch.as_tensor((np.arange(B) + 0.5) / B, dtype=torch.float32,
+                         device=dev)
+    vg, lg = vol.detach().requires_grad_(), lut.clone().requires_grad_()
+
+    # the main-path run: the bench's calls, once each
+    for c in counters:
+        c.launches = c.staged_launches = 0
+    with torch.no_grad():
+        img1 = sk.pallas_slice_render(vol, ORIGIN, lut, density=0.05,
+                                      width=W, height=W, n_planes=n)
+        img2 = k2(hist, dw, ORIGIN, lut, density=0.05, width=W, height=W)
+    img = sv.pallas_slice_render_diff(vg, ORIGIN, lg, density=0.05, width=W,
+                                      height=W, n_planes=n,
+                                      wrt=("volume", "lut"))
+    gv, gl = torch.autograd.grad(torch.mean((img - 0.25) ** 2), [vg, lg])
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    staged = {c.__name__: c.staged_launches for c in counters}
+    print(f"  launches in the main-path run: {launches}, on the staged "
+          f"path: {staged}")
+    if launches != {"sweep_preblended_planes": 1, "pallas_hist_render": 1,
+                    "sweep_fwd": 0, "sweep_fwd_ckpt": 1, "sweep_bwd": 1}:
+        fail(f"13a: the bench's calls did not launch their kernels once "
+             f"each: {launches}")
+
+    # K2 mean over 2^32 bf16 elements
+    k2_plain_ms, ref = timed_once(lambda: sk.hist_render_reference(
+        hist, dw, origin, tf, 0.05, width=W, height=W))
+    k2_err = compare(img2, ref, f"K2 mean {n_hist}^3 x {B} bf16")
+    k2_ms = time_ms(lambda: k2(hist, dw, ORIGIN, lut, density=0.05,
+                               width=W, height=W), TIMED_RUNS)
+    zs, slopes, _ = sk._hist_geometry(n_hist, W, W, 2.0, MarchConfig())
+    mean = sk.decode_with_rows(hist, dw, "linear")
+    h_live, h_tex = live_samples(mean, zs, slopes, tf, 0.05, 0.0, 1.0, W, W,
+                                 reverse=True)
+    del hist, mean, img2, ref
+    torch.cuda.empty_cache()
+    bounds = {"pallas_hist_render": bound(
+        h_tex * B * 2 + W * W * 16,
+        h_live * (SAMPLE_OPS + decode_ops("linear", B)))}
+
+    # K1 and the fwd+bwd over the 4 GiB volume
+    k1_plain_ms, ref = timed_once(lambda: slice_render_image(
+        vol, origin, W, W, tf, 0.05, n_planes=n))
+    k1_err = compare(img1, ref, f"K1 {n}^3 f32")
+    compare(img.detach(), ref, f"K4 image (the fwd+bwd) {n}^3 f32")
+    del ref
+
+    def plain():
+        vp, lp = vol.detach().requires_grad_(), lut.clone().requires_grad_()
+        imgp = slice_render_image(vp, origin, W, W, lp, 0.05, n_planes=n)
+        lossp = torch.mean((imgp - 0.25) ** 2)
+        return torch.autograd.grad(lossp, [vp, lp])
+
+    fb_plain_ms, (gvp, glp) = timed_once(plain)
+    rel_l2(gv, gvp, f"fwd+bwd {n}^3 f32 d_volume")
+    rel_l2(gl, glp, f"fwd+bwd {n}^3 f32 d_lut")
+    print(f"  fwd+bwd plain {fb_plain_ms:.1f} ms")
+    del vg, lg, img, gv, gl, gvp, glp
+    torch.cuda.empty_cache()
+    k1_ms = time_ms(lambda: sk.pallas_slice_render(
+        vol, ORIGIN, lut, density=0.05, width=W, height=W, n_planes=n),
+        TIMED_RUNS)
+
+    # K4 and K5 alone, at the fwd+bwd's configuration
+    cfg = sv.render_config(vol.shape, origin, width=W, height=W)
+    args = (cfg, vol, None, lut, torch.tensor(0.05, device=dev),
+            torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev))
+    img4, tck = sv.sweep_fwd_ckpt(*args)
+    k4_plain_ms, (ref4, tck_ref) = timed_once(
+        lambda: sv.sweep_fwd_ckpt_reference(*args))
+    k4_err = compare(img4, ref4, f"K4 image {n}^3 f32")
+    compare(tck[..., None], tck_ref[..., None], f"K4 checkpoints {n}^3 f32")
+    del ref4, tck_ref
+    k4_ms = time_ms(lambda: sv.sweep_fwd_ckpt(*args), TIMED_RUNS)
+    g = (2.0 / img4.numel()) * (img4 - 0.25)
+    flags = (True, True, False)
+    d, small, *_ = sv.sweep_bwd(*args, g, tck, *flags)
+    k5_plain_ms, (d_r, small_r, *_) = timed_once(
+        lambda: sv.sweep_bwd_reference(*args, g, *flags))
+    rel_l2(d, d_r, f"K5 d_planes {n}^3 f32")
+    rel_l2(small, small_r, f"K5 d_lut {n}^3 f32")
+    k5_err = float((d - d_r).abs().max())
+    del d, small, d_r, small_r
+    k5_ms = time_ms(lambda: sv.sweep_bwd(*args, g, tck, *flags), TIMED_RUNS)
+    n_live, n_tex = live_samples(vol, cfg.zs, cfg.slopes, tf, 0.05, 0.0, 1.0,
+                                 W, W, reverse=True)
+    img_b, tck_b, vol_b = W * W * 16, cfg.n_chunks * W * W * 4, vol.numel() * 4
+    bounds.update({
+        "sweep_preblended_planes": bound(n_tex * 4 + img_b,
+                                         n_live * SAMPLE_OPS),
+        "sweep_fwd_ckpt": bound(n_tex * 4 + img_b + tck_b,
+                                n_live * SAMPLE_OPS),
+        "sweep_bwd": bound(n_tex * 4 + tck_b + img_b + vol_b,
+                           n_live * K5_SAMPLE_OPS),
+    })
+    print(f"  evaluated samples {n_live} ({n_live / (W * W * n):.4f} of rays "
+          f"x planes), texels read {n_tex}; K2: {h_live} samples, {h_tex} "
+          "voxels")
+    del vol, img1, img4, tck, g
+    torch.cuda.empty_cache()
+    records = []
+    for name, shape, src, replaces, k_ms, p_ms, e in (
+        ("sweep_preblended_planes", f"{n}^3 f32", "slice_sweep.cu",
+         "slice_kernel.py:1351", k1_ms, k1_plain_ms, k1_err),
+        ("pallas_hist_render", f"linear,{n_hist}^3x{B} bf16",
+         "slice_sweep.cu", "slice_kernel.py:1595", k2_ms, k2_plain_ms,
+         k2_err),
+        ("sweep_fwd_ckpt", f"{n}^3 f32", "slice_sweep.cu", "slice_vjp.py:714",
+         k4_ms, k4_plain_ms, k4_err),
+        ("sweep_bwd", f"{n}^3 f32", "slice_vjp.cu", "slice_vjp.py:787",
+         k5_ms, k5_plain_ms, k5_err),
+    ):
+        bd = bounds[name]
+        print(f"  {name}[{shape}]: {k_ms:.3f} ms, plain {p_ms:.1f} ms, bound "
+              f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}), max_abs_err "
+              f"{e:.3e}")
+        records.append({
+            "name": f"{name}[{shape}]", "route": "cuda",
+            "source": f"vrdd_tpu_torch/csrc/{src}",
+            "replaces": f"vrdd_tpu/pallas/{replaces}",
+            "launches": launches[name], "staged_launches": staged[name],
+            "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **bd,
+        })
+    print(f"  phase 13a: {time.perf_counter() - t0:.1f} s")
+    return records
+
+
+# ---- phase 13: the bench ---------------------------------------------------
+
+BENCH_TIMEOUT_S = 600
+#: the bench's in-kernel mean fwd+bwd (host clock, 20 calls back to back)
+#: against phase 6's (CUDA events around one call, median of 10)
+BENCH_RATE_TOL = 0.25
+BENCH_SOL_LIMIT = 1.05
+#: keys of the bench's record that may be null: a world of one process
+#: measures no scaling efficiency
+BENCH_NULLABLE = {"scaling_efficiency", "scaling_fwdbwd_efficiency"}
+
+
+def _numbers(key, v):
+    """(key, number) of every number in a record value, lists and dicts
+    walked."""
+    if isinstance(v, dict):
+        for k, x in v.items():
+            yield from _numbers(f"{key}.{k}", x)
+    elif isinstance(v, list):
+        for i, x in enumerate(v):
+            yield from _numbers(f"{key}[{i}]", x)
+    elif isinstance(v, (int, float)) and not isinstance(v, bool):
+        yield key, v
+
+
+def phase_13(card, smi, ref_mrays):
+    """``python -m vrdd_tpu_torch.cli bench --full`` as a subprocess, at its
+    full sizes, held to its contract and to phase 6's in-kernel mean rate
+    ``ref_mrays`` (Mrays/s)."""
+    import os
+
+    import torch
+
+    from vrdd_tpu_torch.bench import SECTIONS
+
+    torch.cuda.empty_cache()
+    argv = [sys.executable, "-m", "vrdd_tpu_torch.cli", "bench",
+            "--sections", SECTIONS, "--full"]
+    print(f"[13] {' '.join(argv[1:])} on {card} ({smi})")
+    env = {k: v for k, v in os.environ.items()
+           if k != "VRDD_BENCH_SECTIONS"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S, env=env)
+    for line in proc.stderr.splitlines():
+        print(f"  {line}")
+    lines = proc.stdout.strip().splitlines()
+    print(f"  rc {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or len(lines) < 2:
+        fail(f"13: the bench exited {proc.returncode}")
+    last = lines[-1]
+    print(f"  last line ({len(last)} characters): {last}")
+    if len(last) >= 1500:
+        fail(f"13: the bench's last line has {len(last)} characters")
+    summary, record = json.loads(last), json.loads(lines[-2])
+    for key in ("value", "hist512_fwdbwd_route", "scalar512_fwdbwd_mrays",
+                "gaussian_decode_fwdbwd_mrays", "hist16_decode_fwdbwd_mrays"):
+        if summary.get(key) is None:
+            fail(f"13: the last line has no {key}")
+    nulls = sorted(k for k, v in record.items()
+                   if v is None and k not in BENCH_NULLABLE)
+    bad = [name for k, v in record.items() for name, x in _numbers(k, v)
+           if not math.isfinite(x)]
+    if nulls or bad:
+        fail(f"13: null {nulls}, not finite {bad}")
+    shares = {k: v for k, v in record.items()
+              if k.startswith("roofline_") and "sol_frac" in k}
+    print(f"  roofline shares (H100 SXM peaks, {smi}): {shares}")
+    if not shares or max(shares.values()) > BENCH_SOL_LIMIT:
+        fail(f"13: roofline shares {shares} (limit {BENCH_SOL_LIMIT})")
+    launches = record["launches"]
+    print(f"  kernel launches in the bench: {launches}")
+    if not all(launches.values()):
+        fail(f"13: a kernel of the bench's path did not launch: {launches}")
+    got = record["hist512_fwdbwd_inkernel_mrays"]
+    host_ms, ev_ms, busy_ms = (record[f"hist512_fwdbwd_inkernel_{k}"]
+                               for k in ("ms", "device_ms", "busy_ms"))
+    rel = got / ref_mrays - 1.0
+    print(f"  in-kernel mean fwd+bwd: bench {got:.2f} Mrays/s ({host_ms:.3f} "
+          f"ms host, {ev_ms:.3f} ms CUDA events, kernels {busy_ms:.3f} ms: "
+          f"host share {1.0 - busy_ms / host_ms:.4f}) against phase 6's "
+          f"{ref_mrays:.2f} Mrays/s ({1024 * 1024 / ref_mrays / 1e3:.3f} ms, "
+          f"CUDA events): {rel:+.2%}")
+    if abs(rel) > BENCH_RATE_TOL:
+        fail(f"13: the bench's in-kernel mean rate is {rel:+.2%} off phase "
+             f"6's (limit {BENCH_RATE_TOL:.0%})")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -4184,7 +4298,8 @@ def main() -> int:
     del mean_vol
 
     # ---- 6. the training main path at full size
-    records += phase_6(dev, card, smi, hist, tf, origin, n, B, W)
+    recs, mrays6 = phase_6(dev, card, smi, hist, tf, origin, n, B, W)
+    records += recs
 
     # ---- 12. precision='bf16', K4's live map, the native loader, the viewer
     work.mkdir(parents=True)
@@ -4208,6 +4323,12 @@ def main() -> int:
     # ---- 11. the distributed sweep (parallel/)
     records += phase_11(dev, card, smi, tf, work)
     shutil.rmtree(work)
+
+    # ---- 13a. the bench's own shapes against the plain versions
+    records += phase_13a(dev, card, smi, tf)
+
+    # ---- 13. the bench
+    phase_13(card, smi, mrays6["mean,inkernel"][0])
 
     # ---- result
     print(json.dumps({"kernels": records}))

@@ -35,6 +35,9 @@ Subcommands ported so far:
                    through the shear-warp sweep; Adam; ``.npz`` checkpoint.
 - ``view``         the interactive browser viewer (``viewer.py``): page and
                    frames of ``RenderPipeline`` over HTTP.
+- ``bench``        the benchmark (``vrdd_tpu_torch/bench.py``): every
+                   section of the root ``bench.py`` through the kernels,
+                   one JSON record per measurement, the H100's roofline.
 
 ``--device cuda`` (the default) runs the CUDA kernels and raises when no GPU
 is present; ``--device cpu`` runs the plain torch versions. Run as
@@ -44,8 +47,8 @@ vrdd_tpu_torch.cli encode -o h.bin``,
 ``python -m vrdd_tpu_torch.cli render-hist --hist-file F --dims NZ NY NX
 ...``, ``python -m vrdd_tpu_torch.cli fit-hist --iters 50`` or ``python -m
 vrdd_tpu_torch.cli fit-voxels --size 256 --image 512`` or ``python -m
-vrdd_tpu_torch.cli view --port 8412``. ``bench`` of ``vrdd_tpu.cli`` belongs
-to the benchmark work (ROADMAP.md).
+vrdd_tpu_torch.cli view --port 8412`` or ``python -m vrdd_tpu_torch.cli
+bench``.
 """
 
 from __future__ import annotations
@@ -896,6 +899,12 @@ def main(argv=None) -> int:
     pw.add_argument("--device", default="cuda",
                     help="'cuda' (the kernels) or 'cpu' (the plain versions)")
     pw.set_defaults(fn=cmd_view)
+
+    from vrdd_tpu_torch import bench
+
+    pb = sub.add_parser("bench", help="performance benchmark")
+    bench.add_arguments(pb)
+    pb.set_defaults(fn=bench.run)
 
     args = p.parse_args(argv)
     return args.fn(args)
