@@ -47,16 +47,21 @@ Phases (each prints its lines; any failure exits non-zero):
    7b. full size, a smooth 256^3-block x 32-bin float32 raw volume (2.1 GB,
        made on the card from a seed, with empty space around its blobs) to
        1024^2 through ``renderer='auto'``, which must resolve to the fused
-       kernel K1 with ESS on: launch counters (K1, its ESS launches, the
-       ESS bitmap kernel) reset before and read after; the stats decode,
-       the ESS plane stats, the per-frame bitmap kernel (byte for byte its
-       plain version) and pre-blend, the K1 wrapper with ESS (bitmap and
-       K1) and without, and the whole frame timed; the culled share and
-       peak memory printed; ESS bitwise no-ESS, ``pallas`` against the
-       plain ``slice`` renderer. Then the differentiable sweep
-       with ESS (``wrt=('volume',)``) on the same volume: K3/K4 with ESS
-       bitwise without (image and every checkpoint row), ``d_volume`` within
-       1e-6 relative L2 of the gradient without ESS;
+       kernel K1 testing ESS itself: launch counters (K1, its
+       ESS launches, the ESS bitmap kernel) reset before and read after,
+       no bitmap kernel launched; the bits the kernels tested held byte
+       for byte against the plain bitmap on both fetch paths; the stats
+       decode, the ESS plane stats, the pre-blend, the bitmap kernel (byte
+       for byte its plain version; its device time, its wrapper's host
+       time and a call), the K1 wrapper with ESS on both fetch paths and
+       without, and the whole frame timed; the culled share and peak
+       memory printed; ESS bitwise no-ESS, ``pallas`` against the plain
+       ``slice`` renderer. Then the differentiable sweep with ESS
+       (``wrt=('volume',)``) on the same volume: K3/K4 testing ESS bitwise
+       without (image, every checkpoint row, the live map), their bits
+       byte for byte the plain bitmap and the bitmap kernel's, timed on
+       both fetch paths; ``d_volume`` within 1e-6 relative L2 of the
+       gradient without ESS;
    7c. ``python -m vrdd_tpu_torch.cli render --file none`` at its defaults
        (and with ``--renderer auto``), printing its MTexels/s line;
 8. BASELINE config 3 (per-voxel Gaussian mu/sigma, 256^3 -> 512^2) and
@@ -90,7 +95,9 @@ Phases (each prints its lines; any failure exits non-zero):
        sparse errors; made on the card from a seed): the decode timed and
        held against the per-voxel oracle on 4096 voxels (1e-6 abs), then
        queries 4/5/6 to 1024^2 through ``renderer='auto'``, which must
-       resolve to K1 with ESS (counters reset before, read after), each
+       resolve to K1 testing ESS in the kernel and launch no bitmap kernel
+       (counters reset before, read after; the tested bits byte for byte
+       the plain bitmap on both fetch paths), each
        frame bitwise on the direct path and without ESS and against the
        plain ``slice`` renderer at the image tolerance; one rotated view
        (30, 20) through shear-warp, which must launch K3 once, against the
@@ -209,8 +216,10 @@ Phases (each prints its lines; any failure exits non-zero):
     12e. ``ViewerServer`` on port 0 over a ``RenderPipeline`` on the card
          (Isabel's 50 x 50 x 10 x 32 raw blocks, 512^2): four ``/frame``
          requests (one rotated, two ``fmt=rgb``) byte for byte the
-         pipeline's uint8 render of the same parameters, and the pipelined
-         protocol's lag and flush;
+         pipeline's uint8 render of the same parameters, the unrotated
+         ones testing ESS in K1 (bits held) with no bitmap kernel
+         launched, and the pipelined protocol's lag and flush; the frame
+         (query 1) timed;
 13a. the shapes only the bench gives the kernels (its ``big`` section):
     the bench's own calls on its own fixtures, K1 and the fwd+bwd (K4 + K5,
     ``wrt=("volume", "lut")``) of the 1024^3 float32 volume -> 1024^2 and
@@ -235,7 +244,8 @@ bitwise (K5: ``d_planes`` within 1e-6 relative L2).
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Each kernel's record holds its launches
 and its launches on the staged path (``staged_launches``; null for the ESS
-bitmap, which has one path) in the main-path run (a seeded kernel's: its
+bitmap, which has one path and no launch on the main path: the sweeps
+test ESS themselves) in the main-path run (a seeded kernel's: its
 seeded launches in the
 streamed fit-voxels run; K1's seeded launches are those of 8a, its split
 stack, as no fit-voxels path resumes K1; the rotated views' K4/K5: their
@@ -244,7 +254,10 @@ its drive, with ``ms`` the time of the path's per-shard launches,
 replayed, and ``staged_launches`` null), its error against the plain
 version, its ms on the staged path and ``direct_ms`` on the direct path
 (each the mean of two medians of warm runs, CUDA events, timed in turns),
-the plain version's ms, and ``bound_ms``: the
+the plain version's ms (with ESS also the frame's ``frame_ms``; the
+bitmap's ``device_ms`` and ``wrapper_host_ms`` beside its call's ``ms``),
+and
+``bound_ms``: the
 larger of the bytes the call must move over the H100's 3.35 TB/s and its
 FP32 operations over its 67 TFLOP/s, with ``bound_by`` naming the larger.
 Both count what this run's data needs: the samples evaluated (in front of
@@ -271,7 +284,7 @@ from vrdd_tpu_torch.utils.compare import rel_l2 as compare_rel_l2
 from vrdd_tpu_torch.utils.compare import where_off
 from vrdd_tpu_torch.utils.roofline import (
     K5_SAMPLE_OPS, SAMPLE_OPS, bound, decode_ops, ess_pair_ops,
-    live_samples,
+    ess_table_ops, live_samples,
 )
 
 ROOT = Path(__file__).resolve().parent
@@ -403,6 +416,104 @@ def host_ms(fn, runs):
         times.append(1e3 * (time.perf_counter() - t0))
     times.sort()
     return times[len(times) // 2]
+
+
+def held_bits(fn, what):
+    """Runs ``fn`` on both fetch paths with the bits of its in-kernel ESS
+    tests written out; fails unless it tested ESS in the kernel and every
+    launch's bits are byte for byte its test's plain bitmap
+    (``ess_bitmap_reference``). Returns the staged run's ``(bits, test)``
+    pairs."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+
+    got = {}
+    for staged in (True, False):
+        with sk._fetch_path(staged), sk._ess_bits() as pairs:
+            fn()
+        torch.cuda.synchronize()
+        if not pairs:
+            fail(f"{what}: no launch tested ESS in the kernel")
+        for bits, test in pairs:
+            n_diff = int((bits != test.reference()).sum())
+            if n_diff:
+                path = "staged" if staged else "direct"
+                fail(f"{what}: {n_diff} of {bits.numel()} in-kernel ESS "
+                     f"bits differ from the plain bitmap ({path} fetch)")
+        got[staged] = pairs
+    print(f"  [{what}] in-kernel ESS bits of {len(got[True])} + "
+          f"{len(got[False])} launches (staged, direct fetch) byte for byte "
+          f"ess_bitmap_reference ({got[True][0][0].numel()} (tile, chunk) "
+          "bytes each)")
+    return got[True]
+
+
+def bitmap_times(stats, zs, slopes, lut, tscl, *, width, height, ny, nx,
+                 tex_offset, chunk=8, runs=100):
+    """The standalone ESS bitmap's time, split into the kernel's and the
+    wrapper's: ``(device_ms, host_ms, event_ms)``, the raw
+    ``vrdd_ess_bitmap`` launch (parameters built once) ``runs`` times back
+    to back between two CUDA events, over ``runs``; the wrapper
+    ``ess_bitmap`` called ``runs`` times on the host clock, over ``runs``
+    (its enqueue); one wrapper call between two CUDA events on an idle
+    device, the median of ``runs`` (what ``time_ms`` reads). ``zs`` and
+    ``lut`` on the card, as the render path passes them; fails unless the
+    raw launch writes the wrapper's bytes."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import _build
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+    from vrdd_tpu_torch.utils.config import MarchConfig
+
+    march = MarchConfig()
+
+    def wrapper():
+        return sk.ess_bitmap(stats, zs, ORIGIN, slopes, lut, 0.0, tscl,
+                             width=width, height=height, ny=ny, nx=nx,
+                             plane_chunk=chunk, march=march,
+                             tex_offset=tex_offset)
+
+    ref = wrapper()
+    ox, oy, oz = sk._host_floats(ORIGIN, 3)
+    mx0, dmx, my0, dmy = sk._host_floats(slopes, 4)
+    p = sk._ess_params(dict(
+        ox=ox, oy=oy, oz=oz, mx0=mx0, dmx=dmx, my0=my0, dmy=dmy,
+        xlo=march.box_min[0], xhi=march.box_max[0], ylo=march.box_min[1],
+        yhi=march.box_max[1], tex_offset=float(tex_offset), sx=1.0, sy=1.0,
+        tf_off=0.0, tf_scale=float(tscl), n_planes=zs.numel(),
+        height=height, width=width, ny=ny, nx=nx,
+    ), sk._ESS_Q_MARGIN, chunk, lut.shape[0])
+    pmin, pmax = (t.contiguous() for t in stats)
+    raw = torch.empty_like(ref)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.vrdd_ess_bitmap(p, pmin.data_ptr(), pmax.data_ptr(),
+                                 zs.data_ptr(), lut.data_ptr(),
+                                 raw.data_ptr(), stream)
+        if rc:
+            fail(f"vrdd_ess_bitmap: CUDA error {rc}")
+
+    launch()
+    torch.cuda.synchronize()
+    if not torch.equal(raw, ref):
+        fail("the raw bitmap launch differs from the wrapper's bitmap")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        launch()
+    end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end) / runs
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        wrapper()
+    host = 1e3 * (time.perf_counter() - t0) / runs
+    torch.cuda.synchronize()
+    return device_ms, host, time_ms(wrapper, runs)
 
 
 def diff_counters():
@@ -825,13 +936,14 @@ def phase_7(dev, card, smi, tf, work):
         images[q] = pipe.render(iv, config(q, W, 6.0), "auto")
         launches[q] = tuple(c - b for c, b in zip(counts(), before))
     torch.cuda.synchronize()
-    print(f"  launches in the main-path run: K1 {k1.launches}, with ESS "
-          f"{k1.ess_launches}, ESS bitmap {bm.launches}, K1 staged "
-          f"{k1.staged_launches} (per query, K1 / with ESS / bitmap / "
-          f"staged: {launches})")
+    print(f"  launches in the main-path run: K1 {k1.launches}, testing ESS "
+          f"in the kernel {k1.ess_launches}, ESS bitmap kernel "
+          f"{bm.launches}, K1 staged {k1.staged_launches} (per query, K1 / "
+          f"testing ESS / bitmap / staged: {launches})")
     if (k1.launches == 0 or k1.ess_launches != k1.launches
-            or bm.launches != k1.launches):
-        fail("7b: the render path did not run the ESS bitmap and K1 with ESS")
+            or bm.launches != 0):
+        fail("7b: the render path did not run K1 with its in-kernel ESS "
+             "test alone (no bitmap kernel)")
     if k1.staged_launches != k1.launches:
         fail("7b: the render path did not run K1 on the staged path")
 
@@ -845,9 +957,12 @@ def phase_7(dev, card, smi, tf, work):
     P = max(64, 2 * n)
     slopes = sk.pixel_slope_params(W, W)
     img_bytes, lut_bytes = W * W * 16, tf.size * 4
+    tf_dev = torch.as_tensor(tf, device=dev)
     for q in (1, 2, 3, 7):
         cfg = config(q, W, 6.0)  # peaked histograms: narrow
         check_image(images[q], f"7b q{q}", W)
+        held_bits(lambda cfg=cfg: pipe.render(iv, cfg, "auto"),
+                  f"7b q{q} frame")
         vol = channel(q)
         toff = 0.0 if q == 7 else 0.5  # query 7: the block-boundary grid
         tscl = cfg.tf.scale
@@ -860,10 +975,13 @@ def phase_7(dev, card, smi, tf, work):
             vol, P, march.box_min, march.box_max, -1, toff), TIMED_RUNS)
         planes, zs = preblend_planes(vol, P, march.box_min, march.box_max,
                                      -1, toff)
+        zs_dev = torch.as_tensor(zs, device=dev)
         bargs = (stats, zs, ORIGIN, slopes, tf, 0.0, tscl)
         bkw = dict(width=W, height=W, ny=n, nx=n, plane_chunk=8, march=march,
                    tex_offset=toff)
-        bitmap_ms = time_ms(lambda: bm(*bargs, **bkw), TIMED_RUNS)
+        bm_dev_ms, bm_host_ms, bitmap_ms = bitmap_times(
+            stats, zs_dev, slopes, tf_dev, tscl, width=W, height=W, ny=n,
+            nx=n, tex_offset=toff)
         ess = bm(*bargs, **bkw)
         bitmap_plain_ms, ess_ref = timed_once(
             lambda: sk.ess_bitmap_reference(*bargs, **bkw))
@@ -876,13 +994,17 @@ def phase_7(dev, card, smi, tf, work):
 
         def k1_run(culled, planes=planes, zs=zs, stats=stats, tscl=tscl,
                    toff=toff):
-            """The public K1 wrapper; with ESS it launches the bitmap
-            kernel from the cached plane stats, then K1."""
+            """The public K1 wrapper, with ESS from the cached plane stats
+            (tested in the kernel) or without."""
             return k1(planes, zs, ORIGIN, slopes, tf, 0.05, 1.0, 0.0, tscl,
                       width=W, height=W, tex_offset=toff,
                       empty_space_skip=culled,
                       ess_stats=stats if culled else None)
 
+        for bits, _ in held_bits(lambda: k1_run(True), f"7b q{q} K1"):
+            if not torch.equal(bits, ess_ref):
+                fail(f"7b q{q}: K1's in-kernel ESS bits differ from the "
+                     "plain bitmap of this run's own arguments")
         k1_ess_ms, k1_ess_direct = paths_ms(
             lambda st: on_path(st, lambda: k1_run(True)))
         k1_ms = time_ms(lambda: k1_run(False), TIMED_RUNS)
@@ -909,23 +1031,29 @@ def phase_7(dev, card, smi, tf, work):
         n_all, tex_all = live_samples(planes, zs, slopes, tf, 0.05, 0.0,
                                       tscl, W, W, tex_offset=toff)
         stats_bytes = 2 * stats[0].numel() * 4
-        bitmap_ops = ess.numel() * ess_pair_ops(8, len(tf))
+        n_tiles = ess[0].numel()
+        test_ops = (ess.numel() * ess_pair_ops(8)
+                    + n_tiles * ess_table_ops(len(tf)))
+        # the bitmap kernel: a table per block of 256 threads
         bd_bm = bound(stats_bytes + P * 4 + lut_bytes + ess.numel(),
-                      bitmap_ops)
-        # K1 with ESS: the plane texels its live samples read, the stats,
-        # the image; the bitmap in between need not reach memory
+                      ess.numel() * ess_pair_ops(8)
+                      + -(-ess.numel() // 256) * ess_table_ops(len(tf)))
+        # K1 testing ESS: the plane texels its live samples read, the
+        # stats, the image; and the tests of every (tile, chunk)
         bd = bound(tex_live * 4 + stats_bytes + img_bytes,
-                   n_live * SAMPLE_OPS + bitmap_ops)
+                   n_live * SAMPLE_OPS + test_ops)
         bd_all = bound(tex_all * 4 + img_bytes, n_all * SAMPLE_OPS)
         print(f"  [7b q{q}] frame {frame_ms:.3f} ms "
               f"({W * W / frame_ms / 1e3:.2f} MTexels/s); ESS plane stats "
               f"{ess_ms:.3f} ms (once per volume); per frame: pre-blend "
-              f"{blend_ms:.3f} ms, bitmap {bitmap_ms:.3f} ms (bound "
-              f"{bd_bm['bound_ms']:.4f}, plain {bitmap_plain_ms:.3f}), K1+ESS "
-              f"with its bitmap {k1_ess_ms:.3f} ms (direct fetch "
-              f"{k1_ess_direct:.3f}; bound "
+              f"{blend_ms:.3f} ms; K1 testing ESS {k1_ess_ms:.3f} ms "
+              f"(direct fetch {k1_ess_direct:.3f}; bound "
               f"{bd['bound_ms']:.4f}, {bd['bound_by']}), K1 {k1_ms:.3f} ms "
               f"(bound {bd_all['bound_ms']:.4f}, {bd_all['bound_by']}); "
+              f"the bitmap kernel alone: device {bm_dev_ms:.4f} ms, its "
+              f"wrapper's enqueue {bm_host_ms:.4f} ms (host clock), a call "
+              f"{bitmap_ms:.4f} ms (CUDA events; bound "
+              f"{bd_bm['bound_ms']:.4f}, plain {bitmap_plain_ms:.3f}); "
               f"culled {culled:.4f} of (tile, chunk) pairs, evaluated samples "
               f"{n_live} with ESS / {n_all} without, texels read {tex_live} / "
               f"{tex_all} of {planes.numel()}; plain slice {slice_ms:.3f} ms, "
@@ -936,6 +1064,7 @@ def phase_7(dev, card, smi, tf, work):
             "replaces": "vrdd_tpu/pallas/slice_kernel.py:397",
             "launches": launches[q][2], "staged_launches": None,
             "max_abs_err": float(n_diff), "ms": bitmap_ms,
+            "device_ms": bm_dev_ms, "wrapper_host_ms": bm_host_ms,
             "direct_ms": None, "plain_ms": bitmap_plain_ms, **bd_bm,
         })
         records.append({
@@ -944,6 +1073,7 @@ def phase_7(dev, card, smi, tf, work):
             "replaces": "vrdd_tpu/pallas/slice_kernel.py:1351",
             "launches": launches[q][1], "staged_launches": launches[q][3],
             "max_abs_err": err, "ms": k1_ess_ms, "direct_ms": k1_ess_direct,
+            "frame_ms": frame_ms,
             "plain_ms": bitmap_plain_ms + ref_ess_ms, **bd,
         })
         del planes, ref, ref_ess, no_ess, vol
@@ -956,7 +1086,8 @@ def phase_7(dev, card, smi, tf, work):
     counters = diff_counters()
     for c in counters:
         c.launches = c.staged_launches = 0
-    sv.sweep_fwd.ess_launches = sv.sweep_fwd_ckpt.ess_launches = 0
+    for c in counters[:2]:
+        c.ess_launches = 0
     bm.launches = 0
     kw = dict(width=W, height=W, n_planes=P, wrt=("volume",),
               plane_chunk=ck)
@@ -975,44 +1106,65 @@ def phase_7(dev, card, smi, tf, work):
             diff_launches = {c.__name__: c.launches for c in counters}
             diff_staged = {c.__name__: c.staged_launches for c in counters}
             ess_launches = {c.__name__: c.ess_launches for c in counters[:2]}
-            diff_launches["ess_bitmap"] = bm.launches
+            bitmap_launches = bm.launches
     print(f"  [7b diff, wrt volume] launches with ESS: {diff_launches}, of "
-          f"them culling: {ess_launches}, staged: {diff_staged}")
-    if min(diff_launches.values()) == 0 or min(ess_launches.values()) == 0:
-        fail("7b diff: the ESS bitmap, K3/K4 with ESS or K5 was not launched")
+          f"them testing ESS in the kernel: {ess_launches}, ESS bitmap "
+          f"kernel {bitmap_launches}; staged: {diff_staged}")
+    if (min(diff_launches.values()) == 0 or min(ess_launches.values()) == 0
+            or bitmap_launches):
+        fail("7b diff: K3/K4 testing ESS in the kernel or K5 was not "
+             "launched, or the bitmap kernel was")
     if not (torch.equal(out[True][0], out[False][0])
             and torch.equal(out[True][1], out[False][1])):
         fail("7b diff: the image with ESS is not bitwise the one without")
     rel = rel_l2(out[True][2], out[False][2], "[7b diff] d_volume ESS vs no ESS")
     if rel > 1e-6:
         fail(f"7b diff: d_volume with ESS {rel:.3e} from without (limit 1e-6)")
+    held_bits(lambda: sv.pallas_slice_render_diff(
+        vol.clone().requires_grad_(), ORIGIN, tf, empty_space_skip=True,
+        **kw), "7b diff K4")
     del out, img3, img4, g, v
     planes, zs = preblend_planes(vol, P, march.box_min, march.box_max, -1)
     cfg = sv.planes_config(zs, ORIGIN, slopes, width=W, height=W, n_planes=P,
                            plane_chunk=ck)
+    test = sk._resolve_ess(
+        True, None, planes, zs, ORIGIN, slopes, tf, 0.0, 1.0, width=W,
+        height=W, plane_chunk=ck, march=march, tex_offset=0.5,
+        axis_scale=(1.0, 1.0), reverse_planes=False)
     ess = bm(sk.ess_plane_stats(planes), zs, ORIGIN, slopes, tf, 0.0, 1.0,
              width=W, height=W, ny=n, nx=n, plane_chunk=ck)
-    ess_cfg = dataclasses.replace(cfg, ess=ess)
+    ess_cfg = dataclasses.replace(cfg, ess=test)
     args = (planes, None, torch.as_tensor(tf, device=dev),
             torch.tensor(0.05, device=dev), torch.tensor(0.0, device=dev),
             torch.tensor(1.0, device=dev))
-    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
-    img_e, tck_e = sv.sweep_fwd_ckpt(ess_cfg, *args)
-    if not (torch.equal(img_e, img) and torch.equal(tck_e, tck)
-            and torch.equal(sv.sweep_fwd(ess_cfg, *args), img)):
-        fail("7b diff: K3/K4 with ESS (image, checkpoints) not bitwise "
-             "without")
+    k4 = {name: sv.sweep_fwd_ckpt(dataclasses.replace(cfg, ess=e), *args,
+                                  live_map=True)
+          for name, e in (("none", None), ("test", test))}
+    if not (all(torch.equal(a, b) for a, b in zip(k4["test"], k4["none"]))
+            and torch.equal(sv.sweep_fwd(ess_cfg, *args), k4["none"][0])):
+        fail("7b diff: K3/K4 with ESS (image, checkpoints, live map) not "
+             "bitwise without")
+    for fn in (sv.sweep_fwd, sv.sweep_fwd_ckpt):
+        for bits, _ in held_bits(lambda fn=fn: fn(ess_cfg, *args),
+                                 f"7b diff {fn.__name__}"):
+            if not torch.equal(bits, ess):
+                fail(f"7b diff {fn.__name__}: in-kernel ESS bits differ from "
+                     "the bitmap kernel's")
     n_live, tex_live = live_samples(planes, zs, slopes, tf, 0.05, 0.0, 1.0,
                                     W, W, ess=ess, chunk=ck)
+    test_ops = (ess.numel() * ess_pair_ops(ck)
+                + ess[0].numel() * ess_table_ops(len(tf)))
     for name, fn, ref_fn, extra in (
             ("sweep_fwd", sv.sweep_fwd, sv.sweep_fwd_reference, 0),
             ("sweep_fwd_ckpt", sv.sweep_fwd_ckpt,
              sv.sweep_fwd_ckpt_reference, cfg.n_chunks * W * W * 4)):
-        k_ms, d_ms = paths_ms(
-            lambda st, fn=fn: lambda: fn(ess_cfg, *args, staged=st))
+        def run(fn=fn):
+            return fn(ess_cfg, *args)
+
+        k_ms, d_ms = paths_ms(lambda st: on_path(st, run))
         p_ms, ref = timed_once(lambda ref_fn=ref_fn: ref_fn(ess_cfg, *args))
         got = fn(ess_cfg, *args)
-        direct = fn(ess_cfg, *args, staged=False)
+        direct = on_path(False, run)()
         for a, b in (zip(got, direct) if isinstance(got, tuple)
                      else ((got, direct),)):
             bitwise(a, b, f"[7b diff] {name}+ESS staged vs direct")
@@ -1021,14 +1173,14 @@ def phase_7(dev, card, smi, tf, work):
                     f"[7b diff] {name}+ESS checkpoints vs plain")
             got, ref = got[0], ref[0]
         e = compare(got, ref, f"[7b diff] {name}+ESS vs plain+bitmap")
-        # the kernel alone, given the bitmap: its live texels, the bitmap,
-        # the image (and K4's checkpoint rows, every one written)
-        bd = bound(tex_live * 4 + ess.numel() + img_bytes + extra,
-                   n_live * SAMPLE_OPS)
-        print(f"  [7b diff] {name}+ESS: staged {k_ms:.3f} ms, direct "
-              f"{d_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
-              f"({bd['bound_by']}; {n_live} evaluated samples, {tex_live} "
-              f"texels read)")
+        # the kernel testing ESS: its live texels, the stats, the image
+        # (and K4's checkpoint rows, every one written), and its tests
+        bd = bound(tex_live * 4 + 2 * planes.shape[0] * 64 * 4 + img_bytes
+                   + extra, n_live * SAMPLE_OPS + test_ops)
+        print(f"  [7b diff] {name} testing ESS: staged {k_ms:.3f} ms, direct "
+              f"{d_ms:.3f} ms; plain {p_ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_live} evaluated "
+              f"samples, {tex_live} texels read)")
         records.append({
             "name": f"{name}[ess]", "route": "cuda",
             "source": "vrdd_tpu_torch/csrc/slice_sweep.cu",
@@ -1038,7 +1190,7 @@ def phase_7(dev, card, smi, tf, work):
             "staged_launches": diff_staged[name], "max_abs_err": e,
             "ms": k_ms, "direct_ms": d_ms, "plain_ms": p_ms, **bd,
         })
-    del pipe, hist, vol, planes, img, tck, img_e, tck_e
+    del pipe, hist, vol, planes, k4
     torch.cuda.empty_cache()
 
     # ---- 7c: the render CLI at its defaults
@@ -1623,13 +1775,15 @@ def check_frame(img, what, W):
 
 def auto_frames(pipe, cfgs, W, tag):
     """The unrotated main-path run of ``cfgs`` (query -> config) through
-    ``renderer='auto'``, which must resolve to K1 with ESS: the launch
-    counters (K1, its ESS and staged launches, the bitmap kernel) reset
-    before and read after. Then per query: the frame bitwise on the direct
-    fetch path and without ESS, against the plain 'slice' renderer at the
-    image tolerance, and its ms (host clock, median of 5). Returns the
-    per-query launches ``(K1, with ESS, bitmap, staged)`` of the main-path
-    run."""
+    ``renderer='auto'``, which must resolve to K1 testing ESS in the kernel:
+    the launch counters (K1, its ESS and staged launches, the bitmap
+    kernel) reset before and read after; no frame may launch the bitmap
+    kernel. Then per query: the in-kernel ESS bits against the plain bitmap
+    on both fetch paths, the frame bitwise on the direct fetch path and
+    without ESS, against the plain 'slice' renderer at the image tolerance,
+    and its ms (host clock, median of 5). Returns the per-query launches
+    ``(K1, with ESS, bitmap, staged)`` of the main-path run and the frame
+    times ``{q: ms}``."""
     import torch
 
     from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
@@ -1645,20 +1799,22 @@ def auto_frames(pipe, cfgs, W, tag):
         return (k1.launches, k1.ess_launches, bm.launches, k1.staged_launches)
 
     k1.launches = k1.ess_launches = k1.staged_launches = bm.launches = 0
-    images, launches = {}, {}
+    images, launches, frames = {}, {}, {}
     for q, cfg in cfgs.items():
         before = counts()
         images[q] = pipe.render(iv, cfg, "auto")
         launches[q] = tuple(c - b for c, b in zip(counts(), before))
     torch.cuda.synchronize()
-    print(f"  [{tag}] launches in the main-path run (per query, K1 / with "
-          f"ESS / bitmap / staged): {launches}")
-    if any(v != (1, 1, 1, 1) for v in launches.values()):
-        fail(f"{tag}: each frame must launch the bitmap and K1 with ESS once, "
-             f"on the staged path: {launches}")
+    print(f"  [{tag}] launches in the main-path run (per query, K1 / "
+          f"testing ESS / bitmap kernel / staged): {launches}")
+    if any(v != (1, 1, 0, 1) for v in launches.values()):
+        fail(f"{tag}: each frame must launch K1 testing ESS in the kernel "
+             f"once, on the staged path, and no bitmap kernel: {launches}")
     for q, cfg in cfgs.items():
         img = images[q]
         check_frame(img, f"{tag} q{q}", cfg.camera.width)
+        held_bits(lambda cfg=cfg: pipe.render(iv, cfg, "auto"),
+                  f"{tag} q{q} frame")
         bitwise(on_path(False, lambda cfg=cfg: pipe.render(iv, cfg, "auto"))(),
                 img, f"{tag} q{q}: K1+ESS staged vs direct")
         pipe.empty_space_skip = False
@@ -1668,12 +1824,12 @@ def auto_frames(pipe, cfgs, W, tag):
         slice_ms, ref = timed_once(lambda cfg=cfg: pipe.render(iv, cfg,
                                                                "slice"))
         compare(img, ref, f"[{tag} q{q}] auto (K1+ESS) vs slice")
-        frame_ms = host_ms(lambda cfg=cfg: pipe.render(iv, cfg, "auto"), 5)
-        print(f"  [{tag} q{q}] frame {frame_ms:.3f} ms "
-              f"({W * W / frame_ms / 1e3:.2f} MTexels/s), plain slice "
+        frames[q] = host_ms(lambda cfg=cfg: pipe.render(iv, cfg, "auto"), 5)
+        print(f"  [{tag} q{q}] frame {frames[q]:.3f} ms "
+              f"({W * W / frames[q] / 1e3:.2f} MTexels/s), plain slice "
               f"{slice_ms:.3f} ms")
         del ref
-    return launches
+    return launches, frames
 
 
 def rotated_frame(pipe, cfg, view, tag):
@@ -1766,10 +1922,11 @@ def flex_counts(raw, block, n_bins, vmax):
 
 def flex_k1_records(pipe, tf, q, W):
     """K1 on query ``q``'s zero-padded flex grid with its filter-grid scales
-    (the pipeline's own channel), with ESS (the bitmap kernel from cached
-    plane stats at the grid's z scale) and without: each timed on both
-    fetch paths, held against its plain version and bitwise across paths;
-    bounds from this run's live samples. Returns two records."""
+    (the pipeline's own channel), with ESS (tested in the kernel from
+    cached plane stats at the grid's z scale; its bits held against the
+    plain bitmap) and without: each timed on both fetch paths, held against
+    its plain version and bitwise across paths; bounds from this run's live
+    samples. Returns two records."""
     import torch
 
     from vrdd_tpu_torch.kernels import slice_kernel as sk
@@ -1803,10 +1960,16 @@ def flex_k1_records(pipe, tf, q, W):
 
     img_bytes = W * W * 16
     stats_bytes = 2 * stats[0].numel() * 4
-    bitmap_ops = ess.numel() * ess_pair_ops(8, len(tf))
+    test_ops = (ess.numel() * ess_pair_ops(8)
+                + ess[0].numel() * ess_table_ops(len(tf)))
+    for bits, _ in held_bits(lambda: run(True), f"9 flex q{q} K1"):
+        if not torch.equal(bits, ess_ref):
+            fail(f"flex q{q}: K1's in-kernel ESS bits differ from the plain "
+                 "bitmap of this run's own arguments")
     records = []
     for culled in (True, False):
-        ms, direct_ms = paths_ms(lambda st: on_path(st, lambda: run(culled)))
+        ms, direct_ms = paths_ms(lambda st: on_path(st,
+                                                    lambda: run(culled)))
         got = run(culled)
         bitwise(on_path(False, lambda: run(culled))(), got,
                 f"flex q{q} K1{'+ESS' if culled else ''} staged vs direct")
@@ -1819,12 +1982,13 @@ def flex_k1_records(pipe, tf, q, W):
                                    W, ess=ess if culled else None,
                                    axis_scale=(sx, sy))
         bd = (bound(tex * 4 + stats_bytes + img_bytes,
-                    n_live * SAMPLE_OPS + bitmap_ops) if culled
+                    n_live * SAMPLE_OPS + test_ops) if culled
               else bound(tex * 4 + img_bytes, n_live * SAMPLE_OPS))
-        print(f"  [9 flex q{q}] K1{' with ESS (and its bitmap)' if culled else ''}"
+        print(f"  [9 flex q{q}] K1{' testing ESS' if culled else ''}"
               f" on the {nz} x {ny} x {nx} padded grid, axis scale "
               f"({sx:.6f}, {sy:.6f}, {sz:.6f}), {P} planes: staged "
-              f"{ms:.3f} ms, direct {direct_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"{ms:.3f} ms, direct {direct_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, "
               f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_live} "
               f"evaluated samples, {tex} texels read); culled "
               f"{float((ess == 0).float().mean()):.4f} of (tile, chunk) pairs")
@@ -1997,7 +2161,7 @@ def phase_9(dev, card, smi, tf, work):
     torch.cuda.empty_cache()
     pipe = RenderPipeline(flexible=flex.normalized())
     cfgs = {q: render_cfg(q, W) for q in (8, 9, 0)}
-    launches = auto_frames(pipe, cfgs, W, "9b")
+    launches, frames = auto_frames(pipe, cfgs, W, "9b")
     sw_launches, sw_staged = rotated_frame(pipe, cfgs[9], (30.0, 20.0),
                                            "9b q9")
     for r, culled in zip(flex_k1_records(pipe, tf, 9, W), (True, False)):
@@ -2005,6 +2169,8 @@ def phase_9(dev, card, smi, tf, work):
         # path always takes ESS on the flex grid, so K1 without it has none
         r["launches"], r["staged_launches"] = (
             (launches[9][1], launches[9][3]) if culled else (None, None))
+        if culled:
+            r["frame_ms"] = frames[9]
         records.append(r)
     r = flex_shearwarp_record(pipe, tf, 9, (30.0, 20.0), W)
     r["launches"], r["staged_launches"] = sw_launches, sw_staged
@@ -3719,12 +3885,15 @@ def phase_12d(work):
 def phase_12e(dev, tf):
     """The viewer: ViewerServer on port 0 over a RenderPipeline on the card;
     each /frame's bytes equal the pipeline's uint8 render of the same
-    parameters."""
+    parameters; the unrotated frames test ESS in K1 (their bits byte for
+    byte the plain bitmap) and launch no bitmap kernel; the viewer's frame
+    (the pipeline's uint8 render) timed."""
     import urllib.request
 
     import numpy as np
     import torch
 
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
     from vrdd_tpu_torch.core.geometry import (
         inv_view_from_rotation_translation)
     from vrdd_tpu_torch.io.synthetic import random_histogram_volume
@@ -3745,9 +3914,11 @@ def phase_12e(dev, tf):
               dict(density="0.5", query="2", tscale="0.2", fmt="rgb"),
               dict(density="0.3", query="3"),
               dict(density="0.5", query="1", rx="30", ry="-20", fmt="rgb")]
+    k1, bm = sk.sweep_preblended_planes, sk.ess_bitmap
     try:
         secs = []
         for q in frames:
+            before = (k1.ess_launches, bm.launches)
             url = srv.address + "frame?" + "&".join(f"{k}={v}"
                                                    for k, v in q.items())
             with urllib.request.urlopen(url, timeout=120) as r:
@@ -3766,10 +3937,21 @@ def phase_12e(dev, tf):
             with torch.no_grad():
                 ref = pipe.render(iv, cfg, "auto", as_uint8=True,
                                   channels=ch).cpu().numpy()
+            tested, bitmaps = (k1.ess_launches - before[0],
+                               bm.launches - before[1])
             print(f"  /frame {q}: {len(body)} bytes, renderer "
                   f"{pipe.resolve_renderer('auto', iv, cfg)}, "
                   f"X-Render-Seconds {hdr['X-Render-Seconds']}, lag "
-                  f"{hdr['X-Frame-Lag']}")
+                  f"{hdr['X-Frame-Lag']}; K1 launches testing ESS {tested}, "
+                  f"bitmap kernel launches {bitmaps} (with the check's "
+                  "render)")
+            if bitmaps or ("rx" not in q and tested != 2):
+                fail(f"12e: /frame {q} and its check must test ESS in K1 "
+                     "and launch no bitmap kernel")
+            if "rx" not in q:
+                held_bits(lambda iv=iv, cfg=cfg, ch=ch: pipe.render(
+                    iv, cfg, "auto", as_uint8=True, channels=ch),
+                    f"12e /frame query {q['query']}")
             if body != ref.tobytes() or np.asarray(ref).max() == 0:
                 fail(f"12e: /frame {q} differs from RenderPipeline's render "
                      "(or is black)")
@@ -3787,6 +3969,13 @@ def phase_12e(dev, tf):
             fail("12e: the pipelined /frame protocol is broken")
         print(f"  pipelined: lag flags {[g[1] for g in got]}, median frame "
               f"{1e3 * sorted(secs)[len(secs) // 2]:.1f} ms (server clock)")
+        cfg = RenderConfig(camera=CameraConfig(width=S, height=S),
+                           density=0.5, query_method=QueryMethod(1))
+        iv = inv_view_from_rotation_translation(0.0, 0.0, (0.0, 0.0, -4.0))
+        frame_ms = host_ms(lambda: pipe.render(iv, cfg, "auto",
+                                               as_uint8=True), 20)
+        print(f"  the viewer's frame (query 1, uint8 render, host clock, "
+              f"median of 20): {frame_ms:.3f} ms, testing ESS in K1")
     finally:
         srv.shutdown()
 

@@ -265,24 +265,27 @@ def _sparse_blob(dev, n=24):
 @pytest.mark.parametrize("size", [(100, 72), (136, 96)])
 @pytest.mark.parametrize("n_planes", [24, 48])
 def test_k1_ess_is_bitwise_k1(dev, lut_name, size, n_planes):
-    """K1 with ESS is bitwise K1 without it (culled samples have alpha
-    exactly 0), at images unaligned to the 32 x 8 tile; and it matches the
-    plain version given the same bitmap. n_planes == nz is the
-    pure-selection schedule (cached stats), 2 nz the pre-blend."""
+    """K1 with ESS, tested in the kernel, is bitwise K1 without it (culled
+    samples have alpha exactly 0), at images unaligned to the 32 x 8 tile;
+    it launches no bitmap kernel; and it matches the plain version given
+    the bitmap of the same test. n_planes == nz is the pure-selection
+    schedule (cached stats), 2 nz the pre-blend."""
+    k1 = sk.sweep_preblended_planes
     lut, toff, tscl = ESS_LUTS[lut_name]
     vol = _sparse_blob(dev)
     W, H = size
     kw = dict(width=W, height=H, n_planes=n_planes, transfer_offset=toff,
               transfer_scale=tscl)
     plain_k1 = sk.pallas_slice_render(vol, O, lut, 0.8, **kw)
-    before = sk.sweep_preblended_planes.launches
+    before = (k1.launches, k1.ess_launches, sk.ess_bitmap.launches)
     got = sk.pallas_slice_render(vol, O, lut, 0.8, empty_space_skip=True,
                                  **kw)
     stats = sk.precompute_ess_stats(vol, n_planes=n_planes)
     cached = sk.pallas_slice_render(vol, O, lut, 0.8, empty_space_skip=True,
                                     ess_stats=stats, **kw)
     torch.cuda.synchronize()
-    assert sk.sweep_preblended_planes.launches == before + 2
+    assert (k1.launches, k1.ess_launches, sk.ess_bitmap.launches) == (
+        before[0] + 2, before[1] + 2, before[2])
     assert torch.equal(got, plain_k1) and torch.equal(cached, plain_k1)
     assert float(got[..., 3].max()) > 0.05, "vacuous: empty render"
     # the plain version with the same bitmap
@@ -351,9 +354,12 @@ def test_ess_bitmap_kernel_equals_plain(dev, case):
 
 @pytest.mark.parametrize("lut_name", sorted(ESS_LUTS))
 @pytest.mark.parametrize("ck_stride", [4, 8])
-def test_k3_k4_ess_are_bitwise(dev, lut_name, ck_stride):
-    """K3's image and K4's image and every checkpoint row with the ESS
-    bitmap are bitwise those without it."""
+@pytest.mark.parametrize("staged", [True, False])
+def test_k3_k4_ess_are_bitwise(dev, lut_name, ck_stride, staged):
+    """K3's image and K4's image, every checkpoint row and the live map
+    with ESS tested in the kernel are bitwise those without ESS, on either
+    fetch path; the bits K3 and K4 tested are the plain version's and the
+    bitmap kernel's."""
     import dataclasses
 
     lut, toff, tscl = ESS_LUTS[lut_name]
@@ -363,19 +369,131 @@ def test_k3_k4_ess_are_bitwise(dev, lut_name, ck_stride):
     slopes = sk.pixel_slope_params(100, 72)
     cfg = sv.planes_config(zs, O, slopes, width=100, height=72, n_planes=48,
                            plane_chunk=ck_stride)
+    test = sk._resolve_ess(
+        True, None, planes, zs, O, slopes, lut, toff, tscl, width=100,
+        height=72, plane_chunk=ck_stride, march=sk.MarchConfig(),
+        tex_offset=0.5, axis_scale=(1.0, 1.0), reverse_planes=False)
+    assert isinstance(test, sk.EssTest)
     bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes, lut,
                            toff, tscl, width=100, height=72, ny=24, nx=24,
                            plane_chunk=ck_stride)
-    ess_cfg = dataclasses.replace(cfg, ess=bitmap)
     args = (planes, None, torch.tensor(lut, device=dev),
             torch.tensor(0.8, device=dev), torch.tensor(toff, device=dev),
             torch.tensor(tscl, device=dev))
-    assert torch.equal(sv.sweep_fwd(ess_cfg, *args), sv.sweep_fwd(cfg, *args))
-    img, tck = sv.sweep_fwd_ckpt(cfg, *args)
-    img_e, tck_e = sv.sweep_fwd_ckpt(ess_cfg, *args)
-    torch.cuda.synchronize()
-    assert torch.equal(img_e, img) and torch.equal(tck_e, tck)
+    k3, k4 = {}, {}
+    for name, ess in (("none", None), ("test", test)):
+        c = dataclasses.replace(cfg, ess=ess)
+        with sk._ess_bits() as bits:
+            k3[name] = sv.sweep_fwd(c, *args, staged=staged)
+            k4[name] = sv.sweep_fwd_ckpt(c, *args, staged=staged,
+                                         live_map=True)
+        torch.cuda.synchronize()
+        assert len(bits) == (2 if name == "test" else 0)
+        ref = sk.ess_bitmap_reference(
+            sk.ess_plane_stats(planes.cpu()), zs, O, slopes, lut, toff,
+            tscl, width=100, height=72, ny=24, nx=24, plane_chunk=ck_stride)
+        for got, t in bits:
+            assert t is test
+            assert torch.equal(got.cpu(), ref), int((got.cpu() != ref).sum())
+            assert torch.equal(got, bitmap)
+    assert torch.equal(k3["test"], k3["none"])
+    for a, b in zip(k4["test"], k4["none"]):
+        assert torch.equal(a, b)
     assert bool((bitmap == 0).any()), "vacuous: nothing culled"
+
+
+def _lut256():
+    """256 entries of random alpha with zero runs at both ends and one
+    inside (tests/test_torch_ess_fold.py)."""
+    rng = np.random.default_rng(11)
+    lut = rng.uniform(0.0, 1.0, (256, 4)).astype(np.float32)
+    lut[:100, 3] = 0.0
+    lut[140:150, 3] = 0.0
+    lut[200:, 3] = 0.0
+    return lut
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("n_lut", [9, 256])
+@pytest.mark.parametrize("size", [(100, 72), (136, 96)])
+@pytest.mark.parametrize("n_planes,chunk", [(45, 8), (48, 5)])
+@pytest.mark.parametrize("staged", [True, False])
+def test_in_kernel_ess_bits_equal_plain(dev, precision, n_lut, size,
+                                        n_planes, chunk, staged):
+    """The bits K1 tests for itself, written out through
+    ``_ess_bits``, are ``ess_bitmap_reference``'s byte for byte, on both
+    fetch paths, at 24^3 -> unaligned images, with a ragged last chunk
+    (45 = 5 x 8 + 5) and a chunk that does not divide the staged path's
+    batch of 32 planes, for 9- and 256-entry LUTs and the bf16 mode's wider
+    margin; the image is bitwise the one without ESS."""
+    lut = TF if n_lut == 9 else _lut256()
+    W, H = size
+    vol = _sparse_blob(dev)
+    planes, zs = sk.preblend_planes(vol, n_planes, (-1.0, -1.0, -1.0),
+                                    (1.0, 1.0, 1.0), -1)
+    slopes = sk.pixel_slope_params(W, H)
+    stats = sk.ess_plane_stats(planes)
+    kw = dict(width=W, height=H, plane_chunk=chunk, precision=precision)
+    with sk._fetch_path(staged), sk._ess_bits() as bits:
+        got = sk.sweep_preblended_planes(planes, zs, O, slopes, lut, 0.8,
+                                         empty_space_skip=True, **kw)
+    with sk._fetch_path(staged):
+        plain_k1 = sk.sweep_preblended_planes(planes, zs, O, slopes, lut,
+                                              0.8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain_k1)
+    assert len(bits) == 1
+    margin = sk._ess_q_margin(stats, lut, 1.0, precision == "bf16")
+    ref = sk.ess_bitmap_reference(
+        tuple(t.cpu() for t in stats), zs, O, slopes, lut, 0.0, 1.0,
+        width=W, height=H, ny=24, nx=24, plane_chunk=chunk, q_margin=margin)
+    assert torch.equal(bits[0][0].cpu(), ref), int(
+        (bits[0][0].cpu() != ref).sum())
+    assert bool((ref == 0).any()) and bool((ref != 0).any()), "vacuous"
+
+
+def test_in_kernel_ess_refuses_what_it_cannot_take(dev, monkeypatch):
+    """No fallback: plane statistics of the wrong shape, a test over other
+    chunks than the launch's, a precomputed bitmap in place of the test and
+    a test on a decode mode raise in the wrapper, and a test geometry that
+    disagrees with the launch is refused by the kernel's entry point
+    (cudaErrorInvalidValue)."""
+    import dataclasses
+
+    planes, zs, slopes = _stack(dev)
+    test = sk._resolve_ess(
+        True, None, planes, zs, O, slopes, TF, 0.0, 1.0, width=100,
+        height=72, plane_chunk=8, march=sk.MarchConfig(), tex_offset=0.5,
+        axis_scale=(1.0, 1.0), reverse_planes=False)
+    params = sk._sweep_params(
+        O, slopes, 0.8, 1.0, 0.0, 1.0, 2.0 / 48, sk.MarchConfig(),
+        width=100, height=72, ny=24, nx=24, n_planes=48, n_layers=48,
+        dz_sign=-1, reverse=False, length_correction=True, tex_offset=0.5,
+        axis_scale=(1.0, 1.0), filter_linear=True)
+    bad = dataclasses.replace(test, pmin=test.pmin[:, :4].contiguous())
+    with pytest.raises(ValueError, match="ESS plane stats"):
+        sk._launch(planes, "none", zs, TF, None, params, ess=bad,
+                   ess_chunk=8)
+    with pytest.raises(ValueError, match="chunks"):
+        sk._launch(planes, "none", zs, TF, None, params, ess=test,
+                   ess_chunk=4)  # the test's chunk is 8
+    with pytest.raises(TypeError, match="EssTest"):
+        sk._launch(planes, "none", zs, TF, None, params, ess=test.bitmap(),
+                   ess_chunk=8)
+    with pytest.raises(ValueError, match="scalar plane"):
+        sk._launch(planes, "linear", zs, TF, None, params, ess=test,
+                   ess_chunk=8)
+    ess_params = sk._ess_params
+
+    def other_tile(*a):
+        e = ess_params(*a)
+        e.tile_w = 16
+        return e
+
+    monkeypatch.setattr(sk, "_ess_params", other_tile)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk._launch(planes, "none", zs, TF, None, params, ess=test,
+                   ess_chunk=8)
 
 
 def test_diff_ess_volume_gradient(dev):
@@ -415,9 +533,11 @@ def test_pipeline_auto_is_pallas_with_ess_on_the_card(dev):
                                   + np.array([[0, 0, 0, 0], [0, 0, 0, 0],
                                               [0, 0, 0, 4]], np.float32),
                                   cfg) == "pallas"
-        before = sk.sweep_preblended_planes.launches
+        k1 = sk.sweep_preblended_planes
+        before = (k1.launches, k1.ess_launches, sk.ess_bitmap.launches)
         got = p.render(None, cfg, "auto")
-        assert sk.sweep_preblended_planes.launches == before + 1
+        assert (k1.launches, k1.ess_launches, sk.ess_bitmap.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
         _close(got, p.render(None, cfg, "slice"))
     assert p._ess_cache, "ESS stats were not computed"
 
@@ -497,16 +617,17 @@ def test_seed_and_ess_are_refused(dev):
                                    height=72, acc_init=seed,
                                    empty_space_skip=True)
     # the kernel itself refuses the pair (cudaErrorInvalidValue)
-    bitmap = sk.ess_bitmap(sk.ess_plane_stats(planes), zs, O, slopes, TF,
-                           0.0, 1.0, width=100, height=72, ny=24, nx=24,
-                           plane_chunk=8)
+    test = sk._resolve_ess(
+        True, None, planes, zs, O, slopes, TF, 0.0, 1.0, width=100,
+        height=72, plane_chunk=8, march=sk.MarchConfig(), tex_offset=0.5,
+        axis_scale=(1.0, 1.0), reverse_planes=False)
     params = sk._sweep_params(
         O, slopes, 0.8, 1.0, 0.0, 1.0, 2.0 / 48, sk.MarchConfig(),
         width=100, height=72, ny=24, nx=24, n_planes=48, n_layers=48,
         dz_sign=-1, reverse=False, length_correction=True, tex_offset=0.5,
         axis_scale=(1.0, 1.0), filter_linear=True)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        sk._launch(planes, "none", zs, TF, None, params, ess=bitmap,
+        sk._launch(planes, "none", zs, TF, None, params, ess=test,
                    ess_chunk=8, seed=seed)
 
 
@@ -771,8 +892,8 @@ def test_staged_k3_k4_are_bitwise_direct(dev, kind, dtype, size, ck_stride):
 
 @pytest.mark.parametrize("ck_stride", [4, 8])
 def test_staged_ess_and_seed_are_bitwise_direct(dev, ck_stride):
-    """With an ESS bitmap, and from a seed with frozen pixels, the staged
-    K3/K4 images and checkpoints are bitwise the direct ones."""
+    """With ESS tested in the kernel, and from a seed with frozen pixels,
+    the staged K3/K4 images and checkpoints are bitwise the direct ones."""
     import dataclasses
 
     vol = _sparse_blob(dev)
@@ -788,7 +909,10 @@ def test_staged_ess_and_seed_are_bitwise_direct(dev, ck_stride):
     args = (planes, None, torch.tensor(_band_lut(), device=dev),
             torch.tensor(0.8, device=dev), torch.tensor(0.0, device=dev),
             torch.tensor(1.0, device=dev))
-    ess_cfg = dataclasses.replace(cfg, ess=bitmap)
+    ess_cfg = dataclasses.replace(cfg, ess=sk._resolve_ess(
+        True, None, planes, zs, O, slopes, _band_lut(), 0.0, 1.0, width=100,
+        height=72, plane_chunk=ck_stride, march=sk.MarchConfig(),
+        tex_offset=0.5, axis_scale=(1.0, 1.0), reverse_planes=False))
     seed = _frozen_seed(sv.sweep_fwd(cfg, *args))
     for c, acc0 in ((ess_cfg, None), (cfg, seed)):
         got = [sv.sweep_fwd_ckpt(c, *args, acc0, staged=s) for s in (True,

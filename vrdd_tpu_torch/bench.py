@@ -70,7 +70,6 @@ KERNELS = (
     ("K3", "slice_vjp", "sweep_fwd", "launches"),
     ("K4", "slice_vjp", "sweep_fwd_ckpt", "launches"),
     ("K5", "slice_vjp", "sweep_bwd", "launches"),
-    ("ESS bitmap", "slice_kernel", "ess_bitmap", "launches"),
     ("y-transpose", "slice_vjp", "dplane_bf16", "launches"),
 )
 
@@ -298,7 +297,7 @@ def roofline(vol, tf, *, W, dt_fwd=None, dt_fb=None, dt_ess=None,
             True, ess_stats, vol, sk._device_f32(zs, dev), origin, slopes,
             sk._device_f32(tf, dev), 0.0, 1.0, width=W, height=W,
             plane_chunk=8, march=march, tex_offset=0.5, axis_scale=(1.0, 1.0),
-            reverse_planes=True)
+            reverse_planes=True).bitmap()
         e_live, e_tex = rl.live_samples(vol, zs, slopes, tf, 0.05, 0.0, 1.0,
                                         W, W, reverse=True, ess=ess,
                                         origin=origin)

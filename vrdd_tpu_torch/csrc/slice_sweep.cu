@@ -70,17 +70,31 @@
 // bitwise K3's.
 //
 // Empty-space skipping (ESS, K1/K3/K4; the ess mode of _make_kernel,
-// slice_kernel.py:835-860). The block is the ESS tile: its shape
-// (tile_w, tile_h) comes from the wrapper (kernels/slice_kernel.py
-// ESS_TILE), and `ess` holds one byte per (chunk of ess_chunk planes, block
-// row, block column), 0 where the host's TF-interval bound shows that
-// every sample of the block in the chunk has alpha exactly 0. The byte is
+// slice_kernel.py:835-860, with JAX's XLA bitmap _ess_bitmap, :397). The
+// block is the ESS tile: its shape (tile_w, tile_h) comes from the wrapper
+// (kernels/slice_kernel.py ESS_TILE). Each (chunk of ess chunk planes,
+// block) has one bit, 0 where the TF-interval bound shows that every
+// sample of the block in the chunk has alpha exactly 0. The kernel takes
+// the plane statistics and decides the bits itself (ess_common.cuh): at
+// block start, after the LUT's |alpha| sparse table is built next to the
+// LUT, the block's threads test its tile's chunks into a byte per chunk in
+// shared memory, a group of up to 32 lanes a chunk, each lane folding some
+// of its planes (ess_tile_bits), and the chunk step reads its byte there,
+// on both fetch paths (staged: warp 0 as it plans a batch of planes). ESS
+// is a template parameter, instantiated for scalar planes only: the
+// kernels without it (K2's decode modes, every sweep not given the
+// statistics) carry no test. The bit is
 // the same for every thread of the block: a block-uniform branch skips the
-// chunk's planes. Skipping is exact: with a == 0 the "over" step
-// fmaf(c * 0, t, acc) and t_step(T, 0) leave the state bitwise unchanged,
-// so the image (and K4's checkpoints) with ESS is bitwise the one without.
-// K5 takes no bitmap: it replays culled samples, whose alpha and slope are
-// zero.
+// chunk's planes. Skipping is exact: with a == 0 the "over" step fmaf(c *
+// 0, t, acc) and t_step(T, 0) leave the state bitwise unchanged, so the
+// image (and K4's checkpoints) with ESS is bitwise the one without. With
+// an `out` buffer (tests, chip_smoke) the block also writes the bits it
+// tested at the bitmap's index. K5 takes no ESS: it replays culled
+// samples, whose alpha and slope are zero. (A first design tested each
+// chunk in the chunk step itself, by warp 0's lanes on the staged path and
+// by every thread on the direct path: the tests' float64 latency then sat
+// in the plane loop, costing a 1024^2 K1 on an H100 0.13-0.2 ms more
+// staged and 2.5 ms more direct; PERF.md.)
 //
 // Seeded resume (K1/K3/K4; the seed mode of _make_kernel, slice_kernel.py
 // :815-823 and :1081-1090, acc_init in JAX). `seed` (H, W, 4) is a
@@ -157,6 +171,42 @@ __device__ __forceinline__ bool done(const SweepParams& p, const RayState& st,
   return st.a > p.threshold && (!CKPT || !(st.tr >= thr1));
 }
 
+// The ESS inputs of a forward sweep launch (K1/K3/K4): the plane
+// statistics the kernel tests each (tile, chunk) with (ess_common.cuh,
+// geometry in SweepParams.ess), all null without ESS.
+struct EssIn {
+  // (n_planes, n_by, n_bx) plane min / max
+  const float* pmin;
+  const float* pmax;
+  // the bits the test computed, at the bitmap's indices; or null
+  unsigned char* out;
+  int chunk;  // planes per chunk
+};
+
+// Shared memory of ESS: the sparse table, then a byte per chunk, rounded up
+// to 4 bytes (kernels/slice_kernel.py _ess_smem_bytes mirrors it).
+__host__ __device__ inline size_t ess_smem(bool ess, int chunk, int n_lut,
+                                           int n_planes) {
+  if (!ess) return 0;
+  const size_t n_chunks = (n_planes + chunk - 1) / chunk;
+  return (n_chunks + 3) / 4 * 4 + sizeof(float) * ess_table_floats(n_lut);
+}
+
+// Block start: the sparse table into s_table, then the ESS byte of every
+// chunk of this block's tile into s_bits. Every thread calls it; the
+// caller's barrier makes the bytes visible.
+__device__ __forceinline__ void ess_prologue(const SweepParams& p,
+                                             const EssIn& ess,
+                                             const float* __restrict__ lut,
+                                             const float* __restrict__ zs,
+                                             float* s_table,
+                                             unsigned char* s_bits, int tid,
+                                             int nthreads) {
+  ess_table_build(lut, p.n_lut, s_table, tid, nthreads);
+  ess_tile_bits(p.ess, ess.pmin, ess.pmax, zs, s_table, blockIdx.y,
+                blockIdx.x, s_bits, ess.out, tid, nthreads);
+}
+
 // Marks this block's tile live in checkpoint chunk c (a null map: none).
 __device__ __forceinline__ void mark_live(unsigned char* live_map, int c) {
   if (live_map != nullptr)
@@ -189,25 +239,30 @@ __device__ __forceinline__ void write_out(const SweepParams& p,
 
 // The direct path: each thread walks its ray and fetches every tap from
 // device memory.
-template <int MODE, typename T, bool CKPT>
+template <int MODE, typename T, bool CKPT, bool ESS>
 __global__ void __launch_bounds__(256)
 slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
                    const float* __restrict__ zs,
                    const float* __restrict__ lut,
                    const float* __restrict__ rows, float* __restrict__ out,
-                   int ck_stride, float* __restrict__ tck,
-                   const unsigned char* __restrict__ ess, int ess_chunk,
+                   int ck_stride, float* __restrict__ tck, const EssIn ess,
                    const float* __restrict__ seed,
                    unsigned char* __restrict__ live_map) {
   extern __shared__ float smem[];
   float* s_lut = smem;                  // (n_lut, 4)
   float* s_rows = smem + 4 * p.n_lut;   // (n_rows, B)
+  // ESS (ess_smem; scalar planes only, no rows): the sparse table of
+  // |alpha|, then a byte per chunk
+  float* s_table = s_rows;
+  unsigned char* s_bits =
+      reinterpret_cast<unsigned char*>(s_table + ess_table_floats(p.n_lut));
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   for (int t = tid; t < 4 * p.n_lut; t += nthreads) s_lut[t] = lut[t];
   if (MODE != kNone)
     for (int t = tid; t < p.n_rows * p.n_bins; t += nthreads)
       s_rows[t] = rows[t];
+  if (ESS) ess_prologue(p, ess, lut, zs, s_table, s_bits, tid, nthreads);
   __syncthreads();
 
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -218,23 +273,18 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
   const size_t pix = (size_t)i * p.width + j;
   const size_t hw = (size_t)p.height * p.width;
   const float thr1 = p.thr1;
-  // ESS: this block's byte of the next chunk (chunk c is c * ess_stride
-  // bytes after chunk 0), read when the plane loop reaches ess_next
-  const unsigned char* ess_cur =
-      ess == nullptr ? nullptr
-                     : ess + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  const size_t ess_stride = (size_t)gridDim.x * gridDim.y;
-  int ess_next = ess == nullptr ? p.n_planes : 0;
+  // ESS: this block's byte of the next chunk, read when the plane loop
+  // reaches ess_next
+  const unsigned char* ess_cur = s_bits;
+  int ess_next = 0;
 
   RayState st = start_state(seed, pix);
   int k = 0;
   for (; k < p.n_planes; ++k) {
     if (done<CKPT>(p, st, thr1)) break;
-    if (k == ess_next) {
-      ess_next += ess_chunk;
-      const bool culled = *ess_cur == 0;
-      ess_cur += ess_stride;
-      if (culled) {
+    if (ESS && k == ess_next) {
+      ess_next += ess.chunk;
+      if (*ess_cur++ == 0) {
         // alpha is 0 at all the chunk's samples, the state stays as it is;
         // only its checkpoint rows are due
         const int k_end = min(ess_next, p.n_planes);
@@ -278,14 +328,13 @@ __host__ __device__ constexpr int fwd_slots() {
 // resampled from the tile. tw_b x th_b: the host's bound of the footprint.
 // At least 3 blocks an SM (2 in variance mode): the barriers of a block
 // leave the SM to the others.
-template <int MODE, typename T, bool CKPT>
+template <int MODE, typename T, bool CKPT, bool ESS>
 __global__ void __launch_bounds__(256, MODE == kVar ? 2 : 3)
 slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
                    const float* __restrict__ zs,
                    const float* __restrict__ lut,
                    const float* __restrict__ rows, float* __restrict__ out,
-                   int ck_stride, float* __restrict__ tck,
-                   const unsigned char* __restrict__ ess, int ess_chunk,
+                   int ck_stride, float* __restrict__ tck, const EssIn ess,
                    const float* __restrict__ seed,
                    unsigned char* __restrict__ live_map, int tw_b,
                    int th_b) {
@@ -297,8 +346,14 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   const int B = MODE == kNone ? 1 : p.n_bins;
   const StageLayout L = stage_layout(tw_b, th_b, B, (int)sizeof(T), p.n_lut,
                                      MODE == kNone ? 0 : p.n_rows * p.n_bins,
-                                     NS, 0);
+                                     NS,
+                                     ess_smem(ESS, ess.chunk, p.n_lut,
+                                              p.n_planes));
   float* s_lut = reinterpret_cast<float*>(smem_raw + L.off_lut);
+  // ESS (ess_smem): the sparse table of |alpha|, then a byte per chunk
+  float* s_table = reinterpret_cast<float*>(smem_raw + L.off_extra);
+  unsigned char* s_bits =
+      reinterpret_cast<unsigned char*>(s_table + ess_table_floats(p.n_lut));
   float* s_rows = reinterpret_cast<float*>(smem_raw + L.off_rows);
   float* dec = reinterpret_cast<float*>(smem_raw + L.off_dec);
   int* rowoff = reinterpret_cast<int*>(smem_raw + L.off_rowoff);
@@ -311,6 +366,10 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   if (MODE != kNone)
     for (int t = tid; t < p.n_rows * p.n_bins; t += nthreads)
       s_rows[t] = rows[t];
+  if (ESS) {
+    ess_prologue(p, ess, lut, zs, s_table, s_bits, tid, nthreads);
+    __syncthreads();  // warp 0 plans with the bytes
+  }
 
   const int j0 = blockIdx.x * blockDim.x, i0 = blockIdx.y * blockDim.y;
   const int j = j0 + threadIdx.x, i = i0 + threadIdx.y;
@@ -323,10 +382,7 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   const size_t pix = valid ? (size_t)i * p.width + j : 0;
   const size_t hw = (size_t)p.height * p.width;
   const float thr1 = p.thr1;
-  const unsigned char* ess_blk =
-      ess == nullptr ? nullptr
-                     : ess + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  const size_t ess_stride = (size_t)gridDim.x * gridDim.y;
+  const unsigned char* ess_blk = ESS ? s_bits : nullptr;
 
   RayState st = valid ? start_state(seed, pix)
                       : RayState{0.0f, 0.0f, 0.0f, 1.0f, 0.0f};
@@ -335,8 +391,8 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   // the batch of planes planned into s_foot[slot] starts at plane kb (the
   // same in every thread); next_visit plans further batches as it needs
   int kb = 0, slot = 0;
-  plan_batch(p, zs, 0, ra, rb, tw_b, th_b, ess_blk, ess_stride, ess_chunk,
-             tid, s_foot[0], &s_visit[0]);
+  plan_batch(p, zs, 0, ra, rb, tw_b, th_b, ess_blk, 1, ess.chunk, tid,
+             s_foot[0], &s_visit[0]);
   __syncthreads();
   // the first plane after k (k = -1 or a plane of the latest batch) with a
   // sample, and its footprint; n_planes when there is none (block-uniform)
@@ -349,8 +405,8 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
       kb += kPlanBatch;
       if (kb >= p.n_planes) return p.n_planes;
       slot ^= 1;
-      plan_batch(p, zs, kb, ra, rb, tw_b, th_b, ess_blk, ess_stride,
-                 ess_chunk, tid, s_foot[slot], &s_visit[slot]);
+      plan_batch(p, zs, kb, ra, rb, tw_b, th_b, ess_blk, 1, ess.chunk,
+                 tid, s_foot[slot], &s_visit[slot]);
       __syncthreads();
       m = s_visit[slot];
     }
@@ -430,72 +486,111 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   write_out(p, st, out, pix);
 }
 
-template <int MODE, typename T, bool CKPT>
+template <int MODE, typename T, bool CKPT, bool ESS>
 cudaError_t launch_staged(const SweepParams& p, const T* v, const float* zs,
                           const float* lut, const float* rows, float* out,
-                          int ck_stride, float* tck, const unsigned char* ess,
-                          int ess_chunk, const float* seed,
-                          unsigned char* live_map, dim3 grid, dim3 block,
-                          int tw_b, int th_b, cudaStream_t stream) {
+                          int ck_stride, float* tck, const EssIn& ess,
+                          const float* seed, unsigned char* live_map,
+                          dim3 grid, dim3 block, int tw_b, int th_b,
+                          cudaStream_t stream) {
   const int B = MODE == kNone ? 1 : p.n_bins;
   const size_t smem =
       stage_layout(tw_b, th_b, B, (int)sizeof(T), p.n_lut,
                    MODE == kNone ? 0 : p.n_rows * p.n_bins, fwd_slots<MODE>(),
-                   0)
+                   ess_smem(ESS, ess.chunk, p.n_lut, p.n_planes))
           .total;
   const cudaError_t e = cudaFuncSetAttribute(
-      slice_sweep_staged<MODE, T, CKPT>,
+      slice_sweep_staged<MODE, T, CKPT, ESS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  slice_sweep_staged<MODE, T, CKPT><<<grid, block, smem, stream>>>(
-      p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, seed,
-      live_map, tw_b, th_b);
+  slice_sweep_staged<MODE, T, CKPT, ESS><<<grid, block, smem, stream>>>(
+      p, v, zs, lut, rows, out, ck_stride, tck, ess, seed, live_map, tw_b,
+      th_b);
   return cudaGetLastError();
 }
 
-template <int MODE, typename T>
-cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
-                   const float* lut, const float* rows, float* out,
-                   int ck_stride, float* tck, const unsigned char* ess,
-                   int ess_chunk, const float* seed, unsigned char* live_map,
-                   dim3 block, int tw_b, int th_b, cudaStream_t stream) {
+template <int MODE, typename T, bool CKPT, bool ESS>
+cudaError_t launch_direct(const SweepParams& p, const T* v, const float* zs,
+                          const float* lut, const float* rows, float* out,
+                          int ck_stride, float* tck, const EssIn& ess,
+                          const float* seed, unsigned char* live_map,
+                          dim3 grid, dim3 block, cudaStream_t stream) {
+  const int row_floats = MODE == kNone ? 0 : p.n_rows * p.n_bins;
+  const size_t smem = sizeof(float) * (4 * (size_t)p.n_lut + row_floats) +
+                      ess_smem(ESS, ess.chunk, p.n_lut, p.n_planes);
+  if (smem > 48 * 1024) {  // only with a long LUT's ESS table
+    const cudaError_t e = cudaFuncSetAttribute(
+        slice_sweep_kernel<MODE, T, CKPT, ESS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  slice_sweep_kernel<MODE, T, CKPT, ESS><<<grid, block, smem, stream>>>(
+      p, v, zs, lut, rows, out, ck_stride, tck, ess, seed, live_map);
+  return cudaGetLastError();
+}
+
+template <int MODE, typename T, bool ESS>
+cudaError_t launch_as(const SweepParams& p, const void* vol, const float* zs,
+                      const float* lut, const float* rows, float* out,
+                      int ck_stride, float* tck, const EssIn& ess,
+                      const float* seed, unsigned char* live_map, dim3 block,
+                      int tw_b, int th_b, cudaStream_t stream) {
   const dim3 grid((p.width + block.x - 1) / block.x,
                   (p.height + block.y - 1) / block.y);
-  const int row_floats = MODE == kNone ? 0 : p.n_rows * p.n_bins;
   const T* v = static_cast<const T*>(vol);
   if (tw_b > 0 && th_b > 0) {
     if (block.x * block.y < kPlanBatch)  // warp 0 plans the planes
       return cudaErrorInvalidValue;
     if (ck_stride > 0)
-      return launch_staged<MODE, T, true>(p, v, zs, lut, rows, out,
-                                          ck_stride, tck, ess, ess_chunk,
-                                          seed, live_map, grid, block, tw_b,
-                                          th_b, stream);
-    return launch_staged<MODE, T, false>(p, v, zs, lut, rows, out, 0,
-                                         nullptr, ess, ess_chunk, seed,
-                                         nullptr, grid, block, tw_b, th_b,
-                                         stream);
+      return launch_staged<MODE, T, true, ESS>(p, v, zs, lut, rows, out,
+                                               ck_stride, tck, ess, seed,
+                                               live_map, grid, block, tw_b,
+                                               th_b, stream);
+    return launch_staged<MODE, T, false, ESS>(p, v, zs, lut, rows, out, 0,
+                                              nullptr, ess, seed, nullptr,
+                                              grid, block, tw_b, th_b,
+                                              stream);
   }
-  const size_t smem = sizeof(float) * (4 * (size_t)p.n_lut + row_floats);
   if (ck_stride > 0)
-    slice_sweep_kernel<MODE, T, true><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, seed,
-        live_map);
-  else
-    slice_sweep_kernel<MODE, T, false><<<grid, block, smem, stream>>>(
-        p, v, zs, lut, rows, out, 0, nullptr, ess, ess_chunk, seed,
-        nullptr);
-  return cudaGetLastError();
+    return launch_direct<MODE, T, true, ESS>(p, v, zs, lut, rows, out,
+                                             ck_stride, tck, ess, seed,
+                                             live_map, grid, block, stream);
+  return launch_direct<MODE, T, false, ESS>(p, v, zs, lut, rows, out, 0,
+                                            nullptr, ess, seed, nullptr, grid,
+                                            block, stream);
+}
+
+// The ESS instances exist for scalar planes only (K2 has no ESS mode).
+template <int MODE, typename T>
+cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
+                   const float* lut, const float* rows, float* out,
+                   int ck_stride, float* tck, const EssIn& ess,
+                   const float* seed, unsigned char* live_map, dim3 block,
+                   int tw_b, int th_b, cudaStream_t stream) {
+  if constexpr (MODE == kNone) {
+    if (ess.pmin != nullptr)
+      return launch_as<MODE, T, true>(p, vol, zs, lut, rows, out, ck_stride,
+                                      tck, ess, seed, live_map, block, tw_b,
+                                      th_b, stream);
+  }
+  return launch_as<MODE, T, false>(p, vol, zs, lut, rows, out, ck_stride,
+                                   tck, ess, seed, live_map, block, tw_b,
+                                   th_b, stream);
 }
 
 }  // namespace
 
 // mode: 0 none, 1 linear, 2 var, 3 entropy; bf16: volume element type;
 // ck_stride > 0 also writes the (ceil(n_planes / ck_stride), H, W)
-// transmittance checkpoints to tck (K4), 0 writes none (K1-K3). ess: the
+// transmittance checkpoints to tck (K4), 0 writes none (K1-K3). ESS (mode
+// 0 only), over chunks of ess_chunk planes and tiles of the block (whole
+// warps): ess_min / ess_max, the (n_planes, p->ess.n_by, p->ess.n_bx) f32
+// plane statistics the kernel tests each (tile, chunk) with (geometry in
+// p->ess, which must agree with the launch), and ess_out, null or the
 // (ceil(n_planes / ess_chunk), ceil(H / tile_h), ceil(W / tile_w)) uint8
-// ESS bitmap, or null for no culling. seed: the (H, W, 4) f32 image the
-// sweep resumes from, or null for none; not with ess. live_map: with
+// buffer the tested bits go to; all null for no culling. seed: the (H, W,
+// 4) f32 image the sweep resumes from, or null for none; not with ESS.
+// live_map: with
 // ck_stride > 0, the zeroed (ceil(n_planes / ck_stride), ceil(H / tile_h),
 // ceil(W / tile_w)) uint8 live map K4 fills, or null for none. tile_w x
 // tile_h is the block shape (at most 256 threads). stage_w x stage_h > 0:
@@ -505,23 +600,37 @@ cudaError_t launch(const SweepParams& p, const void* vol, const float* zs,
 extern "C" __attribute__((visibility("default"))) int vrdd_slice_sweep(
     const SweepParams* p, int mode, int bf16, const void* vol,
     const float* zs, const float* lut, const float* rows, float* out,
-    int ck_stride, float* tck, const unsigned char* ess, int ess_chunk,
+    int ck_stride, float* tck, const float* ess_min, const float* ess_max,
+    unsigned char* ess_out, int ess_chunk,
     const float* seed, unsigned char* live_map, int tile_w, int tile_h,
     int stage_w, int stage_h, void* stream) {
   if (p->height <= 0 || p->width <= 0) return (int)cudaSuccess;
+  const bool tested = ess_min != nullptr;
   if (ck_stride < 0 || (ck_stride > 0 && tck == nullptr) ||
-      (seed != nullptr && ess != nullptr) ||
+      (seed != nullptr && tested) ||
       (live_map != nullptr && ck_stride == 0))
     return (int)cudaErrorInvalidValue;
-  if (tile_w <= 0 || tile_h <= 0 || tile_w * tile_h > 256 ||
-      (ess != nullptr && ess_chunk <= 0) || stage_w < 0 || stage_h < 0)
+  if (tile_w <= 0 || tile_h <= 0 || tile_w * tile_h > 256 || stage_w < 0 ||
+      stage_h < 0)
     return (int)cudaErrorInvalidValue;
+  // the test: statistics in pairs, scalar planes, whole warps, and its
+  // geometry that of this launch
+  const EssParams& g = p->ess;
+  if ((ess_max != nullptr) != tested || (ess_out != nullptr && !tested) ||
+      (tested && (mode != 0 || ess_chunk <= 0 || (tile_w * tile_h) % 32 ||
+                  g.plane_chunk != ess_chunk ||
+                  g.n_planes != p->n_planes || g.height != p->height ||
+                  g.width != p->width || g.tile_w != tile_w ||
+                  g.tile_h != tile_h || g.ny != p->ny || g.nx != p->nx ||
+                  g.n_lut != p->n_lut || g.n_by <= 0 || g.n_bx <= 0)))
+    return (int)cudaErrorInvalidValue;
+  const EssIn ess_in{ess_min, ess_max, ess_out, ess_chunk};
   const dim3 block(tile_w, tile_h);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
 #define VRDD_LAUNCH(M, TYPE)                                                 \
-  launch<M, TYPE>(*p, vol, zs, lut, rows, out, ck_stride, tck, ess, ess_chunk, \
-                  seed, live_map, block, stage_w, stage_h, s)
+  launch<M, TYPE>(*p, vol, zs, lut, rows, out, ck_stride, tck, ess_in, seed, \
+                  live_map, block, stage_w, stage_h, s)
   switch (mode * 2 + (bf16 ? 1 : 0)) {
     case 0: return (int)VRDD_LAUNCH(kNone, float);
     case 1: return (int)VRDD_LAUNCH(kNone, bf);

@@ -19,6 +19,8 @@
 #include <cuda_bf16.h>
 #include <stddef.h>
 
+#include "ess_common.cuh"
+
 // Must match SweepParams in vrdd_tpu_torch/kernels/_build.py field for
 // field. Outside any anonymous namespace: the exported C entry points take it.
 struct SweepParams {
@@ -39,6 +41,12 @@ struct SweepParams {
   // vrdd_tpu/pallas/slice_kernel.py:1324): bilerp rounds its operands and
   // the y-interpolated pair to bf16. Uniform across a launch.
   int precision;
+  // The geometry of the ESS test the forward sweep does at block start
+  // (ess_common.cuh): the camera, the box, the texel offset and axis scale
+  // in float64, the TF offset and scale, the LUT-coordinate margin, the
+  // chunk and the tile (the launch's block). Filled by the host only for a
+  // launch given the plane statistics; read by nothing else.
+  EssParams ess;
 };
 
 namespace vrdd {

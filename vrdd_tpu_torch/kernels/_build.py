@@ -43,12 +43,29 @@ _INT_FIELDS = (
 )
 
 
+class EssParams(ctypes.Structure):
+    """Mirror of ``struct EssParams`` in ``csrc/ess_common.cuh``: the
+    geometry of the ESS interval test, for the bitmap kernel and, inside
+    :class:`SweepParams`, for the sweep kernels' own test."""
+
+    _fields_ = [(n, ctypes.c_double) for n in (
+        "ox", "oy", "oz", "mx0", "dmx", "my0", "dmy", "xlo", "xhi", "ylo",
+        "yhi", "tex_offset", "sx", "sy",
+    )] + [(n, ctypes.c_float) for n in ("tf_off", "tf_scale", "q_margin")] + [
+        (n, ctypes.c_int) for n in (
+            "n_planes", "plane_chunk", "height", "width", "tile_h", "tile_w",
+            "ny", "nx", "n_lut", "n_by", "n_bx",
+        )
+    ]
+
+
 class SweepParams(ctypes.Structure):
-    """Mirror of ``struct SweepParams`` in ``csrc/sweep_common.cuh``."""
+    """Mirror of ``struct SweepParams`` in ``csrc/sweep_common.cuh``; its
+    ``ess`` is filled only for a launch that tests ESS in the kernel."""
 
     _fields_ = [(n, ctypes.c_float) for n in _FLOAT_FIELDS] + [
         (n, ctypes.c_int) for n in _INT_FIELDS
-    ]
+    ] + [("ess", EssParams)]
 
 
 class BwdParams(ctypes.Structure):
@@ -60,20 +77,6 @@ class BwdParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "ck_stride", "n_chunks", "g_planes", "g_lut", "g_params",
     )] + [("dtmp", ctypes.c_void_p)]
-
-
-class EssParams(ctypes.Structure):
-    """Mirror of ``struct EssParams`` in ``csrc/ess_bitmap.cu``."""
-
-    _fields_ = [(n, ctypes.c_double) for n in (
-        "ox", "oy", "oz", "mx0", "dmx", "my0", "dmy", "xlo", "xhi", "ylo",
-        "yhi", "tex_offset", "sx", "sy",
-    )] + [(n, ctypes.c_float) for n in ("tf_off", "tf_scale", "q_margin")] + [
-        (n, ctypes.c_int) for n in (
-            "n_planes", "plane_chunk", "height", "width", "tile_h", "tile_w",
-            "ny", "nx", "n_lut", "n_by", "n_bx",
-        )
-    ]
 
 
 def _nvcc() -> str:
@@ -144,11 +147,12 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fwd = lib.vrdd_slice_sweep
-    # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, ess,
-    # ess_chunk, seed, live_map, tile_w, tile_h, stage_w, stage_h, stream
+    # params, mode, bf16, vol, zs, lut, rows, out, ck_stride, tck, ess_min,
+    # ess_max, ess_out, ess_chunk, seed, live_map, tile_w, tile_h, stage_w,
+    # stage_h, stream
     fwd.argtypes = [ctypes.POINTER(SweepParams), i32, i32, ptr, ptr, ptr,
-                    ptr, ptr, i32, ptr, ptr, i32, ptr, ptr, i32, i32, i32,
-                    i32, ptr]
+                    ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i32,
+                    i32, i32, i32, ptr]
     fwd.restype = i32
     bwd = lib.vrdd_slice_bwd
     # params, bwd params, mode, bf16, vol, zs, lut, rows, g, tck,

@@ -2,7 +2,8 @@
 
 The counterpart of ``vrdd_tpu/pallas/slice_kernel.py``. Two sweep kernels
 in one CUDA C++ source (``csrc/slice_sweep.cu``, built by
-``kernels/_build.py``), and the ESS bitmap kernel (``csrc/ess_bitmap.cu``):
+``kernels/_build.py``), and the ESS bitmap kernel (``csrc/ess_bitmap.cu``,
+the sweeps' ESS bits as data: below):
 
 - **K1**, the scalar sweep over a front-to-back plane stack, launched by
   :func:`sweep_preblended_planes` (TPU: ``pallas_call`` at
@@ -20,20 +21,26 @@ version (:func:`sweep_preblended_planes_reference`,
 plain version. Each wrapper counts its kernel launches in a plain int
 attribute, ``sweep_preblended_planes.launches`` and
 ``pallas_hist_render.launches``; ``sweep_preblended_planes.ess_launches``
-counts those of them that culled by an ESS bitmap, ``.seed_launches`` those
-that resumed from a seed, ``.staged_launches`` those that took the staged
-fetch path (below), ``.bf16_launches`` those in the bf16 mode (below).
+counts those of them that tested ESS in the kernel, ``.seed_launches``
+those that resumed from a seed, ``.staged_launches`` those that took the
+staged fetch path (below), ``.bf16_launches`` those in the bf16 mode
+(below).
 
 **Empty-space skipping** (``empty_space_skip``, ``ess_stats``) is K1's
-exact TF-interval culling: :func:`ess_bitmap` marks each (tile, chunk) —
-the kernel's CUDA block of :data:`ESS_TILE` pixels by ``plane_chunk``
-planes — whose samples provably map to alpha 0, from the block min/max of
-:func:`ess_plane_stats` (cached per volume by the caller through
-:func:`precompute_ess_stats`). On the card the bitmap is one launch
-(``ess_bitmap.launches``), whose plain version is
-:func:`ess_bitmap_reference` (JAX: the XLA code ``_ess_bitmap``, :397).
-The sweep kernel skips culled chunks; its plain version zeroes their alpha,
-so both give the image without ESS.
+exact TF-interval culling of each (tile, chunk) — the kernel's CUDA block
+of :data:`ESS_TILE` pixels by ``plane_chunk`` planes — whose samples
+provably map to alpha 0, from the block min/max of :func:`ess_plane_stats`
+(cached per volume by the caller through :func:`precompute_ess_stats`). On
+the card the sweep kernel tests each pair itself (``csrc/ess_common.cuh``),
+given the statistics (an :class:`EssTest`): each block tests its tile's
+chunks at its start into shared memory, which its chunk step reads; no
+bitmap is launched or stored. The test's bits are those of
+:func:`ess_bitmap_reference` (JAX: the XLA code ``_ess_bitmap``, :397),
+the plain version, which zeroes the alpha of culled chunks; both give the
+image without ESS. :func:`ess_bitmap` (one launch of
+``csrc/ess_bitmap.cu``, ``ess_bitmap.launches``) computes the same bitmap
+as data, for the bench's roofline and the tests; no sweep reads it.
+:func:`_ess_bits` collects the bits the kernels tested.
 
 **The seeded resume** (``acc_init`` of :func:`sweep_preblended_planes`) is
 K1's seed mode: an ``(H, W, 4)`` premultiplied-RGBA image the "over"
@@ -72,6 +79,7 @@ here.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Tuple
 
@@ -123,6 +131,8 @@ _SMEM_MAX = 227 * 1024
 BWD_BLOCK = (32, 4)
 #: a staged path forced by :func:`_fetch_path` (None: by geometry)
 _FORCED_PATH = None
+#: inside :func:`_ess_bits`: the bits of each in-kernel ESS test
+_ESS_BITS = None
 
 
 def stage_bound(params: dict, zs, block) -> Tuple[int, int]:
@@ -164,7 +174,8 @@ def stage_bound(params: dict, zs, block) -> Tuple[int, int]:
 def stage_smem_bytes(tw: int, th: int, *, n_bins: int, elem_size: int,
                      n_lut: int, row_floats: int, slots: int = 2,
                      bwd_ck: int = 0, g_planes: bool = False,
-                     momt: bool = False, g_small: bool = False) -> int:
+                     momt: bool = False, g_small: bool = False,
+                     ess_bytes: int = 0) -> int:
     """Dynamic shared memory of a staged launch with ``tw`` x ``th``-voxel
     footprints: ``slots`` ring slots of raw rows (each bin of each voxel row
     in 16-byte chunks from the 16-byte boundary below it; the forward takes
@@ -172,7 +183,8 @@ def stage_smem_bytes(tw: int, th: int, *, n_bins: int, elem_size: int,
     (``row_floats``), the decoded tile and the slots' row offsets;
     K5 (``bwd_ck``, its chunk of planes) adds the per-ray caches of a
     chunk, two d tiles (``g_planes``), the variance moments and touch flags
-    (``momt``) and the per-thread LUT columns (``g_small``). Mirrors
+    (``momt``) and the per-thread LUT columns (``g_small``); a forward with
+    ESS adds ``ess_bytes`` (:func:`_ess_smem_bytes`). Mirrors
     ``stage_layout`` (csrc/stage_tile.cuh) and ``bwd_extra``
     (csrc/slice_vjp_staged.cu)."""
     rc = (tw * elem_size + 30) // 16
@@ -184,7 +196,7 @@ def stage_smem_bytes(tw: int, th: int, *, n_bins: int, elem_size: int,
         total += 4 * (3 * bwd_ck * threads + (2 * tile if g_planes else 0)
                       + (3 * tile if momt else 0)
                       + ((4 * n_lut + 3) * threads if g_small else 0))
-    return total
+    return total + ess_bytes
 
 
 def _stage_dims(staged, bound, smem: int, prefer: bool = True):
@@ -219,8 +231,32 @@ def _fetch_path(staged):
         _FORCED_PATH = prev
 
 
+@contextlib.contextmanager
+def _ess_bits():
+    """Yields a list that gets, for every sweep launch inside the block
+    that tests ESS in the kernel, ``(bits, test)``: the uint8 ``(n_chunks,
+    n_tile_rows, n_tile_cols)`` bits its blocks tested and its
+    :class:`EssTest`, to hold against ``test.reference()`` (tests,
+    ``chip_smoke.py``). The kernels write the bits only here: outside the
+    block the launches take no buffer."""
+    global _ESS_BITS
+    prev, _ESS_BITS = _ESS_BITS, []
+    try:
+        yield _ESS_BITS
+    finally:
+        _ESS_BITS = prev
+
+
 def _smem_ok(n_lut: int, row_elems: int) -> bool:
     return n_lut >= 1 and 4 * n_lut + row_elems <= _SMEM_FLOATS
+
+
+def _ess_smem_bytes(n_lut: int, n_chunks: int) -> int:
+    """Shared memory of a forward launch's ESS (csrc/slice_sweep.cu
+    ``ess_smem``): the sparse table of the LUT's |alpha| (floor(log2 n) + 1
+    levels of n floats, csrc/ess_common.cuh), then a byte per chunk,
+    rounded up to 4."""
+    return 4 * n_lut * n_lut.bit_length() + -(-n_chunks // 4) * 4
 
 
 def pallas_supported(
@@ -539,9 +575,10 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     """Validate, allocate the (H, W, 4) output and launch the CUDA kernel on
     the current stream of the volume's device, in blocks of
     :data:`ESS_TILE` pixels. ``ck_stride > 0`` also writes the transmittance
-    checkpoints (K4): the result is then ``(out, tck)``. ``ess``: the uint8
-    ``(n_chunks, n_tile_rows, n_tile_cols)`` bitmap of :func:`ess_bitmap`
-    over chunks of ``ess_chunk`` planes (None: no culling). ``seed``: the
+    checkpoints (K4): the result is then ``(out, tck)``. ``ess``, over
+    chunks of ``ess_chunk`` planes: an :class:`EssTest` (the kernel tests
+    each (tile, chunk) itself; inside :func:`_ess_bits` it also writes the
+    bits it tested), or None (no culling). ``seed``: the
     ``(H, W, 4)`` image the sweep resumes from (None: unseeded); host data
     goes up through :func:`_device_f32`. ``staged``: the fetch path (None:
     by geometry, :func:`_stage_dims`); ``zs_host``: the depths on the host
@@ -569,14 +606,28 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     if zs_t.numel() != params["n_planes"]:
         raise ValueError("zs must hold one depth per plane")
     H, W = params["height"], params["width"]
+    ess_min = ess_max = bits = None
+    n_lut = lut_t.shape[0]
     if ess is not None:
-        want = _ess_shape(params["n_planes"], ess_chunk, H, W)
-        if (ess.dtype != torch.uint8 or tuple(ess.shape) != want
-                or ess.device != dev or not ess.is_contiguous()):
-            raise ValueError(
-                f"ess bitmap {tuple(ess.shape)} {ess.dtype} on {ess.device}: "
-                f"want a contiguous uint8 {want} on {dev}"
-            )
+        if not isinstance(ess, EssTest):
+            raise TypeError(f"ess: an EssTest or None, not {type(ess)}")
+        if mode != "none":
+            raise ValueError("ESS culls scalar plane sweeps only")
+        want = (params["n_planes"], _ESS_YB, _ESS_XB)
+        ess_min, ess_max = ess.pmin, ess.pmax
+        if any(t.dtype != torch.float32 or tuple(t.shape) != want
+               or t.device != dev or not t.is_contiguous()
+               for t in (ess_min, ess_max)):
+            raise ValueError(f"ESS plane stats: want two contiguous float32 "
+                             f"{want} tensors on {dev}")
+        if ess.kwargs["plane_chunk"] != ess_chunk:
+            raise ValueError(f"an ESS test over chunks of "
+                             f"{ess.kwargs['plane_chunk']} planes, a launch "
+                             f"over chunks of {ess_chunk}")
+        if _ESS_BITS is not None:
+            bits = torch.zeros(_ess_shape(params["n_planes"], ess_chunk, H,
+                                          W), dtype=torch.uint8, device=dev)
+            _ESS_BITS.append((bits, ess))
     seed_t = None if seed is None else _device_f32(seed, dev)
     if seed_t is not None and tuple(seed_t.shape) != (H, W, 4):
         raise ValueError(f"acc_init {tuple(seed_t.shape)}: want ({H}, {W}, 4)")
@@ -590,14 +641,22 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             raise ValueError("the live map is K4's: it needs ck_stride > 0")
         live = torch.zeros(_ess_shape(params["n_planes"], ck_stride, H, W),
                            dtype=torch.uint8, device=dev)
-    n_lut = lut_t.shape[0]
     n_bins = params.get("n_bins", 1) if mode != "none" else 1
+    row_floats = 0 if rows_t is None else rows_t.numel()
+    ess_bytes = 0 if ess is None else _ess_smem_bytes(
+        n_lut, -(-params["n_planes"] // ess_chunk))
+    if ess_bytes and 4 * (4 * n_lut + row_floats) + ess_bytes > _SMEM_MAX:
+        raise ValueError(f"ESS over {params['n_planes']} planes with a "
+                         f"{n_lut}-entry LUT does not fit a block's shared "
+                         "memory")
     bound = stage_bound(params, zs_host, (ESS_TILE[1], ESS_TILE[0]))
     stage = _stage_dims(staged, bound, stage_smem_bytes(
         *bound, n_bins=n_bins, elem_size=vol.element_size(), n_lut=n_lut,
-        row_floats=0 if rows_t is None else rows_t.numel(),
-        slots=3 if mode == "none" else 2))
+        row_floats=row_floats, slots=3 if mode == "none" else 2,
+        ess_bytes=ess_bytes))
     p = _build.SweepParams(n_lut=n_lut, **params)
+    if ess_min is not None:
+        p.ess = _ess_params(params, ess.q_margin, ess_chunk, n_lut)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -606,7 +665,8 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(),
             None if rows_t is None else rows_t.data_ptr(), out.data_ptr(),
             ck_stride, None if tck is None else tck.data_ptr(),
-            None if ess is None else ess.data_ptr(), int(ess_chunk),
+            *(None if t is None else t.data_ptr()
+              for t in (ess_min, ess_max, bits)), int(ess_chunk),
             None if seed_t is None else seed_t.data_ptr(),
             None if live is None else live.data_ptr(),
             ESS_TILE[1], ESS_TILE[0], *stage, stream,
@@ -715,7 +775,9 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
     (``csrc/ess_bitmap.cu``), which computes the bytes of
     :func:`ess_bitmap_reference`; on the CPU that plain version. Counts its
     launches in ``ess_bitmap.launches``. ``q_margin``: the widening of each
-    culled LUT-coordinate interval (:func:`_ess_q_margin`)."""
+    culled LUT-coordinate interval (:func:`_ess_q_margin`). The sweep
+    kernels test the same bits themselves (:class:`EssTest`); this is for
+    the callers that need the bitmap as data."""
     pmin, pmax = plane_stats
     if not _on_card(pmin):
         return ess_bitmap_reference(
@@ -741,18 +803,14 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
                       dtype=torch.uint8, device=dev)
     ox, oy, oz = _host_floats(origin, 3)
     mx0, dmx, my0, dmy = _host_floats(slopes, 4)
-    th, tw = ESS_TILE
-    p = _build.EssParams(
+    p = _ess_params(dict(
         ox=ox, oy=oy, oz=oz, mx0=mx0, dmx=dmx, my0=my0, dmy=dmy,
         xlo=march.box_min[0], xhi=march.box_max[0], ylo=march.box_min[1],
         yhi=march.box_max[1], tex_offset=float(tex_offset),
         sx=float(axis_scale[0]), sy=float(axis_scale[1]),
-        tf_off=float(tf_off), tf_scale=float(tf_scale),
-        q_margin=float(q_margin), n_planes=n_planes,
-        plane_chunk=int(plane_chunk), height=int(height), width=int(width),
-        tile_h=th, tile_w=tw, ny=int(ny), nx=int(nx), n_lut=lut_t.shape[0],
-        n_by=_ESS_YB, n_bx=_ESS_XB,
-    )
+        tf_off=float(tf_off), tf_scale=float(tf_scale), n_planes=n_planes,
+        height=int(height), width=int(width), ny=int(ny), nx=int(nx),
+    ), q_margin, plane_chunk, lut_t.shape[0])
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -766,6 +824,56 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
 
 
 ess_bitmap.launches = 0
+
+
+def _ess_params(params: dict, q_margin: float, plane_chunk: int, n_lut: int):
+    """The kernels' ``EssParams`` (csrc/ess_common.cuh): the geometry,
+    offsets and scales of ``params`` (the host's Python floats, the
+    float64 values :func:`ess_bitmap_reference` computes with; the sweep's
+    own :func:`_sweep_params` carry them too), tiles of :data:`ESS_TILE`
+    and the statistics' 8 x 8 blocks."""
+    from vrdd_tpu_torch.kernels import _build
+
+    th, tw = ESS_TILE
+    return _build.EssParams(
+        **{k: params[k] for k in (
+            "ox", "oy", "oz", "mx0", "dmx", "my0", "dmy", "xlo", "xhi", "ylo",
+            "yhi", "tex_offset", "sx", "sy", "tf_off", "tf_scale",
+            "n_planes", "height", "width", "ny", "nx")},
+        q_margin=float(q_margin), plane_chunk=int(plane_chunk), tile_h=th,
+        tile_w=tw, n_lut=int(n_lut), n_by=_ESS_YB, n_bx=_ESS_XB,
+    )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EssTest:
+    """ESS by the sweep kernels' own interval test: the ``(n_planes, 8,
+    8)`` float32 plane min and max of the logical (front-to-back) order on
+    the device of the sweep, and the LUT-coordinate margin. The kernel takes
+    the rest of the test from the sweep's own parameters. ``args`` and
+    ``kwargs`` are :func:`ess_bitmap`'s other arguments, for the same bits
+    as data: :meth:`bitmap` (the bitmap kernel on the card) and
+    :meth:`reference` (:func:`ess_bitmap_reference`, the plain version)."""
+
+    pmin: torch.Tensor
+    pmax: torch.Tensor
+    q_margin: float
+    args: tuple
+    kwargs: dict
+
+    def bitmap(self) -> torch.Tensor:
+        return ess_bitmap((self.pmin, self.pmax), *self.args,
+                          q_margin=self.q_margin, **self.kwargs)
+
+    def reference(self) -> torch.Tensor:
+        return ess_bitmap_reference((self.pmin, self.pmax), *self.args,
+                                    q_margin=self.q_margin, **self.kwargs)
+
+
+def _plain_bitmap(ess):
+    """The bitmap a plain version culls by: the plain bitmap of an
+    :class:`EssTest`, or None."""
+    return None if ess is None else ess.reference()
 
 
 @torch.no_grad()
@@ -896,7 +1004,8 @@ def _resolve_ess(empty_space_skip, ess_stats, planes_all, zs, origin, slopes,
                  tf_lut, transfer_offset, transfer_scale, *, width, height,
                  plane_chunk, march, tex_offset, axis_scale, reverse_planes,
                  bf16=False):
-    """The ESS bitmap of a sweep over ``planes_all``, or None without ESS.
+    """The ESS of a sweep over ``planes_all``: an :class:`EssTest`, which
+    the sweep kernel runs itself, or None without ESS.
     ``ess_stats`` describe the logical (front-to-back) plane order; without
     them the stats come from the stack, flipped when it is walked back to
     front. ``bf16``: the sweep's resample rounds (:func:`_ess_q_margin`)."""
@@ -910,13 +1019,15 @@ def _resolve_ess(empty_space_skip, ess_stats, planes_all, zs, origin, slopes,
     want = (n_planes, _ESS_YB, _ESS_XB)
     if any(tuple(t.shape) != want for t in ess_stats):
         raise ValueError(f"ess_stats must be two {want} tensors")
-    return ess_bitmap(
-        ess_stats, zs, origin, slopes, tf_lut, transfer_offset,
-        transfer_scale, width=width, height=height, ny=ny, nx=nx,
-        plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
-        axis_scale=axis_scale,
-        q_margin=_ess_q_margin(ess_stats, tf_lut, transfer_scale, bf16),
+    pmin, pmax = (t.to(torch.float32).contiguous() for t in ess_stats)
+    test = EssTest(
+        pmin, pmax, _ess_q_margin(ess_stats, tf_lut, transfer_scale, bf16),
+        (zs, origin, slopes, tf_lut, transfer_offset, transfer_scale),
+        dict(width=width, height=height, ny=ny, nx=nx,
+             plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
+             axis_scale=axis_scale),
     )
+    return test
 
 
 def sweep_preblended_planes_reference(
@@ -967,12 +1078,13 @@ def sweep_preblended_planes(
     the volume itself. ``plane_spacing`` defaults to the box z-extent over P
     (only right for a full stack). ``plane_chunk`` sizes the plain version's
     batches and the ESS chunks. ``empty_space_skip`` culls (tile, chunk)
-    pairs by :func:`ess_bitmap`, from ``ess_stats`` (cached
-    :func:`ess_plane_stats` of the logical plane order) or from the stack;
-    the image is the one without ESS. ``acc_init`` ``(height, width, 4)``
-    seeds the sweep (premultiplied RGBA the recursion resumes from; not with
-    ``empty_space_skip``). ``precision``: 'f32' or 'bf16' (JAX's bf16
-    resample; module docstring). Returns ``(height, width, 4)``.
+    pairs by the kernel's own interval test (:class:`EssTest`), from
+    ``ess_stats`` (cached :func:`ess_plane_stats` of the logical plane
+    order) or from the stack; the image is the one without ESS.
+    ``acc_init`` ``(height, width, 4)`` seeds the sweep (premultiplied RGBA
+    the recursion resumes from; not with ``empty_space_skip``).
+    ``precision``: 'f32' or 'bf16' (JAX's bf16 resample; module
+    docstring). Returns ``(height, width, 4)``.
     """
     bf16 = _precision_flag(precision)
     _check_seed(acc_init, empty_space_skip)
@@ -981,7 +1093,7 @@ def sweep_preblended_planes(
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
     zs_host = (zs.detach().cpu().numpy() if isinstance(zs, torch.Tensor)
                else np.asarray(zs, np.float32))
-    if _on_card(planes_all):  # one upload each for the bitmap and K1
+    if _on_card(planes_all):  # one upload each for the ESS test and K1
         zs = _device_f32(zs, planes_all.device)
         tf_lut = _device_f32(tf_lut, planes_all.device)
     ess = _resolve_ess(
@@ -998,7 +1110,7 @@ def sweep_preblended_planes(
             plane_chunk=plane_chunk, tex_offset=tex_offset,
             plane_spacing=plane_spacing, axis_scale=axis_scale,
             filter_linear=filter_linear, reverse_planes=reverse_planes,
-            ess=ess, acc_init=acc_init, precision=precision,
+            ess=_plain_bitmap(ess), acc_init=acc_init, precision=precision,
         )
     if not pallas_supported(planes_all.shape, width, height, n_planes,
                             n_lut=len(tf_lut)):
@@ -1030,7 +1142,7 @@ sweep_preblended_planes.launches = 0
 sweep_preblended_planes.bf16_launches = 0
 #: the launches among ``launches`` that took the staged fetch path
 sweep_preblended_planes.staged_launches = 0
-#: the launches among ``launches`` that culled by an ESS bitmap
+#: the launches among ``launches`` that tested ESS in the kernel
 sweep_preblended_planes.ess_launches = 0
 #: the launches among ``launches`` that resumed from a seed
 sweep_preblended_planes.seed_launches = 0

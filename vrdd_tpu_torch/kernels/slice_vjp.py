@@ -24,7 +24,7 @@ the kernel or the wrapper raises; a CPU tensor takes the plain torch version
 :func:`sweep_bwd_reference`: the plain sweep, its transmittance recursion,
 the analytic VJP of ``march/slice.py`` and its ``P_total``). Each counts
 its kernel launches in ``.launches``; K3's and K4's ``.ess_launches`` count
-those of them that culled by an ESS bitmap, every wrapper's
+those of them that tested ESS in the kernel, every wrapper's
 ``.seed_launches`` those that resumed from a seed (K5: that wrote ``S``),
 ``.staged_launches`` those that took the staged fetch path (each block's
 plane footprint decoded once in shared memory; see ``slice_kernel``), and
@@ -51,10 +51,11 @@ sweeps passes brightness 1 and scales once at the end.
 
 ``wrt`` prunes cotangents as in JAX: an input that needs a gradient but is
 not listed gets exact zeros. Empty-space skipping (``empty_space_skip`` of
-:func:`pallas_slice_render_diff`) culls in K3/K4 with the bitmap of
-``slice_kernel.ess_bitmap``; it is exact only for ``wrt=('volume',)`` and
-raises otherwise, as in JAX; it takes no seed. K5 takes no bitmap: it
-replays the culled samples, whose alpha and slope are zero.
+:func:`pallas_slice_render_diff`) culls in K3/K4, which test each (tile,
+chunk) themselves (``slice_kernel.EssTest``); it is exact only for
+``wrt=('volume',)`` and raises otherwise, as in JAX; it takes no seed. K5
+takes no ESS: it replays the culled samples, whose alpha and slope are
+zero.
 
 **``precision='bf16'``** (JAX's bf16 mode, ``mm_dtype`` of
 ``slice_vjp.py:595``): K3/K4 and K5's replay resample as the forward
@@ -84,9 +85,10 @@ from vrdd_tpu_torch.march.slice import (
     transmittance_checkpoints,
 )
 from vrdd_tpu_torch.kernels.slice_kernel import (
-    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, _precision_flag,
-    _decode_plain, _decode_rows, _decode_rows_grad, _device_f32,
-    _hist_geometry, _host_floats, _launch, _on_card, _pixel_slopes,
+    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, EssTest, _plain_bitmap,
+    _precision_flag, _decode_plain, _decode_rows, _decode_rows_grad,
+    _device_f32, _hist_geometry, _host_floats, _launch, _on_card,
+    _pixel_slopes,
     _resolve_ess, _slope_grids, _stage_dims, _sweep_params,
     _uniform_grid_params, decode_chain, decode_with_rows,
     hist_render_supported, pallas_supported, stage_bound, stage_smem_bytes,
@@ -162,8 +164,9 @@ def _ck_stride(plane_chunk: int) -> int:
 class _Sweep:
     """Host-side configuration of one differentiable sweep: the plane
     schedule, the camera and the decode mode ('none' for a plane stack).
-    ``ess``: the ESS bitmap K3/K4 cull by, over chunks of ``ck_stride``
-    planes (None: no culling); ``precision``: 'f32' or 'bf16'."""
+    ``ess``: what K3/K4 cull by, over chunks of ``ck_stride`` planes: a
+    ``slice_kernel.EssTest`` (the kernel's own test) or None (no culling);
+    ``precision``: 'f32' or 'bf16'."""
 
     zs: np.ndarray
     origin: Tuple[float, float, float]
@@ -180,7 +183,7 @@ class _Sweep:
     tex_offset: float = 0.5
     axis_scale: Tuple[float, float] = (1.0, 1.0)
     filter_linear: bool = True
-    ess: Optional[torch.Tensor] = None
+    ess: Optional[EssTest] = None
     precision: str = "f32"
 
     @property
@@ -247,7 +250,7 @@ class _Sweep:
             plane_chunk=self.ck_stride, tex_offset=self.tex_offset,
             plane_spacing=self.plane_spacing, axis_scale=self.axis_scale,
             filter_linear=self.filter_linear, reverse_planes=self.reverse,
-            ess=self.ess if ess else None, acc_init=acc0,
+            ess=_plain_bitmap(self.ess) if ess else None, acc_init=acc0,
             precision=self.precision,
         )
 
@@ -330,8 +333,8 @@ def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
             length_correction=cfg.length_correction,
             tex_offset=cfg.tex_offset, axis_scale=cfg.axis_scale,
             filter_linear=cfg.filter_linear,
-            ess=None if cfg.ess is None else (cfg.ess, cfg.ck_stride,
-                                              ESS_TILE),
+            ess=None if cfg.ess is None else (_plain_bitmap(cfg.ess),
+                                              cfg.ck_stride, ESS_TILE),
             acc_init=acc0, precision=cfg.precision,
             live_tile=ESS_TILE if live_map else None,
         )
@@ -748,9 +751,9 @@ def planes_config(zs, origin, slopes, *, dz_sign=-1, width, height,
                   axis_scale=(1.0, 1.0), reverse_planes=False,
                   ess=None, precision="f32") -> _Sweep:
     """The sweep of a scalar ``(n_planes, NY, NX)`` plane stack with depths
-    ``zs`` and ``slopes = [mx0, dmx, my0, dmy]``, culled by the ESS bitmap
-    ``ess`` (of :func:`~vrdd_tpu_torch.kernels.slice_kernel.ess_bitmap` over
-    chunks of ``plane_chunk`` planes) when given: the handle to call
+    ``zs`` and ``slopes = [mx0, dmx, my0, dmy]``, culled by ``ess`` over
+    chunks of ``plane_chunk`` planes when given (``_Sweep.ess``): the
+    handle to call
     :func:`sweep_fwd`, :func:`sweep_fwd_ckpt` and :func:`sweep_bwd` (or
     their plain versions) on a stack directly, as :func:`render_config` is
     for one plane per layer. ``precision``: 'f32' or 'bf16'."""

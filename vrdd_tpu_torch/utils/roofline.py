@@ -48,12 +48,21 @@ def decode_ops(mode, B):
     return 4 * per_voxel
 
 
-def ess_pair_ops(plane_chunk, n_lut):
-    """Operations of the ESS bitmap kernel for one (tile, chunk), counted
-    from csrc/ess_bitmap.cu (a float64 operation counts as one): the depth
+def ess_pair_ops(plane_chunk):
+    """Operations of the ESS interval test for one (tile, chunk), counted
+    from csrc/ess_common.cuh (a float64 operation counts as one): the depth
     range and the corner and block geometry 60, the block min and max over
-    the chunk's planes at 2 x 2 blocks, the LUT interval 20 and its knots."""
-    return 60 + 2 * 4 * plane_chunk + 20 + 2 * n_lut
+    the chunk's planes at 2 x 2 blocks, the LUT interval and its two ends
+    20, the knots inside as one range maximum of the sparse table 8 (the
+    bounds, the level, two reads' indices, two maxima)."""
+    return 60 + 2 * 4 * plane_chunk + 20 + 8
+
+
+def ess_table_ops(n_lut):
+    """Operations of one block's sparse table of the LUT's |alpha|
+    (ess_table_build): one maximum per entry of each level above the
+    first, at most n_lut floor(log2 n_lut)."""
+    return n_lut * (n_lut.bit_length() - 1)
 
 
 def bound(n_bytes, n_ops):
