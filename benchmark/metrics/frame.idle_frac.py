@@ -1,0 +1,8 @@
+"""Percent of the traced window of frames in which no operation ran on the
+device."""
+
+
+def read(run):
+    if run.unit != "frames" or not run.port_kernels or run.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.busy_s / run.window_s)
