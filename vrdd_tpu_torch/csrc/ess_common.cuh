@@ -50,6 +50,10 @@ struct EssParams {
   float tf_off, tf_scale, q_margin;
   int n_planes, plane_chunk, height, width, tile_h, tile_w;
   int ny, nx, n_lut, n_by, n_bx;
+  // tracing (vrdd_tpu_torch/utils/profiling.py ess_counts): the (tile,
+  // chunk) pairs the sweep kernels tested, and those they found live, are
+  // added to counts[0] and counts[1]; null when the tracer is off
+  unsigned long long* counts;
 };
 
 namespace vrdd {
@@ -281,6 +285,20 @@ __device__ __forceinline__ void ess_tile_bits(
       if (out != nullptr) out[ess_index(g, c, ty, tx)] = live ? 1 : 0;
     }
   }
+}
+
+// Tracing: one thread of the block adds its tile's pairs and live pairs
+// (the bytes ess_tile_bits wrote, after the barrier that made them visible)
+// to g.counts; two atomics a block, none while g.counts is null.
+__device__ __forceinline__ void ess_count(const EssParams& g,
+                                          const unsigned char* bits,
+                                          int tid) {
+  if (g.counts == nullptr || tid != 0) return;
+  const int n_chunks = (g.n_planes + g.plane_chunk - 1) / g.plane_chunk;
+  unsigned long long live = 0;
+  for (int c = 0; c < n_chunks; ++c) live += bits[c];
+  atomicAdd(g.counts, (unsigned long long)n_chunks);
+  atomicAdd(g.counts + 1, live);
 }
 
 }  // namespace vrdd

@@ -264,6 +264,7 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
       s_rows[t] = rows[t];
   if (ESS) ess_prologue(p, ess, lut, zs, s_table, s_bits, tid, nthreads);
   __syncthreads();
+  if (ESS) ess_count(p.ess, s_bits, tid);
 
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
@@ -369,6 +370,7 @@ slice_sweep_staged(const SweepParams p, const T* __restrict__ vol,
   if (ESS) {
     ess_prologue(p, ess, lut, zs, s_table, s_bits, tid, nthreads);
     __syncthreads();  // warp 0 plans with the bytes
+    ess_count(p.ess, s_bits, tid);
   }
 
   const int j0 = blockIdx.x * blockDim.x, i0 = blockIdx.y * blockDim.y;

@@ -46,7 +46,8 @@ _INT_FIELDS = (
 class EssParams(ctypes.Structure):
     """Mirror of ``struct EssParams`` in ``csrc/ess_common.cuh``: the
     geometry of the ESS interval test, for the bitmap kernel and, inside
-    :class:`SweepParams`, for the sweep kernels' own test."""
+    :class:`SweepParams`, for the sweep kernels' own test; ``counts``, the
+    tracer's pair counts on the card (null when it is off)."""
 
     _fields_ = [(n, ctypes.c_double) for n in (
         "ox", "oy", "oz", "mx0", "dmx", "my0", "dmy", "xlo", "xhi", "ylo",
@@ -56,7 +57,7 @@ class EssParams(ctypes.Structure):
             "n_planes", "plane_chunk", "height", "width", "tile_h", "tile_w",
             "ny", "nx", "n_lut", "n_by", "n_bx",
         )
-    ]
+    ] + [("counts", ctypes.c_void_p)]
 
 
 class SweepParams(ctypes.Structure):

@@ -90,6 +90,7 @@ from vrdd_tpu_torch.march.slice import (
     preblend_planes,
     sweep_preblended_planes_xla,
 )
+from vrdd_tpu_torch.utils import profiling
 from vrdd_tpu_torch.utils.config import (
     FLEX_MAX_HISTOGRAM, MAX_HISTOGRAM, MEAN_NORM, VARIANCE_NORM, MarchConfig,
 )
@@ -503,7 +504,8 @@ def decode_with_rows(hist_bm: torch.Tensor, rows, mode: str) -> torch.Tensor:
     autograd, in the backward (:class:`_Decode`)."""
     if mode not in _N_ROWS:
         raise ValueError(f"unknown decode mode {mode!r}")
-    rows = torch.as_tensor(rows, dtype=torch.float32, device=hist_bm.device)
+    rows = profiling.to_device(rows, hist_bm.device, "rows",
+                               dtype=torch.float32)
     if rows.ndim == 1:
         rows = rows[None, :]
     if torch.is_grad_enabled() and (hist_bm.requires_grad
@@ -515,7 +517,7 @@ def decode_with_rows(hist_bm: torch.Tensor, rows, mode: str) -> torch.Tensor:
 def _host_floats(x, n: int) -> list:
     """A length-n vector (sequence, numpy array or tensor) as Python floats."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = profiling.to_host(x.detach(), "host_floats")
     vals = [float(v) for v in np.asarray(x, dtype=np.float32).reshape(-1)]
     if len(vals) != n:
         raise ValueError(f"expected {n} values, got {len(vals)}")
@@ -532,19 +534,20 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}: use 'cuda' or 'cpu'")
 
 
-def _device_f32(x, dev: torch.device) -> torch.Tensor:
+def _device_f32(x, dev: torch.device, site: str = "f32") -> torch.Tensor:
     """``x`` (sequence, numpy array or tensor) as a contiguous float32
     tensor on ``dev``. A host array goes up to the card through pinned
-    memory without blocking: a pageable upload would wait for all the work
-    queued on the stream before it."""
+    memory without blocking (``profiling.to_device``, counted under
+    ``site``): a pageable upload would wait for all the work queued on the
+    stream before it."""
     if isinstance(x, torch.Tensor):
         if x.device == dev:
             return x.detach().to(torch.float32).contiguous()
-        x = x.detach().cpu()
+        x = profiling.to_host(x.detach(), site)
     host = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
     if dev.type != "cuda":
         return host
-    return host.pin_memory().to(dev, non_blocking=True)
+    return profiling.to_device(host, dev, site, pinned=True)
 
 
 #: the kernels' SweepParams.precision of each ``precision`` JAX accepts
@@ -589,88 +592,100 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
     the second saying which path the launch took."""
     from vrdd_tpu_torch.kernels import _build
 
-    if vol.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"volume dtype {vol.dtype}: use float32 or bfloat16")
-    if not vol.is_contiguous():
-        raise ValueError("the volume must be contiguous")
-    dev = vol.device
-    if zs_host is None:
-        zs_host = (zs.detach().cpu().numpy() if isinstance(zs, torch.Tensor)
-                   else zs)
+    with profiling.annotate("sweep.prepare"):
+        if vol.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"volume dtype {vol.dtype}: use float32 or "
+                            "bfloat16")
+        if not vol.is_contiguous():
+            raise ValueError("the volume must be contiguous")
+        dev = vol.device
+        if zs_host is None:
+            zs_host = (profiling.to_host(zs.detach(), "zs").numpy()
+                       if isinstance(zs, torch.Tensor) else zs)
 
-    zs_t, lut_t = _device_f32(zs, dev), _device_f32(tf_lut, dev)
-    # K1 reads no decode rows
-    rows_t = None if rows is None else _device_f32(rows, dev)
-    if lut_t.ndim != 2 or lut_t.shape[1] != 4:
-        raise ValueError(f"tf_lut must be (n_lut, 4), got {tuple(lut_t.shape)}")
-    if zs_t.numel() != params["n_planes"]:
-        raise ValueError("zs must hold one depth per plane")
-    H, W = params["height"], params["width"]
-    ess_min = ess_max = bits = None
-    n_lut = lut_t.shape[0]
-    if ess is not None:
-        if not isinstance(ess, EssTest):
-            raise TypeError(f"ess: an EssTest or None, not {type(ess)}")
-        if mode != "none":
-            raise ValueError("ESS culls scalar plane sweeps only")
-        want = (params["n_planes"], _ESS_YB, _ESS_XB)
-        ess_min, ess_max = ess.pmin, ess.pmax
-        if any(t.dtype != torch.float32 or tuple(t.shape) != want
-               or t.device != dev or not t.is_contiguous()
-               for t in (ess_min, ess_max)):
-            raise ValueError(f"ESS plane stats: want two contiguous float32 "
-                             f"{want} tensors on {dev}")
-        if ess.kwargs["plane_chunk"] != ess_chunk:
-            raise ValueError(f"an ESS test over chunks of "
-                             f"{ess.kwargs['plane_chunk']} planes, a launch "
-                             f"over chunks of {ess_chunk}")
-        if _ESS_BITS is not None:
-            bits = torch.zeros(_ess_shape(params["n_planes"], ess_chunk, H,
+        zs_t = _device_f32(zs, dev, "zs")
+        lut_t = _device_f32(tf_lut, dev, "lut")
+        # K1 reads no decode rows
+        rows_t = None if rows is None else _device_f32(rows, dev, "rows")
+        if lut_t.ndim != 2 or lut_t.shape[1] != 4:
+            raise ValueError(f"tf_lut must be (n_lut, 4), got "
+                             f"{tuple(lut_t.shape)}")
+        if zs_t.numel() != params["n_planes"]:
+            raise ValueError("zs must hold one depth per plane")
+        H, W = params["height"], params["width"]
+        ess_min = ess_max = bits = None
+        n_lut = lut_t.shape[0]
+        if ess is not None:
+            if not isinstance(ess, EssTest):
+                raise TypeError(f"ess: an EssTest or None, not {type(ess)}")
+            if mode != "none":
+                raise ValueError("ESS culls scalar plane sweeps only")
+            want = (params["n_planes"], _ESS_YB, _ESS_XB)
+            ess_min, ess_max = ess.pmin, ess.pmax
+            if any(t.dtype != torch.float32 or tuple(t.shape) != want
+                   or t.device != dev or not t.is_contiguous()
+                   for t in (ess_min, ess_max)):
+                raise ValueError(f"ESS plane stats: want two contiguous "
+                                 f"float32 {want} tensors on {dev}")
+            if ess.kwargs["plane_chunk"] != ess_chunk:
+                raise ValueError(f"an ESS test over chunks of "
+                                 f"{ess.kwargs['plane_chunk']} planes, a "
+                                 f"launch over chunks of {ess_chunk}")
+            if _ESS_BITS is not None:
+                bits = torch.zeros(_ess_shape(params["n_planes"], ess_chunk,
+                                              H, W),
+                                   dtype=torch.uint8, device=dev)
+                _ESS_BITS.append((bits, ess))
+        seed_t = None if seed is None else _device_f32(seed, dev, "seed")
+        if seed_t is not None and tuple(seed_t.shape) != (H, W, 4):
+            raise ValueError(f"acc_init {tuple(seed_t.shape)}: want "
+                             f"({H}, {W}, 4)")
+        out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
+        tck = live = None
+        if ck_stride:
+            n_chunks = -(-params["n_planes"] // ck_stride)
+            tck = torch.empty((n_chunks, H, W), dtype=torch.float32,
+                              device=dev)
+        if live_map:
+            if not ck_stride:
+                raise ValueError("the live map is K4's: it needs "
+                                 "ck_stride > 0")
+            live = torch.zeros(_ess_shape(params["n_planes"], ck_stride, H,
                                           W), dtype=torch.uint8, device=dev)
-            _ESS_BITS.append((bits, ess))
-    seed_t = None if seed is None else _device_f32(seed, dev)
-    if seed_t is not None and tuple(seed_t.shape) != (H, W, 4):
-        raise ValueError(f"acc_init {tuple(seed_t.shape)}: want ({H}, {W}, 4)")
-    out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
-    tck = live = None
-    if ck_stride:
-        n_chunks = -(-params["n_planes"] // ck_stride)
-        tck = torch.empty((n_chunks, H, W), dtype=torch.float32, device=dev)
-    if live_map:
-        if not ck_stride:
-            raise ValueError("the live map is K4's: it needs ck_stride > 0")
-        live = torch.zeros(_ess_shape(params["n_planes"], ck_stride, H, W),
-                           dtype=torch.uint8, device=dev)
-    n_bins = params.get("n_bins", 1) if mode != "none" else 1
-    row_floats = 0 if rows_t is None else rows_t.numel()
-    ess_bytes = 0 if ess is None else _ess_smem_bytes(
-        n_lut, -(-params["n_planes"] // ess_chunk))
-    if ess_bytes and 4 * (4 * n_lut + row_floats) + ess_bytes > _SMEM_MAX:
-        raise ValueError(f"ESS over {params['n_planes']} planes with a "
-                         f"{n_lut}-entry LUT does not fit a block's shared "
-                         "memory")
-    bound = stage_bound(params, zs_host, (ESS_TILE[1], ESS_TILE[0]))
-    stage = _stage_dims(staged, bound, stage_smem_bytes(
-        *bound, n_bins=n_bins, elem_size=vol.element_size(), n_lut=n_lut,
-        row_floats=row_floats, slots=3 if mode == "none" else 2,
-        ess_bytes=ess_bytes))
-    p = _build.SweepParams(n_lut=n_lut, **params)
-    if ess_min is not None:
-        p.ess = _ess_params(params, ess.q_margin, ess_chunk, n_lut)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vrdd_slice_sweep(
-            p, _MODES[mode], int(vol.dtype == torch.bfloat16),
-            vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(),
-            None if rows_t is None else rows_t.data_ptr(), out.data_ptr(),
-            ck_stride, None if tck is None else tck.data_ptr(),
-            *(None if t is None else t.data_ptr()
-              for t in (ess_min, ess_max, bits)), int(ess_chunk),
-            None if seed_t is None else seed_t.data_ptr(),
-            None if live is None else live.data_ptr(),
-            ESS_TILE[1], ESS_TILE[0], *stage, stream,
-        )
+        n_bins = params.get("n_bins", 1) if mode != "none" else 1
+        row_floats = 0 if rows_t is None else rows_t.numel()
+        ess_bytes = 0 if ess is None else _ess_smem_bytes(
+            n_lut, -(-params["n_planes"] // ess_chunk))
+        if ess_bytes and 4 * (4 * n_lut + row_floats) + ess_bytes > _SMEM_MAX:
+            raise ValueError(f"ESS over {params['n_planes']} planes with a "
+                             f"{n_lut}-entry LUT does not fit a block's "
+                             "shared memory")
+        bound = stage_bound(params, zs_host, (ESS_TILE[1], ESS_TILE[0]))
+        stage = _stage_dims(staged, bound, stage_smem_bytes(
+            *bound, n_bins=n_bins, elem_size=vol.element_size(), n_lut=n_lut,
+            row_floats=row_floats, slots=3 if mode == "none" else 2,
+            ess_bytes=ess_bytes))
+        p = _build.SweepParams(n_lut=n_lut, **params)
+        if ess_min is not None:
+            p.ess = _ess_params(params, ess.q_margin, ess_chunk, n_lut)
+            counts = profiling.ess_counts(dev)  # tracing: the pairs tested
+            if counts is not None:
+                p.ess.counts = counts.data_ptr()
+        lib = _build.library()
+    with profiling.annotate("sweep.launch"):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.vrdd_slice_sweep(
+                p, _MODES[mode], int(vol.dtype == torch.bfloat16),
+                vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(),
+                None if rows_t is None else rows_t.data_ptr(), out.data_ptr(),
+                ck_stride, None if tck is None else tck.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (ess_min, ess_max, bits)), int(ess_chunk),
+                None if seed_t is None else seed_t.data_ptr(),
+                None if live is None else live.data_ptr(),
+                ESS_TILE[1], ESS_TILE[0], *stage, stream,
+            )
     if rc != 0:
         raise RuntimeError(f"vrdd_slice_sweep launch failed: CUDA error {rc}")
     result = out
@@ -812,7 +827,7 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
         height=int(height), width=int(width), ny=int(ny), nx=int(nx),
     ), q_margin, plane_chunk, lut_t.shape[0])
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with profiling.annotate("sweep.launch"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vrdd_ess_bitmap(p, pmin.data_ptr(), pmax.data_ptr(),
                                  zs_t.data_ptr(), lut_t.data_ptr(),
@@ -874,6 +889,16 @@ def _plain_bitmap(ess):
     """The bitmap a plain version culls by: the plain bitmap of an
     :class:`EssTest`, or None."""
     return None if ess is None else ess.reference()
+
+
+def _count_plain_ess(ess):
+    """Tracing: the (tile, chunk) pairs a plain version's ESS tests and
+    finds live (the bitmap's size and set bits), as the kernels count
+    theirs (``profiling.ess_counts``); nothing while the tracer is off."""
+    if ess is not None and profiling.enabled():
+        bits = _plain_bitmap(ess)
+        profiling.count("ess.pairs_tested", bits.numel())
+        profiling.count("ess.pairs_live", int(bits.sum()))
 
 
 @torch.no_grad()
@@ -944,10 +969,10 @@ def ess_bitmap_reference(plane_stats, zs, origin, slopes, tf_lut, tf_off,
     x_rng = corner_range(ox, mx0, dmx, tw, n_tx, width)
     yb = block_range(*y_rng, 1, ny, _ESS_YB, sy)
     xb = block_range(*x_rng, 0, nx, _ESS_XB, sx)
-    ranges = torch.as_tensor(  # one upload: (2, n_ty + n_tx, C)
+    ranges = profiling.to_device(  # one upload: (2, n_ty + n_tx, C)
         np.stack([np.concatenate([yb[0], xb[0]]),
                   np.concatenate([yb[1], xb[1]])]).astype(np.int64),
-        device=dev)
+        dev, "ess_ranges")
     yb_lo, yb_hi = ranges[0, :n_ty, :, None], ranges[1, :n_ty, :, None]
     xb_lo, xb_hi = ranges[0, n_ty:, :, None], ranges[1, n_ty:, :, None]
 
@@ -962,7 +987,7 @@ def ess_bitmap_reference(plane_stats, zs, origin, slopes, tf_lut, tf_off,
     vmax = torch.where(xm, vmax_y[:, None], -np.inf).amax(-1)
 
     # max |alpha| of the clamped piecewise-linear LUT over [vmin, vmax]
-    lut = torch.as_tensor(tf_lut, dtype=torch.float32, device=dev)
+    lut = profiling.to_device(tf_lut, dev, "lut", dtype=torch.float32)
     n_lut = lut.shape[0]
     la = lut[:, 3].abs()
     toff, tscl = float(tf_off), float(tf_scale)
@@ -995,7 +1020,8 @@ def _ess_q_margin(ess_stats, tf_lut, transfer_scale, bf16: bool) -> float:
     back to the host in the bf16 mode."""
     if not bf16:
         return _ESS_Q_MARGIN
-    vabs = max(float(t.abs().max()) for t in ess_stats)
+    vabs = max(float(profiling.to_host(t.abs().max(), "ess_margin"))
+               for t in ess_stats)
     return (_ESS_Q_MARGIN + _BF16_SPREAD * vabs * abs(float(transfer_scale))
             * len(tf_lut))
 
@@ -1091,18 +1117,22 @@ def sweep_preblended_planes(
     n_planes, ny, nx = planes_all.shape
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
-    zs_host = (zs.detach().cpu().numpy() if isinstance(zs, torch.Tensor)
-               else np.asarray(zs, np.float32))
-    if _on_card(planes_all):  # one upload each for the ESS test and K1
-        zs = _device_f32(zs, planes_all.device)
-        tf_lut = _device_f32(tf_lut, planes_all.device)
-    ess = _resolve_ess(
-        empty_space_skip, ess_stats, planes_all, zs, origin, slopes, tf_lut,
-        transfer_offset, transfer_scale, width=width, height=height,
-        plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
-        axis_scale=axis_scale, reverse_planes=reverse_planes, bf16=bf16,
-    )
+    with profiling.annotate("sweep.prepare"):
+        zs_host = (profiling.to_host(zs.detach(), "zs").numpy()
+                   if isinstance(zs, torch.Tensor)
+                   else np.asarray(zs, np.float32))
+        if _on_card(planes_all):  # one upload each for the ESS test and K1
+            zs = _device_f32(zs, planes_all.device, "zs")
+            tf_lut = _device_f32(tf_lut, planes_all.device, "lut")
+        ess = _resolve_ess(
+            empty_space_skip, ess_stats, planes_all, zs, origin, slopes,
+            tf_lut, transfer_offset, transfer_scale, width=width,
+            height=height, plane_chunk=plane_chunk, march=march,
+            tex_offset=tex_offset, axis_scale=axis_scale,
+            reverse_planes=reverse_planes, bf16=bf16,
+        )
     if not _on_card(planes_all):
+        _count_plain_ess(ess)
         return sweep_preblended_planes_reference(
             planes_all, zs, origin, slopes, tf_lut, density, brightness,
             transfer_offset, transfer_scale, dz_sign=dz_sign, width=width,
@@ -1118,14 +1148,16 @@ def sweep_preblended_planes(
             f"the sweep kernel cannot render planes {tuple(planes_all.shape)} "
             f"-> {width}x{height} with a {len(tf_lut)}-entry LUT"
         )
-    params = _sweep_params(
-        origin, slopes, density, brightness, transfer_offset, transfer_scale,
-        plane_spacing, march, width=width, height=height, ny=ny, nx=nx,
-        n_planes=n_planes, n_layers=n_planes, dz_sign=dz_sign,
-        reverse=reverse_planes, length_correction=length_correction,
-        tex_offset=tex_offset, axis_scale=axis_scale,
-        filter_linear=filter_linear, precision=bf16,
-    )
+    with profiling.annotate("sweep.prepare"):
+        params = _sweep_params(
+            origin, slopes, density, brightness, transfer_offset,
+            transfer_scale, plane_spacing, march, width=width, height=height,
+            ny=ny, nx=nx, n_planes=n_planes, n_layers=n_planes,
+            dz_sign=dz_sign, reverse=reverse_planes,
+            length_correction=length_correction, tex_offset=tex_offset,
+            axis_scale=axis_scale, filter_linear=filter_linear,
+            precision=bf16,
+        )
     out, staged = _launch(planes_all, "none", zs, tf_lut, None, params,
                           ess=ess, ess_chunk=plane_chunk, seed=acc_init,
                           zs_host=zs_host)
@@ -1291,7 +1323,7 @@ def _hist_geometry(nz: int, width: int, height: int, focal: float,
 def _decode_rows(weights, stat: str, B: int, device) -> torch.Tensor:
     if stat not in _N_ROWS:
         raise ValueError(f"unknown stat {stat!r}; use linear / var / entropy")
-    rows = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    rows = profiling.to_device(weights, device, "rows", dtype=torch.float32)
     if rows.ndim == 1:
         rows = rows[None, :]
     if tuple(rows.shape) != (_N_ROWS[stat], B):
@@ -1394,3 +1426,11 @@ def pallas_hist_render(
 pallas_hist_render.launches = 0
 pallas_hist_render.staged_launches = 0
 pallas_hist_render.bf16_launches = 0
+
+# the launch counters a traced window reports (``profiling.drain``)
+profiling.watch("k1", sweep_preblended_planes, (
+    "launches", "staged_launches", "ess_launches", "seed_launches",
+    "bf16_launches"))
+profiling.watch("k2", pallas_hist_render, (
+    "launches", "staged_launches", "bf16_launches"))
+profiling.watch("bitmap", ess_bitmap, ("launches",))

@@ -85,7 +85,8 @@ from vrdd_tpu_torch.march.slice import (
     transmittance_checkpoints,
 )
 from vrdd_tpu_torch.kernels.slice_kernel import (
-    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, EssTest, _plain_bitmap,
+    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, EssTest, _count_plain_ess,
+    _plain_bitmap,
     _precision_flag, _decode_plain, _decode_rows, _decode_rows_grad,
     _device_f32, _hist_geometry, _host_floats, _launch, _on_card,
     _pixel_slopes,
@@ -94,6 +95,7 @@ from vrdd_tpu_torch.kernels.slice_kernel import (
     hist_render_supported, pallas_supported, stage_bound, stage_smem_bytes,
     sweep_preblended_planes_reference,
 )
+from vrdd_tpu_torch.utils import profiling
 from vrdd_tpu_torch.utils.config import MarchConfig
 
 __all__ = [
@@ -196,7 +198,10 @@ class _Sweep:
         return _precision_flag(self.precision)
 
     def params(self, vol, rows, density, toff, tscl) -> dict:
-        """The kernels' SweepParams (brightness 1: folded outside)."""
+        """The kernels' SweepParams (brightness 1: folded outside); a
+        parameter on the card is read back (``sync.sweep_params``)."""
+        density, toff, tscl = (profiling.to_host(t, "sweep_params")
+                               for t in (density, toff, tscl))
         if self.mode == "none":
             n_layers, ny, nx = vol.shape
             n_bins, n_rows = 1, 1
@@ -262,8 +267,8 @@ class _Sweep:
         return planes.flip(0) if self.reverse else planes
 
 
-def _f32(x, dev) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+def _f32(x, dev, site: str = "diff_sweep") -> torch.Tensor:
+    return profiling.to_device(x, dev, site, dtype=torch.float32)
 
 
 # ---- K3 ----------------------------------------------------------------
@@ -284,11 +289,13 @@ def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, acc0=None,
     when given. ``staged`` forces a fetch path (None: by geometry). Returns
     ``(H, W, 4)`` at brightness 1."""
     if not _on_card(vol):
+        _count_plain_ess(cfg.ess)
         return sweep_fwd_reference(cfg, vol, rows, lut, density, toff, tscl,
                                    acc0)
-    cfg.check(vol, lut)
-    out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
-                      cfg.params(vol, rows, density, toff, tscl),
+    with profiling.annotate("sweep.prepare"):
+        cfg.check(vol, lut)
+        params = cfg.params(vol, rows, density, toff, tscl)
+    out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows, params,
                       ess=cfg.ess, ess_chunk=cfg.ck_stride, seed=acc0,
                       staged=staged)
     sweep_fwd.launches += 1
@@ -352,12 +359,14 @@ def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
     where some ray of the tile is not done at the chunk's first plane
     (``(img, tck, live)``; counted in ``.live_launches``)."""
     if not _on_card(vol):
+        _count_plain_ess(cfg.ess)
         out = sweep_fwd_ckpt_reference(cfg, vol, rows, lut, density, toff,
                                        tscl, acc0, live_map)
         return out[:3] if live_map else out
-    cfg.check(vol, lut)
-    out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows,
-                      cfg.params(vol, rows, density, toff, tscl),
+    with profiling.annotate("sweep.prepare"):
+        cfg.check(vol, lut)
+        params = cfg.params(vol, rows, density, toff, tscl)
+    out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows, params,
                       ck_stride=cfg.ck_stride, ess=cfg.ess,
                       ess_chunk=cfg.ck_stride, seed=acc0, staged=staged,
                       live_map=live_map)
@@ -449,56 +458,60 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
                                    g, g_planes, g_lut, g_params, acc0)
     from vrdd_tpu_torch.kernels import _build
 
-    cfg.check(vol, lut)
-    if not (g_planes or g_lut or g_params):
-        raise ValueError("sweep_bwd: K5 needs a volume, LUT or parameter "
-                         "cotangent (S alone is not a mode of it)")
-    dev = vol.device
-    H, W = cfg.height, cfg.width
-    if tuple(g.shape) != (H, W, 4) or tuple(tck.shape) != (cfg.n_chunks, H, W):
-        raise ValueError(f"g {tuple(g.shape)} / tck {tuple(tck.shape)} do not "
-                         f"fit a {W}x{H} image with {cfg.n_chunks} checkpoints")
-    params = cfg.params(vol, rows, density, toff, tscl)
-    ny, nx, n_layers = params["ny"], params["nx"], params["n_layers"]
-    lut_t = _device_f32(lut.detach(), dev)
-    n_lut = lut_t.shape[0]
-    g = g.to(torch.float32).contiguous()
-    zs_t = _device_f32(cfg.zs, dev)
-    rows_t = None if rows is None else rows.detach().contiguous()
-    d_planes = (torch.zeros((n_layers, ny, nx), dtype=torch.float32,
-                            device=dev) if g_planes else None)
-    # bf16 mode: K5 fills the row buffer, the y-transpose kernel d_planes
-    dtmp = (torch.zeros((len(cfg.zs), H, nx), dtype=torch.float32,
-                        device=dev) if g_planes and cfg.bf16 else None)
-    n_blocks = (-(-W // BWD_BLOCK[0])) * (-(-H // BWD_BLOCK[1]))
-    partials = (torch.empty((n_blocks, 4 * n_lut + 3), dtype=torch.float32,
-                            device=dev)
-                if (g_lut or g_params) else None)
-    mom = (torch.zeros((n_layers, 2, ny, nx), dtype=torch.float32, device=dev)
-           if (cfg.mode == "var" and g_planes) else None)
-    s_img = (None if acc0 is None
-             else torch.empty((H, W), dtype=torch.float32, device=dev))
+    with profiling.annotate("sweep.prepare"):
+        cfg.check(vol, lut)
+        if not (g_planes or g_lut or g_params):
+            raise ValueError("sweep_bwd: K5 needs a volume, LUT or parameter "
+                             "cotangent (S alone is not a mode of it)")
+        dev = vol.device
+        H, W = cfg.height, cfg.width
+        if (tuple(g.shape) != (H, W, 4)
+                or tuple(tck.shape) != (cfg.n_chunks, H, W)):
+            raise ValueError(f"g {tuple(g.shape)} / tck {tuple(tck.shape)} "
+                             f"do not fit a {W}x{H} image with "
+                             f"{cfg.n_chunks} checkpoints")
+        params = cfg.params(vol, rows, density, toff, tscl)
+        ny, nx, n_layers = params["ny"], params["nx"], params["n_layers"]
+        lut_t = _device_f32(lut.detach(), dev, "lut")
+        n_lut = lut_t.shape[0]
+        g = g.to(torch.float32).contiguous()
+        zs_t = _device_f32(cfg.zs, dev, "zs")
+        rows_t = None if rows is None else rows.detach().contiguous()
+        d_planes = (torch.zeros((n_layers, ny, nx), dtype=torch.float32,
+                                device=dev) if g_planes else None)
+        # bf16 mode: K5 fills the row buffer, the y-transpose kernel d_planes
+        dtmp = (torch.zeros((len(cfg.zs), H, nx), dtype=torch.float32,
+                            device=dev) if g_planes and cfg.bf16 else None)
+        n_blocks = (-(-W // BWD_BLOCK[0])) * (-(-H // BWD_BLOCK[1]))
+        partials = (torch.empty((n_blocks, 4 * n_lut + 3),
+                                dtype=torch.float32, device=dev)
+                    if (g_lut or g_params) else None)
+        mom = (torch.zeros((n_layers, 2, ny, nx), dtype=torch.float32,
+                           device=dev)
+               if (cfg.mode == "var" and g_planes) else None)
+        s_img = (None if acc0 is None
+                 else torch.empty((H, W), dtype=torch.float32, device=dev))
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    hist = cfg.mode != "none"
-    bound = stage_bound(params, cfg.zs, BWD_BLOCK)
-    # by default only the decode modes stage: on scalar planes a voxel is
-    # one load and the staged K5 measured slower than the direct one on an
-    # H100 (PERF.md)
-    stage = _stage_dims(staged, bound, stage_smem_bytes(
-        *bound, n_bins=params["n_bins"] if hist else 1,
-        elem_size=vol.element_size(), n_lut=n_lut,
-        row_floats=rows_t.numel() if hist else 0, bwd_ck=cfg.ck_stride,
-        g_planes=g_planes, momt=mom is not None,
-        g_small=partials is not None), prefer=hist)
-    p = _build.SweepParams(n_lut=n_lut, **params)
-    bp = _build.BwdParams(ck_stride=cfg.ck_stride, n_chunks=cfg.n_chunks,
-                          g_planes=int(g_planes), g_lut=int(g_lut),
-                          g_params=int(g_params), dtmp=ptr(dtmp))
-    lib = _build.library()
-    with torch.cuda.device(dev):
+        hist = cfg.mode != "none"
+        bound = stage_bound(params, cfg.zs, BWD_BLOCK)
+        # by default only the decode modes stage: on scalar planes a voxel is
+        # one load and the staged K5 measured slower than the direct one on an
+        # H100 (PERF.md)
+        stage = _stage_dims(staged, bound, stage_smem_bytes(
+            *bound, n_bins=params["n_bins"] if hist else 1,
+            elem_size=vol.element_size(), n_lut=n_lut,
+            row_floats=rows_t.numel() if hist else 0, bwd_ck=cfg.ck_stride,
+            g_planes=g_planes, momt=mom is not None,
+            g_small=partials is not None), prefer=hist)
+        p = _build.SweepParams(n_lut=n_lut, **params)
+        bp = _build.BwdParams(ck_stride=cfg.ck_stride, n_chunks=cfg.n_chunks,
+                              g_planes=int(g_planes), g_lut=int(g_lut),
+                              g_params=int(g_params), dtmp=ptr(dtmp))
+        lib = _build.library()
+    with profiling.annotate("sweep.launch"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vrdd_slice_bwd(
             p, bp, _MODES[cfg.mode], int(vol.dtype == torch.bfloat16),
@@ -538,8 +551,8 @@ def _row_taps(cfg: _Sweep, ny: int, dev):
     operation), and the rows' in-box mask."""
     f32 = np.float32
     _, my = cfg.slope_grids()
-    my = torch.as_tensor(my, device=dev)                          # (H,)
-    z = torch.as_tensor(cfg.zs, device=dev)[:, None]             # (P, 1)
+    my = profiling.to_device(my, dev, "row_taps")                # (H,)
+    z = profiling.to_device(cfg.zs, dev, "row_taps")[:, None]    # (P, 1)
     oy, oz = f32(cfg.origin[1]), f32(cfg.origin[2])
     ylo, yhi = f32(cfg.march.box_min[1]), f32(cfg.march.box_max[1])
     yw = (z - oz) * my + oy                                       # (P, H)
@@ -599,8 +612,8 @@ def dplane_bf16(cfg: _Sweep, dtmp, d_planes):
     params = dataclasses.replace(cfg, mode="none").params(
         d_planes, None, 0.0, 0.0, 1.0)
     p = _build.SweepParams(n_lut=1, **params)
-    zs_t = _device_f32(cfg.zs, dtmp.device)
-    with torch.cuda.device(dtmp.device):
+    zs_t = _device_f32(cfg.zs, dtmp.device, "zs")
+    with profiling.annotate("sweep.launch"), torch.cuda.device(dtmp.device):
         stream = torch.cuda.current_stream(dtmp.device).cuda_stream
         rc = _build.library().vrdd_dplane_bf16(
             p, zs_t.data_ptr(), dtmp.data_ptr(), d_planes.data_ptr(), stream)
@@ -677,12 +690,15 @@ def _grads(ctx, g, need):
     if need[0] and not want_vol:
         d_vol = torch.zeros_like(vol)
     elif need[0] and hist:
-        d_vol = decode_chain(vol, rows.detach(), cfg.mode, d_planes, mom)
+        with profiling.annotate("decode.grad"):
+            d_vol = decode_chain(vol, rows.detach(), cfg.mode, d_planes, mom)
     elif need[0]:
         d_vol = d_planes.to(vol.dtype)
-    if need[1]:
-        d_rows = (_decode_rows_grad(vol, rows.detach(), "linear", d_planes)
-                  if want_rows else torch.zeros_like(rows))
+    if need[1] and want_rows:
+        with profiling.annotate("decode.grad"):
+            d_rows = _decode_rows_grad(vol, rows.detach(), "linear", d_planes)
+    elif need[1]:
+        d_rows = torch.zeros_like(rows)
     d_acc0 = _seed_cotangent(g, acc0, s_img) if need[6] else None
     return [d_vol, d_rows] + _unpack_small(small, lut.shape[0], need[2:6],
                                            flags[1:]) + [d_acc0]
@@ -694,13 +710,15 @@ class _PlanesDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, wrt, planes, lut, density, toff, tscl, acc0):
-        return _save(ctx, cfg, wrt, planes, None, lut, density, toff, tscl,
-                     acc0)
+        with profiling.annotate("planes_diff.forward"):
+            return _save(ctx, cfg, wrt, planes, None, lut, density, toff,
+                         tscl, acc0)
 
     @staticmethod
     def backward(ctx, g):
         n = ctx.needs_input_grad
-        d = _grads(ctx, g, (n[2], False, *n[3:]))
+        with profiling.annotate("planes_diff.backward"):
+            d = _grads(ctx, g, (n[2], False, *n[3:]))
         return (None, None, d[0], *d[2:])
 
 
@@ -711,12 +729,14 @@ class _HistDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl, acc0):
-        return _save(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl,
-                     acc0)
+        with profiling.annotate("hist_diff.forward"):
+            return _save(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl,
+                         acc0)
 
     @staticmethod
     def backward(ctx, g):
-        return (None, None, *_grads(ctx, g, ctx.needs_input_grad[2:]))
+        with profiling.annotate("hist_diff.backward"):
+            return (None, None, *_grads(ctx, g, ctx.needs_input_grad[2:]))
 
 
 def _diff_sweep(cfg: _Sweep, wrt, vol, rows, tf_lut, density, toff, tscl,
@@ -724,14 +744,15 @@ def _diff_sweep(cfg: _Sweep, wrt, vol, rows, tf_lut, density, toff, tscl,
     """K3 when nothing needs a gradient, else the autograd Function; from
     the seed ``acc_init`` when given."""
     dev = vol.device
-    lut, density, toff, tscl = (_f32(x, dev)
-                                for x in (tf_lut, density, toff, tscl))
-    acc0 = None
-    if acc_init is not None:
-        acc0 = _f32(acc_init, dev)
-        if tuple(acc0.shape) != (cfg.height, cfg.width, 4):
-            raise ValueError(f"acc_init {tuple(acc0.shape)}: want "
-                             f"({cfg.height}, {cfg.width}, 4)")
+    with profiling.annotate("sweep.prepare"):
+        lut, density, toff, tscl = (_f32(x, dev)
+                                    for x in (tf_lut, density, toff, tscl))
+        acc0 = None
+        if acc_init is not None:
+            acc0 = _f32(acc_init, dev, "seed")
+            if tuple(acc0.shape) != (cfg.height, cfg.width, 4):
+                raise ValueError(f"acc_init {tuple(acc0.shape)}: want "
+                                 f"({cfg.height}, {cfg.width}, 4)")
     tensors = [vol, lut, density, toff, tscl] + [
         t for t in (rows, acc0) if t is not None]
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
@@ -920,21 +941,22 @@ def _diff_call(
             volume, n_planes, march.box_min, march.box_max, dz_sign,
             tex_offset, z_scale=axis_scale[2],
         )
-    ess = _resolve_ess(
-        empty_space_skip, None, planes_all, zs, origin, slopes, tf_lut,
-        transfer_offset, transfer_scale, width=width, height=height,
-        plane_chunk=_ck_stride(plane_chunk), march=march,
-        tex_offset=tex_offset, axis_scale=axis_scale[:2],
-        reverse_planes=False, bf16=bf16,
-    )
-    cfg = planes_config(
-        zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
-        march=march, plane_spacing=None, n_planes=n_planes,
-        length_correction=length_correction, plane_chunk=plane_chunk,
-        tex_offset=tex_offset, axis_scale=axis_scale[:2],
-        reverse_planes=pure_sel and dz_sign < 0, ess=ess,
-        precision=precision,
-    )
+    with profiling.annotate("sweep.prepare"):
+        ess = _resolve_ess(
+            empty_space_skip, None, planes_all, zs, origin, slopes, tf_lut,
+            transfer_offset, transfer_scale, width=width, height=height,
+            plane_chunk=_ck_stride(plane_chunk), march=march,
+            tex_offset=tex_offset, axis_scale=axis_scale[:2],
+            reverse_planes=False, bf16=bf16,
+        )
+        cfg = planes_config(
+            zs, origin, slopes, dz_sign=dz_sign, width=width, height=height,
+            march=march, plane_spacing=None, n_planes=n_planes,
+            length_correction=length_correction, plane_chunk=plane_chunk,
+            tex_offset=tex_offset, axis_scale=axis_scale[:2],
+            reverse_planes=pure_sel and dz_sign < 0, ess=ess,
+            precision=precision,
+        )
     out = _diff_sweep(cfg, wrt, planes_all, None, tf_lut, density,
                       transfer_offset, transfer_scale)
     return out * brightness
@@ -1170,9 +1192,22 @@ def live_fractions(
     _, _, live = sweep_fwd_ckpt(
         cfg, planes_all, None, _f32(tf_lut, dev), _f32(density, dev),
         _f32(transfer_offset, dev), _f32(transfer_scale, dev), live_map=True)
-    bits = live.cpu().numpy().astype(bool)  # (n_chunks, n_ty, n_tx)
+    # (n_chunks, n_ty, n_tx)
+    bits = profiling.to_host(live, "live_map").numpy().astype(bool)
     return {
         "tile_live_frac": float(bits.mean()),
         "strip_live_frac": float(bits.any(axis=2).mean()),
         "n_xt": int(bits.shape[2]),
     }
+
+
+# the launch counters a traced window reports (``profiling.drain``)
+profiling.watch("k3", sweep_fwd, (
+    "launches", "staged_launches", "ess_launches", "seed_launches",
+    "bf16_launches"))
+profiling.watch("k4", sweep_fwd_ckpt, (
+    "launches", "staged_launches", "ess_launches", "seed_launches",
+    "bf16_launches", "live_launches"))
+profiling.watch("k5", sweep_bwd, (
+    "launches", "staged_launches", "seed_launches", "bf16_launches"))
+profiling.watch("ytr", dplane_bf16, ("launches",))

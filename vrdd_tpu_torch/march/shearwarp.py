@@ -35,6 +35,7 @@ import torch
 from vrdd_tpu_torch.core.image import rgba_to_uint8
 from vrdd_tpu_torch.kernels.slice_kernel import _device_f32, _pixel_uv
 from vrdd_tpu_torch.march.slice import sweep_slope_space
+from vrdd_tpu_torch.utils import profiling
 from vrdd_tpu_torch.utils.config import MarchConfig
 
 # permutation per principal axis: world-axis indices (x=0, y=1, z=2) of the
@@ -155,8 +156,8 @@ def _bilinear_warp_2d(img: torch.Tensor, ix: np.ndarray,
                       iy: np.ndarray) -> torch.Tensor:
     """:func:`_bilinear_warp_2d_traced` with host (numpy float32) index
     maps."""
-    return _bilinear_warp_2d_traced(img, _device_f32(ix, img.device),
-                                    _device_f32(iy, img.device))
+    return _bilinear_warp_2d_traced(img, _device_f32(ix, img.device, "warp"),
+                                    _device_f32(iy, img.device, "warp"))
 
 
 def _pixel_slope_maps(rot: torch.Tensor, width: int, height: int,
@@ -165,7 +166,8 @@ def _pixel_slope_maps(rot: torch.Tensor, width: int, height: int,
     ``rot`` (the 3x3 rotation, float32): ``d_world_i = u rot[i, 0] + v
     rot[i, 1] - focal rot[i, 2]`` over the permuted axes."""
     px, py, pz = perm_world
-    u, v = (_device_f32(t, rot.device) for t in _pixel_uv(width, height))
+    u, v = (_device_f32(t, rot.device, "warp")
+            for t in _pixel_uv(width, height))
     u, v = u[None, :], v[:, None]
 
     def d_world(i):
@@ -181,7 +183,7 @@ def _warp_from_rotation_traced(img_m, rot, mgrid, width, height, focal,
     the device of ``img_m`` from the 3x3 rotation; ``mgrid = [mx0, dmx,
     my0, dmy]`` is the m-grid's origin and spacing, ``perm_world = (px, py,
     pz)``."""
-    rot = _device_f32(rot, img_m.device)
+    rot = _device_f32(rot, img_m.device, "warp")
     mx_all, my_all = _pixel_slope_maps(rot, width, height, focal, perm_world)
     mx0, dmx, my0, dmy = (float(v) for v in mgrid)
     return _bilinear_warp_2d_traced(
@@ -203,8 +205,9 @@ def _pack(img, pack_u8):
     """False: float RGBA; True/4: uint8 RGBA; 3: uint8 RGB."""
     if not pack_u8:
         return img
-    out = rgba_to_uint8(img)
-    return out[..., :3] if pack_u8 == 3 else out
+    with profiling.annotate("pipeline.pack"):
+        out = rgba_to_uint8(img)
+        return out[..., :3] if pack_u8 == 3 else out
 
 
 def _pallas_frame(
@@ -224,11 +227,13 @@ def _pallas_frame(
     from vrdd_tpu_torch.kernels.slice_vjp import _diff_call, _norm_wrt
 
     px, py, pz = perm_world
-    vol_perm = volume.permute(perm_axes).contiguous()
-    mx_lo, mx_hi, my_lo, my_hi = bounds
-    mx0, dmx = mgrid_params(mx_lo, mx_hi, wi)
-    my0, dmy = mgrid_params(my_lo, my_hi, hi)
-    origin_p = [float(origin[px]), float(origin[py]), float(origin[pz])]
+    with profiling.annotate("shearwarp.permute"):
+        vol_perm = volume.permute(perm_axes).contiguous()
+    with profiling.annotate("shearwarp.geometry"):
+        mx_lo, mx_hi, my_lo, my_hi = bounds
+        mx0, dmx = mgrid_params(mx_lo, mx_hi, wi)
+        my0, dmy = mgrid_params(my_lo, my_hi, hi)
+        origin_p = [float(origin[px]), float(origin[py]), float(origin[pz])]
     img_m = _diff_call(
         vol_perm, origin_p, (mx0, dmx, my0, dmy), tf_lut, density,
         brightness, transfer_offset, transfer_scale, dz_sign=dz_sign,
@@ -237,8 +242,9 @@ def _pallas_frame(
         plane_chunk=plane_chunk, tex_offset=tex_offset, wrt=_norm_wrt(wrt),
         axis_scale=axis_scale,
     )
-    img = _warp_from_rotation_traced(img_m, rot, (mx0, dmx, my0, dmy), width,
-                                     height, focal, perm_world)
+    with profiling.annotate("shearwarp.warp"):
+        img = _warp_from_rotation_traced(img_m, rot, (mx0, dmx, my0, dmy),
+                                         width, height, focal, perm_world)
     return _pack(img, pack_u8)
 
 
@@ -283,9 +289,10 @@ def shearwarp_render_image(
     kernels take any size).
     """
     inv_view = np.asarray(inv_view, dtype=np.float32)
-    axis, (px, py, pz), dz_sign, ok, bounds = slope_corner_bounds(
-        inv_view, width, height, focal
-    )
+    with profiling.annotate("shearwarp.geometry"):
+        axis, (px, py, pz), dz_sign, ok, bounds = slope_corner_bounds(
+            inv_view, width, height, focal
+        )
     if not ok:
         raise ValueError(
             "shear-warp inapplicable: d_z changes sign across the image "
@@ -331,18 +338,20 @@ def shearwarp_render_image(
                          "auto")
 
     # xla backend: host per-pixel slopes, host m-grid and warp index maps
-    *_, slopes, _, _ = shearwarp_geometry(inv_view, width, height, focal)
-    mx_all, my_all = slopes[..., 0], slopes[..., 1]
-    mx_lo, mx_hi = float(mx_all.min()), float(mx_all.max())
-    my_lo, my_hi = float(my_all.min()), float(my_all.max())
-    mx_pad = max(1e-6, (mx_hi - mx_lo) / wi)
-    my_pad = max(1e-6, (my_hi - my_lo) / hi)
-    mx = np.linspace(mx_lo - mx_pad, mx_hi + mx_pad, wi, dtype=np.float32)
-    my = np.linspace(my_lo - my_pad, my_hi + my_pad, hi, dtype=np.float32)
-    ix = (mx_all - mx[0]) / (mx[-1] - mx[0]) * (wi - 1)
-    iy = (my_all - my[0]) / (my[-1] - my[0]) * (hi - 1)
+    with profiling.annotate("shearwarp.geometry"):
+        *_, slopes, _, _ = shearwarp_geometry(inv_view, width, height, focal)
+        mx_all, my_all = slopes[..., 0], slopes[..., 1]
+        mx_lo, mx_hi = float(mx_all.min()), float(mx_all.max())
+        my_lo, my_hi = float(my_all.min()), float(my_all.max())
+        mx_pad = max(1e-6, (mx_hi - mx_lo) / wi)
+        my_pad = max(1e-6, (my_hi - my_lo) / hi)
+        mx = np.linspace(mx_lo - mx_pad, mx_hi + mx_pad, wi, dtype=np.float32)
+        my = np.linspace(my_lo - my_pad, my_hi + my_pad, hi, dtype=np.float32)
+        ix = (mx_all - mx[0]) / (mx[-1] - mx[0]) * (wi - 1)
+        iy = (my_all - my[0]) / (my[-1] - my[0]) * (hi - 1)
 
-    vol_perm = volume.permute(perm_axes).contiguous()
+    with profiling.annotate("shearwarp.permute"):
+        vol_perm = volume.permute(perm_axes).contiguous()
     origin_p = np.array(
         [origin_w[px], origin_w[py], origin_w[pz]], dtype=np.float32
     )
@@ -354,4 +363,6 @@ def shearwarp_render_image(
         plane_chunk=plane_chunk or 8, use_custom_vjp=use_custom_vjp,
         tex_offset=tex_offset, axis_scale=ascale_p,
     )
-    return _pack(_bilinear_warp_2d(img_m, ix, iy), pack_u8)
+    with profiling.annotate("shearwarp.warp"):
+        img = _bilinear_warp_2d(img_m, ix, iy)
+    return _pack(img, pack_u8)

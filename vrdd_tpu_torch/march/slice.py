@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vrdd_tpu_torch.utils import profiling
 from vrdd_tpu_torch.utils.config import MarchConfig
 
 
@@ -187,29 +188,28 @@ def preblend_planes(volume, n_planes, box_min, box_max, dz_sign=-1,
     When every lerp weight is 0 the stack is a pure (reversed) selection.
     Returns ``(planes, zs)`` with ``zs`` a host float32 array.
     """
-    nz = volume.shape[0]
-    zlo, zhi = box_min[2], box_max[2]
-    spacing = (zhi - zlo) / n_planes
-    zs = (zlo + spacing * (np.arange(n_planes, dtype=np.float32) + 0.5)).astype(
-        np.float32
-    )
-    if dz_sign < 0:
-        zs = zs[::-1].copy()
-    zf_all = (zs - zlo) / (zhi - zlo) * (nz * z_scale) - tex_offset
-    iz0_all = np.floor(zf_all)
-    az = (zf_all - iz0_all).astype(np.float32)
-    if not filter_linear:  # point sampling: snap the z lerp to the near tap
-        az = np.floor(az + 0.5).astype(np.float32)
-    iz1 = torch.as_tensor(
-        np.clip(iz0_all.astype(np.int64) + 1, 0, nz - 1), device=volume.device
-    )
-    iz0 = torch.as_tensor(
-        np.clip(iz0_all.astype(np.int64), 0, nz - 1), device=volume.device
-    )
-    if np.all(az < 1e-6):
-        return volume[iz0], zs
-    azj = torch.as_tensor(az, device=volume.device)[:, None, None]
-    return volume[iz0] * (1.0 - azj) + volume[iz1] * azj, zs
+    with profiling.annotate("sweep.preblend"):
+        nz = volume.shape[0]
+        zlo, zhi = box_min[2], box_max[2]
+        spacing = (zhi - zlo) / n_planes
+        zs = (zlo + spacing * (np.arange(n_planes, dtype=np.float32)
+                               + 0.5)).astype(np.float32)
+        if dz_sign < 0:
+            zs = zs[::-1].copy()
+        zf_all = (zs - zlo) / (zhi - zlo) * (nz * z_scale) - tex_offset
+        iz0_all = np.floor(zf_all)
+        az = (zf_all - iz0_all).astype(np.float32)
+        if not filter_linear:  # point sampling: the z lerp's near tap
+            az = np.floor(az + 0.5).astype(np.float32)
+        dev = volume.device
+        iz1 = profiling.to_device(
+            np.clip(iz0_all.astype(np.int64) + 1, 0, nz - 1), dev, "preblend")
+        iz0 = profiling.to_device(
+            np.clip(iz0_all.astype(np.int64), 0, nz - 1), dev, "preblend")
+        if np.all(az < 1e-6):
+            return volume[iz0], zs
+        azj = profiling.to_device(az, dev, "preblend")[:, None, None]
+        return volume[iz0] * (1.0 - azj) + volume[iz1] * azj, zs
 
 
 def sweep_slope_space(

@@ -52,6 +52,7 @@ from vrdd_tpu_torch.models.volumes import (
     RawHistogramVolume,
     compute_stats_volume,
 )
+from vrdd_tpu_torch.utils import profiling
 from vrdd_tpu_torch.utils.config import QueryMethod, RenderConfig, query_channel
 from vrdd_tpu_torch.utils.timing import StageTimer
 
@@ -98,9 +99,9 @@ class RenderPipeline:
             fractal.templates if fractal is not None else None,
             flexible.stats_grid if flexible is not None else None,
         ) if t is not None), None)
-        self.tf_lut = torch.as_tensor(
+        self.tf_lut = profiling.to_device(
             default_transfer_function() if tf_lut is None else tf_lut,
-            dtype=torch.float32, device=device,
+            device, "tf_lut", dtype=torch.float32,
         )
         self._interp_mean_vol = None  # query-7 field, built on first use
         self._flex_padded = None  # zero-padded flex grid, built on first use
@@ -238,56 +239,61 @@ class RenderPipeline:
         the plain sweep on the CPU) or 'auto' (fastest applicable). 'slice'
         and 'pallas' require an unrotated view. ``as_uint8=True`` packs to
         RGBA8; ``channels=3`` also drops alpha (uint8 only)."""
-        if inv_view is None:
-            inv_view = default_benchmark_inv_view()
-        if channels not in (3, 4):
-            raise ValueError(f"channels must be 3 or 4, got {channels}")
-        if channels == 3 and not as_uint8:
-            raise ValueError("channels=3 requires as_uint8=True (the RGB "
-                             "drop is part of the uint8 pack)")
-        pack_u8 = (channels if channels != 4 else True) if as_uint8 else False
-        method = QueryMethod(config.query_method)
-        self._need(method)
-        renderer = self.resolve_renderer(renderer, inv_view, config)
-        params = (
-            self.tf_lut, config.density, config.brightness, config.tf.offset,
-            config.tf.scale,
-        )
-        if renderer == "shearwarp":
-            vol = self._stats_channel(method)
-            # distribution stats volumes are coarse (tens of blocks per
-            # axis): floor the plane count so the sweep's axial sampling
-            # stays comparable to the scan marcher's tstep; flex queries
-            # ride it too (the axis permutation carries the filter-grid
-            # scales, march/shearwarp.py axis_scale)
-            return shearwarp_render_image(
-                vol, np.asarray(inv_view, dtype=np.float32),
-                config.camera.width, config.camera.height, *params,
-                march=config.march, n_planes=max(64, 2 * vol.shape[0]),
-                tex_offset=self._tex_offset(method),
-                axis_scale=self._flex_axis_scale(method),
-                backend="auto", pack_u8=pack_u8,
+        with profiling.annotate("pipeline.render"):
+            if inv_view is None:
+                inv_view = default_benchmark_inv_view()
+            if channels not in (3, 4):
+                raise ValueError(f"channels must be 3 or 4, got {channels}")
+            if channels == 3 and not as_uint8:
+                raise ValueError("channels=3 requires as_uint8=True (the RGB "
+                                 "drop is part of the uint8 pack)")
+            pack_u8 = ((channels if channels != 4 else True) if as_uint8
+                       else False)
+            method = QueryMethod(config.query_method)
+            self._need(method)
+            with profiling.annotate("pipeline.resolve"):
+                renderer = self.resolve_renderer(renderer, inv_view, config)
+            params = (
+                self.tf_lut, config.density, config.brightness,
+                config.tf.offset, config.tf.scale,
             )
-        # ESS applies to the fused forward with linear filtering (the cached
-        # plane stats describe the LINEAR pre-blend; point sampling snaps
-        # the z taps, which would make them non-conservative)
-        ess = (
-            renderer == "pallas"
-            and self.empty_space_skip
-            and config.filter_linear
-        )
-        fn = self._compiled(
-            method, config.camera.width, config.camera.height, config.march,
-            renderer, linear=config.filter_linear, pack_u8=pack_u8, ess=ess,
-        )
-        if renderer in ("slice", "pallas"):
-            src = self._stats_channel(method)
-        else:
-            src, _ = self.sample_source(method)
-        if ess:
-            stats = self._ess_stats(src, config)
-            return fn(src, inv_view, *params, stats)
-        return fn(src, inv_view, *params)
+            if renderer == "shearwarp":
+                vol = self._stats_channel(method)
+                # distribution stats volumes are coarse (tens of blocks per
+                # axis): floor the plane count so the sweep's axial sampling
+                # stays comparable to the scan marcher's tstep; flex queries
+                # ride it too (the axis permutation carries the filter-grid
+                # scales, march/shearwarp.py axis_scale)
+                return shearwarp_render_image(
+                    vol, np.asarray(inv_view, dtype=np.float32),
+                    config.camera.width, config.camera.height, *params,
+                    march=config.march, n_planes=max(64, 2 * vol.shape[0]),
+                    tex_offset=self._tex_offset(method),
+                    axis_scale=self._flex_axis_scale(method),
+                    backend="auto", pack_u8=pack_u8,
+                )
+            # ESS applies to the fused forward with linear filtering (the
+            # cached plane stats describe the LINEAR pre-blend; point sampling
+            # snaps the z taps, which would make them non-conservative)
+            ess = (
+                renderer == "pallas"
+                and self.empty_space_skip
+                and config.filter_linear
+            )
+            fn = self._compiled(
+                method, config.camera.width, config.camera.height,
+                config.march, renderer, linear=config.filter_linear,
+                pack_u8=pack_u8, ess=ess,
+            )
+            if renderer in ("slice", "pallas"):
+                src = self._stats_channel(method)
+            else:
+                src, _ = self.sample_source(method)
+            if ess:
+                with profiling.annotate("pipeline.ess_stats"):
+                    stats = self._ess_stats(src, config)
+                return fn(src, inv_view, *params, stats)
+            return fn(src, inv_view, *params)
 
     def _ess_stats(self, vol, config):
         """Cached ESS plane stats for a stats-channel volume; keyed on the
@@ -320,11 +326,11 @@ class RenderPipeline:
         it; here it runs eagerly): ``fn(src, inv_view, tf_lut, density,
         brightness, offset, scale[, ess_stats])``."""
         # pack_u8: False = float RGBA, True/4 = uint8 RGBA, 3 = uint8 RGB
-        if pack_u8 == 3:
+        if pack_u8:
             def pack(x):
-                return rgba_to_uint8(x)[..., :3]
-        elif pack_u8:
-            pack = rgba_to_uint8
+                with profiling.annotate("pipeline.pack"):
+                    out = rgba_to_uint8(x)
+                    return out[..., :3] if pack_u8 == 3 else out
         else:
             def pack(x):
                 return x

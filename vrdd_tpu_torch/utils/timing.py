@@ -1,5 +1,4 @@
-"""Per-stage wall timing + structured metric logging (counterpart of
-``vrdd_tpu/utils/timing.py``).
+"""Per-stage wall timing (counterpart of ``vrdd_tpu/utils/timing.py``).
 
 Stages wait for the device before the clock stops: every CUDA tensor in a
 stage's result synchronises its device (where JAX calls
@@ -9,14 +8,10 @@ stage's result synchronises its device (where JAX calls
 from __future__ import annotations
 
 import contextlib
-import json
-import logging
 import time
 from typing import Any, Dict, Iterator, Optional
 
 import torch
-
-logger = logging.getLogger("vrdd_tpu_torch")
 
 
 def _leaves(x: Any):
@@ -64,7 +59,3 @@ class StageTimer:
     def as_dict(self) -> Dict[str, float]:
         return dict(self.stages)
 
-
-def log_metrics(metrics: Dict[str, Any], *, name: str = "metrics") -> None:
-    """Structured one-line JSON metric logging (replaces raw printf)."""
-    logger.info("%s %s", name, json.dumps(metrics, default=float))
