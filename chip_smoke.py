@@ -38,6 +38,14 @@ Phases (each prints its lines; any failure exits non-zero):
    its plain version; staged against direct: images and checkpoints
    bitwise, K5's LUT cotangents bitwise (and over two staged runs), its
    ``d_planes`` and variance moments within 1e-6 relative L2;
+6b. the decode's histogram cotangent (``csrc/decode_chain.cu``) on the
+   same volume for linear, var from K5's moments, var from its own and
+   entropy: one launch a call and one in each of phase 6's backwards,
+   linear and var from K5's moments bitwise the plain version, entropy
+   within one bf16 rounding (at most 1e-4 of the elements off) and 0 at
+   empty bins, var from its own moments (summed in another order) within
+   one bf16 rounding over 1e-5 of the largest element; the kernel timed
+   beside its byte bound and the plain chain;
 7. the ``render`` path (``RenderPipeline``, queries 1/2/3/7):
    7a. the reference's benchmark geometry, the Isabel-shaped 50 x 50 x 10
        blocks x 32 bins, to 512^2 with the ``scan``, ``slice`` and
@@ -281,7 +289,7 @@ import time
 from pathlib import Path
 
 from vrdd_tpu_torch.utils.compare import rel_l2 as compare_rel_l2
-from vrdd_tpu_torch.utils.compare import where_off
+from vrdd_tpu_torch.utils.compare import storage_ulp, where_off
 from vrdd_tpu_torch.utils.roofline import (
     K5_SAMPLE_OPS, SAMPLE_OPS, bound, decode_ops, ess_pair_ops,
     ess_table_ops, live_samples,
@@ -624,7 +632,9 @@ def phase_4b(work):
 
 
 def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
-    """The training main path at full size; returns the kernel records."""
+    """The training main path at full size; returns the kernel records, the
+    Mrays/s by stat and route, and the decode chain's launches in each
+    route's main-path run."""
     import torch
 
     from vrdd_tpu_torch.kernels import slice_kernel as sk
@@ -635,7 +645,7 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
           f"mean((img - 0.25)^2), wrt (hist, lut), on {card} ({smi})")
     counters = diff_counters()
     lut0 = torch.as_tensor(tf, device=dev)
-    records, mrays = [], {}
+    records, mrays, chain_launches = [], {}, {}
     for stat, route in (("mean", "materialized"), ("mean", "inkernel"),
                         ("var", "inkernel"), ("var", "materialized"),
                         ("entropy", "inkernel")):
@@ -658,16 +668,22 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         # the main-path run: an evaluation render (K3), then fwd+bwd (K4, K5)
         for c in counters:
             c.launches = c.staged_launches = 0
+        sk.decode_chain.launches = 0
         with torch.no_grad():
             img3 = render(hist, lut0)
         loss, img, gh, gl = fwd_bwd()
         torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
         staged = {c.__name__: c.staged_launches for c in counters}
+        chain_launches[tag] = sk.decode_chain.launches
         print(f"  [{tag}] launches in the main-path run: {launches}, on the "
-              f"staged path: {staged}, loss {float(loss.detach()):.6f}")
+              f"staged path: {staged}, decode_chain: {chain_launches[tag]}, "
+              f"loss {float(loss.detach()):.6f}")
         if any(v == 0 for v in launches.values()):
             fail(f"{tag}: a kernel of the training path was not launched")
+        if chain_launches[tag] != 1:
+            fail(f"{tag}: the backward launched the decode chain kernel "
+                 f"{chain_launches[tag]} times, not once")
         # K5 on scalar planes (the materialized route) goes direct by choice
         want = dict(launches, sweep_bwd=0) if route == "materialized" else (
             launches)
@@ -804,7 +820,111 @@ def phase_6(dev, card, smi, hist, tf, origin, n, B, W):
         torch.cuda.empty_cache()
     print("  fwd+bwd Mrays/s (staged / direct): " + ", ".join(
         f"{t} {a:.2f} / {b:.2f}" for t, (a, b) in mrays.items()))
-    return records, mrays
+    return records, mrays, chain_launches
+
+
+# FP32 ops a bin and voxel: the variance without K5's moments adds its own
+# three moment FMAs a bin
+CHAIN_OPS = {"linear": 1, "var": 9, "var_own": 15, "entropy": 5}
+
+
+def phase_6b(dev, card, smi, hist, n, B, chain_launches):
+    """The decode's histogram cotangent at full size: the chain kernel
+    against its plain version, timed, for linear, the variance from K5's
+    moments (the in-kernel route's backward) and from its own (the
+    materialized route's), and entropy; returns the kernel records, each
+    with the launches counted in the phase 6 main-path run that calls the
+    kernel so (``chain_launches``, by that run's tag)."""
+    import torch
+
+    from vrdd_tpu_torch.kernels import slice_kernel as sk
+
+    print(f"[6b] decode chain, {n}^3 x {B} {hist.dtype} d_hist from a "
+          f"seeded d_dec, on {card} ({smi})")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    d_dec = torch.randn((n, n, n), device=dev, generator=gen)
+    vox, elem = n ** 3, hist.element_size()
+    records = []
+    for chain, stat, tag in (("linear", "mean", "mean,inkernel"),
+                             ("var", "var", "var,inkernel"),
+                             ("var_own", "var", "var,materialized"),
+                             ("entropy", "entropy", "entropy,inkernel")):
+        rows_np, mode = sk.decode_weight_rows(stat, B, family="unit")
+        rows = torch.from_numpy(rows_np).to(dev)
+        mom = None
+        if chain == "var":
+            # K5's moments [m, 2 (m C0 - C1)], a few z-layers at a time
+            mom = torch.empty((n, 2, n, n), device=dev)
+            for z0 in range(0, n, 32):
+                m, c1, _, c0 = sk._moments(hist[z0:z0 + 32].float(), rows)
+                mom[z0:z0 + 32, 0] = m
+                mom[z0:z0 + 32, 1] = 2.0 * (m * c0 - c1)
+
+        def kernel(rows=rows, mode=mode, mom=mom):
+            return sk.decode_chain(hist, rows, mode, d_dec, mom)
+
+        def plain(rows=rows, mode=mode, mom=mom):
+            return sk.decode_chain_reference(hist, rows, mode, d_dec, mom)
+
+        before = sk.decode_chain.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if sk.decode_chain.launches != before + 1:
+            fail(f"[6b {chain}] decode_chain did not launch its kernel once")
+        ref = plain()
+        if chain in ("var_own", "entropy"):
+            # entropy's log2 is the card's: within one bf16 rounding on at
+            # most 1e-4 of the elements, 0 at every empty bin. The variance's
+            # own moments sum in bin order, the plain einsum's in its own:
+            # within one bf16 rounding over the float32 noise of the
+            # cancellation, 1e-5 of the largest (the card tests' limit)
+            noise = 1e-5 * float(ref.abs().max()) if chain == "var_own" else 0
+            n_off = n_ulp = n_far = n_zero = 0
+            for z0 in range(0, n, 64):  # float32 copies of 64 layers at most
+                a, b = got[z0:z0 + 64].float(), ref[z0:z0 + 64].float()
+                ulp = storage_ulp(torch.maximum(a.abs(), b.abs()), hist.dtype)
+                n_off += int((a != b).sum())
+                n_ulp += int(((a - b).abs() > ulp).sum())
+                n_far += int(((a - b).abs() > ulp + noise).sum())
+                if chain == "entropy":
+                    n_zero += int((a[hist[z0:z0 + 64] == 0] != 0).sum())
+            share = n_off / got.numel()
+            print(f"  [6b {chain}] elements off: {share:.3e}, past one bf16 "
+                  f"rounding: {n_ulp}"
+                  + (f", nonzero at an empty bin: {n_zero}"
+                     if chain == "entropy" else
+                     f", past it and {noise:.3e}: {n_far}"))
+            if chain == "entropy" and (n_ulp or share > 1e-4 or n_zero):
+                fail(f"[6b {chain}] kernel differs from the plain chain")
+            if n_far:
+                fail(f"[6b {chain}] kernel differs from the plain chain")
+            del a, b, ulp
+        else:
+            bitwise(got, ref, f"[6b {chain}] decode chain")
+        del got, ref
+        ms = time_ms(kernel, TIMED_RUNS)
+        plain_ms = time_ms(plain, 3)
+        reads_hist = chain in ("var_own", "entropy")
+        n_bytes = (vox * B * elem + vox * 4
+                   + (vox * B * elem if reads_hist else 0)
+                   + (vox * 8 if mom is not None else 0))
+        bd = bound(n_bytes, vox * B * CHAIN_OPS[chain])
+        print(f"  [6b {chain}] kernel {ms:.3f} ms ({n_bytes / ms / 1e9:.3f} "
+              f"TB/s), bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}: "
+              f"{n_bytes / 1e9:.3f} GB), {ms / bd['bound_ms']:.2f}x; plain "
+              f"{plain_ms:.3f} ms; launches in phase 6's {tag} backward: "
+              f"{chain_launches[tag]}")
+        records.append({
+            "name": f"decode_chain[{chain}]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/decode_chain.cu",
+            "replaces": "vrdd_tpu/pallas/slice_vjp.py:877-908 (XLA)",
+            "launches": chain_launches[tag], "staged_launches": None,
+            "max_abs_err": None, "ms": ms, "direct_ms": None,
+            "plain_ms": plain_ms, **bd,
+        })
+        del mom
+        torch.cuda.empty_cache()
+    return records
 
 
 def smooth_raw_histograms(n, B, dev, seed=0):
@@ -4487,8 +4607,10 @@ def main() -> int:
     del mean_vol
 
     # ---- 6. the training main path at full size
-    recs, mrays6 = phase_6(dev, card, smi, hist, tf, origin, n, B, W)
+    recs, mrays6, chain_launches = phase_6(dev, card, smi, hist, tf, origin,
+                                           n, B, W)
     records += recs
+    records += phase_6b(dev, card, smi, hist, n, B, chain_launches)
 
     # ---- 12. precision='bf16', K4's live map, the native loader, the viewer
     work.mkdir(parents=True)

@@ -23,6 +23,7 @@ from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
 from vrdd_tpu_torch.kernels import slice_kernel as sk
 from vrdd_tpu_torch.kernels import slice_vjp as sv
 from vrdd_tpu_torch.march.slice import slice_render_image
+from vrdd_tpu_torch.utils.compare import storage_ulp
 
 pytestmark = pytest.mark.cuda
 
@@ -1547,3 +1548,132 @@ def test_bf16_k1_ess_is_bitwise_k1(dev, lut_name):
     torch.cuda.synchronize()
     assert torch.equal(got, plain_k1)
     assert float(got[..., 3].max()) > 0.05, "vacuous: empty render"
+
+
+# ---- the decode's histogram cotangent (csrc/decode_chain.cu) ---------------
+
+_CHAIN_SHAPES = [((4, 8, 6, 6), False), ((3, 8, 5, 37), False),
+                 ((64, 16, 64, 64), False), ((8, 16, 16, 32), True)]
+
+
+def _chain_inputs(dev, dtype, shape, chain, misalign, seed=3):
+    """Smooth softmax histograms (one bin exactly empty), their decode rows,
+    a seeded d_dec and, for 'var_mom', the moments K5 writes. ``misalign``
+    puts d_dec 4 bytes past a 16-byte boundary (the scalar path)."""
+    nz, B, ny, nx = shape
+    base = gaussian_blob_volume((nz, ny, nx), seed=seed)
+    centers = ((np.arange(B) + 0.5) / B).astype(np.float32)
+    logits = -((centers[None, :, None, None] - base[:, None]) ** 2) / 0.02
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    h = e / e.sum(axis=1, keepdims=True)
+    h[:, B // 2] = 0.0
+    hist = torch.from_numpy(h).to(dev, dtype)
+    stat = {"linear": "mean", "entropy": "entropy"}.get(chain, "var")
+    rows_np, mode = sk.decode_weight_rows(stat, B, family="unit")
+    rows = torch.from_numpy(rows_np).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    d_dec = torch.randn((nz, ny, nx), generator=gen).to(dev)
+    if misalign:
+        buf = torch.empty(d_dec.numel() + 1, device=dev)
+        buf[1:] = d_dec.reshape(-1)
+        d_dec = buf[1:].view(nz, ny, nx)
+    mom = None
+    if chain == "var_mom":
+        m, c1, _, c0 = sk._moments(hist.float(), rows)
+        mom = torch.stack([m, 2.0 * (m * c0 - c1)], dim=1).contiguous()
+    return hist, rows, mode, d_dec, mom
+
+
+@pytest.mark.parametrize("shape,misalign", _CHAIN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", ["linear", "var_mom", "var", "entropy"])
+def test_decode_chain_kernel_matches_plain(dev, chain, dtype, shape,
+                                           misalign):
+    """The chain kernel against its plain version on the card, in the
+    storage dtype: linear and the variance from K5's moments bitwise (the
+    same rounded operations in the same order); entropy within one storage
+    rounding on at most 1e-4 of the elements, and exactly 0 at every empty
+    bin; the variance from the histograms (its moments summed in bin order,
+    the plain einsum's order is its own) within one storage rounding over
+    the float32 noise of its cancellation (1e-5 of the largest)."""
+    hist, rows, mode, d_dec, mom = _chain_inputs(dev, dtype, shape, chain,
+                                                 misalign)
+    got = sk.decode_chain(hist, rows, mode, d_dec, mom)
+    ref = sk.decode_chain_reference(hist, rows, mode, d_dec, mom)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == hist.shape
+    if chain in ("linear", "var_mom"):
+        assert torch.equal(got, ref)
+        return
+    a, b = got.float(), ref.float()
+    slack = storage_ulp(torch.maximum(a.abs(), b.abs()), dtype)
+    if chain == "var":
+        slack = slack + 1e-5 * float(b.abs().max())
+    assert bool(((a - b).abs() <= slack).all())
+    if chain == "entropy":
+        assert float((a != b).float().mean()) <= 1e-4
+        assert float(a[:, shape[1] // 2].abs().max()) == 0.0
+        assert bool((a[hist == 0] == 0).all())
+
+
+_CHAIN_FAULTS = ["float16", "strided", "d_dec_shape", "d_dec_dtype",
+                 "mom_shape", "rows_device", "rows_shape", "mode"]
+
+
+@pytest.mark.parametrize("fault", _CHAIN_FAULTS)
+def test_decode_chain_rejects_what_it_does_not_take(dev, fault):
+    """The wrapper raises on every input the kernel does not take; there is
+    no torch fallback on the card. The materialized decode raises at its
+    forward on a histogram volume whose gradient the kernel cannot write."""
+    hist, rows, mode, d_dec, mom = _chain_inputs(dev, torch.bfloat16,
+                                                 (4, 8, 6, 8), "var_mom",
+                                                 False)
+    if fault == "float16":
+        hist = hist.to(torch.float16)
+    elif fault == "strided":
+        hist = torch.zeros((4, 8, 6, 16), device=dev,
+                           dtype=torch.bfloat16)[..., ::2]
+    elif fault == "d_dec_shape":
+        d_dec = d_dec[:, :, :4].contiguous()
+    elif fault == "d_dec_dtype":
+        d_dec = d_dec.double()
+    elif fault == "mom_shape":
+        mom = mom[:, :1].contiguous()
+    elif fault == "rows_device":
+        rows = rows.cpu()
+    elif fault == "rows_shape":
+        rows = rows[:1]
+    else:
+        mode = "median"
+    before = sk.decode_chain.launches
+    with pytest.raises(ValueError):
+        sk.decode_chain(hist, rows, mode, d_dec, mom)
+    if fault in ("float16", "strided"):
+        # the materialized route refuses such histograms at its forward
+        with pytest.raises(ValueError):
+            sk.decode_with_rows(hist.requires_grad_(), rows, mode)
+    assert sk.decode_chain.launches == before
+
+
+@pytest.mark.parametrize("stat,route", [
+    ("mean", "inkernel"), ("mean", "materialized"), ("var", "inkernel"),
+    ("var", "materialized"), ("entropy", "inkernel")])
+def test_decode_chain_launches_once_a_backward(dev, stat, route):
+    """``decode_chain.launches`` rises by one a direct call and by one a
+    backward to the histograms, on either route."""
+    hist, rows, mode, d_dec, mom = _chain_inputs(dev, torch.bfloat16,
+                                                 (12, 8, 20, 24), stat
+                                                 if stat != "mean" else
+                                                 "linear", False)
+    before = sk.decode_chain.launches
+    sk.decode_chain(hist, rows, mode, d_dec, mom)
+    assert sk.decode_chain.launches == before + 1
+    h = hist.clone().requires_grad_()
+    lut = torch.tensor(TF, device=dev, requires_grad=True)
+    img = sv.pallas_hist_render_diff(
+        h, rows, O, lut, 0.3, width=64, height=48, stat=mode,
+        transfer_scale=10.0 if stat == "var" else 1.0, route=route,
+        wrt=("hist", "lut"))
+    torch.autograd.grad(img.square().mean(), [h, lut])
+    torch.cuda.synchronize()
+    assert sk.decode_chain.launches == before + 2

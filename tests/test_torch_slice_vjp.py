@@ -26,6 +26,7 @@ from vrdd_tpu_torch.kernels import slice_kernel as tk
 from vrdd_tpu_torch.kernels import slice_vjp as tv
 from vrdd_tpu_torch.march import slice as tslice
 from vrdd_tpu_torch.models.hist_renderer import HistRenderer
+from vrdd_tpu_torch.utils.compare import storage_ulp
 
 TF = default_transfer_function()
 O = np.array([0.0, 0.0, 4.0], np.float32)
@@ -205,10 +206,19 @@ def _decode_autograd(h, rows, mode):
     return rows[0, 0] * torch.sum(-h * torch.log2(safe), dim=1)
 
 
-@pytest.mark.parametrize("stat", ["mean", "var", "entropy"])
-def test_decode_backward_matches_autograd(stat):
-    """The materialized decode's explicit z-chunked chain (histograms and
-    rows) against autograd through the einsums: max-rel 1e-5."""
+_STATS = ("mean", "var", "entropy")
+
+
+@pytest.mark.parametrize("stat,dtype", [
+    *(pytest.param(s, torch.float32, id=s) for s in _STATS),
+    *(pytest.param(s, torch.bfloat16, id=f"{s}-bf16") for s in _STATS)])
+def test_decode_backward_matches_autograd(stat, dtype):
+    """The materialized decode's explicit chain (histograms, by the plain
+    version of ``decode_chain`` on the CPU, and rows) against autograd
+    through the einsums: max-rel 1e-5, but the bf16 histograms' cotangent,
+    within one bf16 rounding of autograd's (which rounds its float32
+    gradient to bf16 as the chain does) over the float32 noise of the
+    variance's cancellation; exact zeros where an entropy bin is empty."""
     rng = np.random.default_rng(7)
     h = rng.random((6, 8, 5, 7)).astype(np.float32)
     h[:, 2] = 0.0  # exact zeros: the entropy chain is 0 there
@@ -216,13 +226,22 @@ def test_decode_backward_matches_autograd(stat):
     rows_np, mode = tk.decode_weight_rows(stat, 8, family="unit")
     g = torch.from_numpy(rng.standard_normal((6, 5, 7)).astype(np.float32))
     out = []
-    for fn in (tk.decode_with_rows, _decode_autograd):
-        hh = torch.tensor(h, requires_grad=True)
+    for fn in (tk.decode_with_rows,
+               lambda hh, rows, m: _decode_autograd(hh.float(), rows, m)):
+        hh = torch.tensor(h, dtype=dtype, requires_grad=True)
         rows = torch.tensor(rows_np, requires_grad=True)
         dec = fn(hh, rows, mode)
         out.append((dec.detach(), *torch.autograd.grad(dec, [hh, rows], g)))
-    for got, ref in zip(out[0], out[1]):
-        assert mre(got.numpy(), ref.numpy()) < 1e-5
+    for i, (got, ref) in enumerate(zip(out[0], out[1])):
+        assert got.dtype == ref.dtype
+        if i == 1 and dtype == torch.bfloat16:
+            a, b = got.float(), ref.float()
+            slack = storage_ulp(torch.maximum(a.abs(), b.abs()), dtype) + (
+                1e-5 * float(b.abs().max()))
+            assert bool(((a - b).abs() <= slack).all())
+            assert float((a != b).float().mean()) < 0.05
+        else:
+            assert mre(got.float().numpy(), ref.float().numpy()) < 1e-5
     if stat == "entropy":
         assert float(out[0][1][:, 2].abs().max()) == 0.0
 
@@ -238,6 +257,44 @@ def test_decode_chain_takes_kernel_moments():
     mom = torch.stack([m, 2.0 * (m * c0 - c1)], dim=1)
     torch.testing.assert_close(tk.decode_chain(h, rows, "var", d_dec, mom),
                                tk.decode_chain(h, rows, "var", d_dec))
+
+
+@pytest.mark.parametrize("stat", ["mean", "var", "entropy"])
+def test_decode_chain_on_cpu_is_the_plain_version(stat):
+    """A CPU histogram volume takes the plain version, bit for bit, and
+    counts no kernel launch."""
+    rng = np.random.default_rng(18)
+    h = torch.from_numpy(rng.random((3, 4, 5, 6)).astype(np.float32))
+    rows = torch.from_numpy(tk.decode_weight_rows(stat, 4, family="unit")[0])
+    d_dec = torch.from_numpy(rng.standard_normal((3, 5, 6)).astype(np.float32))
+    mode = tk.decode_weight_rows(stat, 4, family="unit")[1]
+    before = tk.decode_chain.launches
+    got = tk.decode_chain(h.to(torch.bfloat16), rows, mode, d_dec)
+    assert tk.decode_chain.launches == before
+    assert torch.equal(got, tk.decode_chain_reference(
+        h.to(torch.bfloat16), rows, mode, d_dec))
+
+
+def test_decode_chain_binding():
+    """The decode chain's source is built, and its ctypes binding has one
+    type per parameter of the C entry: c_void_p for every pointer and the
+    stream, c_int for ``int``, c_longlong for ``long long``."""
+    import ctypes
+    import re
+
+    src = _build.CSRC / "decode_chain.cu"
+    assert src in _build.SOURCES
+    m = re.search(r"\bvrdd_decode_chain\(([^)]*)\)", src.read_text())
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    types = _build.DECODE_CHAIN_ARGTYPES
+    assert len(params) == len(types) == 11, params
+    for decl, t in zip(params, types):
+        if "*" in decl:
+            assert t is ctypes.c_void_p, decl
+        elif decl.startswith("long long"):
+            assert t is ctypes.c_longlong, decl
+        else:
+            assert decl.startswith("int ") and t is ctypes.c_int, decl
 
 
 def test_hist_renderer_trains_through_the_diff_path():

@@ -26,8 +26,8 @@
 // to the <= 4 tap voxels of d_planes (zero-filled; layer nz-1-p when the
 // walk is reversed, no flip copy on either side). In the decode modes
 // d_planes is the decoded-plane cotangent d_dec; the chain to the
-// histograms is plain torch (kernels/slice_vjp.py), with the variance
-// moments written here.
+// histograms is decode_chain.cu, which reads the variance moments written
+// here.
 //
 // Two fetch paths. The direct path (slice_bwd_kernel, this file) replays
 // tap by tap from device memory, as the forward's direct path, and

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "slice_sweep.cu", CSRC / "slice_vjp.cu",
            CSRC / "slice_vjp_staged.cu", CSRC / "ess_bitmap.cu",
-           CSRC / "dplane_bf16.cu")
+           CSRC / "dplane_bf16.cu", CSRC / "decode_chain.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -142,6 +142,13 @@ def build() -> dict:
     return {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log}
 
 
+#: vrdd_decode_chain's argument types: mode, bf16, hist, rows, d_dec, mom,
+#: d_hist, nz, n_bins, plane, stream
+DECODE_CHAIN_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                         + [ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
@@ -170,4 +177,7 @@ def library() -> ctypes.CDLL:
     # params, zs, dtmp, d_planes, stream
     dpl.argtypes = [ctypes.POINTER(SweepParams), ptr, ptr, ptr, ptr]
     dpl.restype = i32
+    chain = lib.vrdd_decode_chain
+    chain.argtypes = DECODE_CHAIN_ARGTYPES
+    chain.restype = i32
     return lib

@@ -24,7 +24,10 @@ attribute, ``sweep_preblended_planes.launches`` and
 counts those of them that tested ESS in the kernel, ``.seed_launches``
 those that resumed from a seed, ``.staged_launches`` those that took the
 staged fetch path (below), ``.bf16_launches`` those in the bf16 mode
-(below).
+(below). The decode's histogram cotangent, :func:`decode_chain` (the
+backward of every histogram sweep and of the materialized decode), is one
+launch of ``csrc/decode_chain.cu`` on the card, counted in
+``decode_chain.launches``, and :func:`decode_chain_reference` on the CPU.
 
 **Empty-space skipping** (``empty_space_skip``, ``ess_stats``) is K1's
 exact TF-interval culling of each (tile, chunk) — the kernel's CUDA block
@@ -407,8 +410,73 @@ def _decode_plain(hist_bm: torch.Tensor, rows: torch.Tensor,
 def decode_chain(hist_bm: torch.Tensor, rows: torch.Tensor, mode: str,
                  d_dec: torch.Tensor, mom=None) -> torch.Tensor:
     """The histogram cotangent from the decoded-volume cotangent ``d_dec``
-    ``(nz, ny, nx)``, in the histogram's storage dtype (as
-    vrdd_tpu/pallas/slice_vjp.py:874-908):
+    ``(nz, ny, nx)`` float32, in the histogram's storage dtype (as
+    vrdd_tpu/pallas/slice_vjp.py:874-908): the chain of
+    :func:`decode_chain_reference`, whose docstring gives it per mode.
+
+    On the card one launch of ``csrc/decode_chain.cu`` writes every element
+    of ``d_hist`` in one pass over the volume; it takes a contiguous
+    bfloat16 or float32 ``hist_bm`` and, on the same device, ``d_dec``,
+    ``mom`` (``(nz, 2, ny, nx)`` float32) and the ``(n_rows, B)`` decode
+    rows, and raises on anything else. A CPU tensor takes the plain version.
+    Counts its launches in ``decode_chain.launches``. Shared by the in-kernel
+    route's backward and the materialized decode's (:class:`_Decode`)."""
+    if not _on_card(hist_bm):
+        return decode_chain_reference(hist_bm, rows, mode, d_dec, mom)
+    from vrdd_tpu_torch.kernels import _build
+
+    if mode not in _N_ROWS:
+        raise ValueError(f"unknown decode mode {mode!r}")
+    _check_chain_hist(hist_bm)
+    dev = hist_bm.device
+    nz, B, ny, nx = hist_bm.shape
+    for name, t, shape in (("d_dec", d_dec, (nz, ny, nx)),
+                           ("mom", mom, (nz, 2, ny, nx))):
+        if t is not None and (tuple(t.shape) != shape
+                              or t.dtype != torch.float32 or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"decode_chain: {name} must be a contiguous "
+                             f"float32 {shape} tensor on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if (rows.device != dev or rows.ndim != 2 or rows.shape[1] != B
+            or rows.shape[0] < _N_ROWS[mode]):
+        raise ValueError(f"decode_chain: rows must be ({_N_ROWS[mode]}, {B}) "
+                         f"on {dev}, got {tuple(rows.shape)} on {rows.device}")
+    rows = rows.detach().to(torch.float32).contiguous()
+    d_hist = torch.empty_like(hist_bm)
+    if d_hist.numel() == 0:
+        return d_hist
+    with profiling.annotate("sweep.launch"), torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().vrdd_decode_chain(
+            _MODES[mode], int(hist_bm.dtype == torch.bfloat16),
+            hist_bm.data_ptr(), rows.data_ptr(), d_dec.data_ptr(),
+            mom.data_ptr() if mom is not None and mode == "var" else None,
+            d_hist.data_ptr(), nz, B, ny * nx, stream)
+    if rc != 0:
+        raise RuntimeError(f"vrdd_decode_chain launch failed: CUDA error {rc}")
+    decode_chain.launches += 1
+    return d_hist
+
+
+decode_chain.launches = 0
+
+
+def _check_chain_hist(hist_bm: torch.Tensor) -> None:
+    """Raise unless the chain kernel takes ``hist_bm`` on the card: a
+    contiguous bfloat16 or float32 ``(nz, B, ny, nx)`` volume."""
+    if hist_bm.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_chain: histograms must be float32 or "
+                         f"bfloat16 on the card, got {hist_bm.dtype}")
+    if hist_bm.ndim != 4 or not hist_bm.is_contiguous():
+        raise ValueError("decode_chain: the (nz, B, ny, nx) histogram volume "
+                         "must be contiguous on the card")
+
+
+def decode_chain_reference(hist_bm: torch.Tensor, rows: torch.Tensor,
+                           mode: str, d_dec: torch.Tensor,
+                           mom=None) -> torch.Tensor:
+    """Plain version of :func:`decode_chain`, on any device:
 
     - linear: ``d h_b = d_dec * w_b`` (a broadcast);
     - var: ``d h_b = d_dec * (w2_b - 2 m w1_b + m^2 w3_b + e w0_b)`` with the
@@ -418,8 +486,7 @@ def decode_chain(hist_bm: torch.Tensor, rows: torch.Tensor, mode: str,
       ``h_b == 0``.
 
     Runs a few z-layers at a time: no ``(nz, B, ny, nx)`` float32 temporary
-    exists. Shared by the in-kernel route's backward and the materialized
-    decode's (:class:`_Decode`)."""
+    exists."""
     d_hist = torch.empty_like(hist_bm)
     step = _z_step(hist_bm)
     for z0 in range(0, hist_bm.shape[0], step):
@@ -472,9 +539,10 @@ def _decode_rows_grad(hist_bm, rows, mode, d_dec) -> torch.Tensor:
 
 
 class _Decode(torch.autograd.Function):
-    """The materialized decode under autograd, with the explicit z-chunked
-    chain of :func:`decode_chain` as its backward: plain autograd through
-    the chunked einsums would keep float32 copies of the histograms alive."""
+    """The materialized decode under autograd, with the explicit chain of
+    :func:`decode_chain` as its backward (one kernel on the card, z-chunked
+    on the CPU): plain autograd through the chunked einsums would keep
+    float32 copies of the histograms alive."""
 
     @staticmethod
     def forward(ctx, hist_bm, rows, mode):
@@ -501,9 +569,14 @@ def decode_with_rows(hist_bm: torch.Tensor, rows, mode: str) -> torch.Tensor:
 
     Works a few z-layers at a time, so no float32 copy of the whole
     histogram volume exists (8.6 GB at 512^3 x 16), in the forward or, under
-    autograd, in the backward (:class:`_Decode`)."""
+    autograd, in the backward (:class:`_Decode`). On the card, a histogram
+    volume that needs its gradient must be one :func:`decode_chain` takes,
+    which raises here rather than after the forward."""
     if mode not in _N_ROWS:
         raise ValueError(f"unknown decode mode {mode!r}")
+    if (hist_bm.device.type == "cuda" and hist_bm.requires_grad
+            and torch.is_grad_enabled()):
+        _check_chain_hist(hist_bm)
     rows = profiling.to_device(rows, hist_bm.device, "rows",
                                dtype=torch.float32)
     if rows.ndim == 1:
@@ -1434,3 +1507,4 @@ profiling.watch("k1", sweep_preblended_planes, (
 profiling.watch("k2", pallas_hist_render, (
     "launches", "staged_launches", "bf16_launches"))
 profiling.watch("bitmap", ess_bitmap, ("launches",))
+profiling.watch("dchain", decode_chain, ("launches",))

@@ -35,9 +35,10 @@ the decode modes (on scalar planes the direct path measured faster).
 
 Brightness is folded outside the kernels (they run at brightness 1 and the
 image is scaled in torch), so it stays differentiable. In the histogram
-modes K5 returns the decoded-plane cotangent and the chain to the
-histograms is plain torch (``slice_kernel.decode_chain``), as JAX runs it in
-XLA outside the kernel.
+modes K5 returns the decoded-plane cotangent, and the chain to the
+histograms is one more kernel, ``csrc/decode_chain.cu``
+(``slice_kernel.decode_chain``, one pass over the volume), where JAX leaves
+it to XLA outside the kernel.
 
 **Seeded sweeps** (``acc_init`` of :func:`sweep_preblended_planes_diff` and
 :func:`sweep_preblended_hist_diff`): K3/K4 resume the "over" recursion from

@@ -29,6 +29,15 @@ def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
     return (num / den) ** 0.5
 
 
+def storage_ulp(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One unit in the last place of ``dtype`` (bfloat16 or float32) at the
+    magnitude of each element of the float32 tensor ``t``: the most one
+    rounding to that dtype can move a value."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    mag = t.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - bits)
+
+
 def where_off(d, ref, what, tau=2.0 ** -8):
     """Print where ``d`` misses ``ref`` by more than ``tau`` of the entry:
     the count, the share of the squared L2 gap they carry, their layers and
