@@ -28,6 +28,14 @@ from vrdd_tpu_torch.convert import fit_voxels_state_from_jax
 
 N, IMG, VIEWS, ANGLE, SEED = 8, 16, 3, 25.0, 0
 
+#: the parity cases beyond the 25-degree views (which all sweep along z
+#: with d_z -1): five views at 60 degrees sweep along z, y and x, along y
+#: and x in both directions. (renderer, n, image): the plain sweeps and
+#: shear-warp's 'xla' m-grid; the fused path's plain versions at 64^2,
+#: where oversample 2 makes the 128-rounded m-grid JAX's own 128.
+ROTATED = {"xla-60deg-5views": ("auto", N, IMG),
+           "pallas-60deg-5views": ("pallas", 16, 64)}
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -39,15 +47,19 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _jax_losses(mu, log_sigma):
+def _jax_losses(mu, log_sigma, views=VIEWS, angle=ANGLE, W=IMG,
+                streamed_too=True):
     """JAX's fit-voxels loss (vrdd_tpu/cli.py:333-403) and its gradients at
-    ``(mu, log_sigma)``, unstreamed and streamed, in one compiled call."""
-    n, W = N, IMG
+    ``(mu, log_sigma)`` for ``views`` at ``angle`` degrees and ``W``-square
+    images, unstreamed and (``streamed_too``) streamed, in one compiled
+    call."""
+    n = mu.shape[0]
     mu_true = jnp.asarray(gaussian_blob_volume((n, n, n), seed=SEED))
     sigma_true = 0.05 + 0.15 * jnp.asarray(
         gaussian_blob_volume((n, n, n), seed=SEED + 1))
     lut = jnp.asarray(grayscale_ramp(9))
-    views = [(0.0, 0.0), (ANGLE, 0.0), (0.0, ANGLE)][:VIEWS]
+    views = [(0.0, 0.0), (angle, 0.0), (0.0, angle), (-angle, 0.0),
+             (0.0, -angle)][:views]
     var_scale = 1.0 / float(jnp.max(sigma_true) ** 2)
     origin = jnp.asarray([0.0, 0.0, 4.0])
 
@@ -88,19 +100,24 @@ def _jax_losses(mu, log_sigma):
 
     @jax.jit
     def both(params):
-        return [jax.value_and_grad(loss_fn)(params, s) for s in (False, True)]
+        return [jax.value_and_grad(loss_fn)(params, s)
+                for s in ((False, True) if streamed_too else (False,))]
 
     return both((jnp.asarray(mu), jnp.asarray(log_sigma)))
 
 
-@pytest.fixture(scope="module")
-def params():
+def _state(n):
     """A fit-voxels state away from the start, as a JAX checkpoint holds it:
     the (mu, sigma) numpy pair."""
     rng = np.random.default_rng(3)
-    mu = (0.6 * rng.random((N, N, N))).astype(np.float32)
-    sigma = (0.05 + 0.15 * rng.random((N, N, N))).astype(np.float32)
+    mu = (0.6 * rng.random((n, n, n))).astype(np.float32)
+    sigma = (0.05 + 0.15 * rng.random((n, n, n))).astype(np.float32)
     return mu, sigma
+
+
+@pytest.fixture(scope="module")
+def params():
+    return _state(N)
 
 
 @pytest.fixture(scope="module")
@@ -110,20 +127,35 @@ def jax_ref(params):
     return [(float(v), [np.asarray(x) for x in g]) for v, g in out]
 
 
-@pytest.mark.parametrize("streamed", [False, True])
-def test_loss_and_gradients_match_jax(params, jax_ref, streamed):
-    """The port's fit-voxels loss (plain sweeps on the CPU) and its
-    gradients to (mu, log sigma) against JAX's at the same parameters:
-    loss 1e-5 relative, gradients 1e-5 relative L2."""
-    loss_fn, mu_true, renderer = tcli.fit_voxels_problem(
-        N, IMG, VIEWS, ANGLE, SEED, "auto", streamed, torch.device("cpu"))
-    assert renderer == "slice" and tuple(mu_true.shape) == (N, N, N)
-    mu, log_sigma = fit_voxels_state_from_jax(*params, "cpu")
+@pytest.mark.parametrize("case", [False, True, *ROTATED],
+                         ids=["False", "True", *ROTATED])
+def test_loss_and_gradients_match_jax(params, jax_ref, case):
+    """The port's fit-voxels loss (plain sweeps on the CPU; a rotated case
+    on its renderer) and its gradients to (mu, log sigma) against JAX's
+    (plain sweeps, shear-warp's 'xla' backend) at the same parameters: loss
+    1e-5 relative, gradients 1e-5 relative L2. ``case`` is the 25-degree
+    views unstreamed or streamed, or a :data:`ROTATED` case."""
+    renderer, n, img = ROTATED.get(case, ("auto", N, IMG))
+    views, angle, streamed = ((5, 60.0, False) if case in ROTATED
+                              else (VIEWS, ANGLE, case))
+    loss_fn, mu_true, used = tcli.fit_voxels_problem(
+        n, img, views, angle, SEED, renderer, streamed, torch.device("cpu"))
+    assert used == ("slice" if renderer == "auto" else renderer)
+    assert tuple(mu_true.shape) == (n, n, n)
+    state = params if n == N else _state(n)
+    mu, log_sigma = fit_voxels_state_from_jax(*state, "cpu")
     mu.requires_grad_()
     log_sigma.requires_grad_()
     loss = loss_fn(mu, log_sigma)
     grads = torch.autograd.grad(loss, [mu, log_sigma])
-    ref_loss, ref_grads = jax_ref[streamed]
+    if case in ROTATED:
+        out = _jax_losses(state[0], np.log(state[1]).astype(np.float32),
+                          views=views, angle=angle, W=img,
+                          streamed_too=False)
+        ref_loss, ref_grads = float(out[0][0]), [np.asarray(g)
+                                                 for g in out[0][1]]
+    else:
+        ref_loss, ref_grads = jax_ref[streamed]
     assert abs(float(loss.detach()) - ref_loss) <= 1e-5 * abs(ref_loss)
     for g, r in zip(grads, ref_grads):
         rel = float(np.linalg.norm(g.numpy() - r) / np.linalg.norm(r))

@@ -480,116 +480,53 @@ def cmd_fit_hist(args) -> int:
 def fit_voxels_problem(size: int, image: int, views: int, view_angle: float,
                        seed: int, renderer: str, streamed: bool, device):
     """The ``fit-voxels`` inverse problem (``vrdd_tpu/cli.py``
-    cmd_fit_voxels): returns ``(loss_fn, mu_true, renderer)``.
+    cmd_fit_voxels), built by ``models/voxel_fit.py``: returns ``(loss_fn,
+    mu_true, renderer)``.
 
     Ground truth: a Gaussian-blob ``mu`` and a spatially varying ``sigma =
-    0.05 + 0.15 blob``, made from ``seed`` (numpy on the CPU, the same draws
-    on the card). Up to five views (0, then +-``view_angle`` about x and y);
-    each renders the decoded mean (TF scale 1) and variance (TF scale
-    ``1 / max(sigma)^2``) through a 9-entry grayscale LUT, ``2 size``
-    planes. ``renderer`` 'pallas' takes the fused kernels (K3/K4/K5:
-    ``pallas_slice_render_diff`` unrotated, shear-warp's and the streamed
-    decode's 'pallas' backends; their plain versions on the CPU), 'slice'
-    the plain torch sweeps (shear-warp's and streaming's 'xla' backends),
-    'auto' 'pallas' on the card and 'slice' on the CPU. ``streamed``
-    renders the unrotated view by the seeded streamed decode
-    (``march/streaming.py``). ``loss_fn(mu, log_sigma)`` is the mean over
-    views of the two channels' mean squared image errors against the
-    targets."""
-    from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
-    from vrdd_tpu_torch.core.transfer import grayscale_ramp
-    from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
-    from vrdd_tpu_torch.kernels.slice_vjp import pallas_slice_render_diff
-    from vrdd_tpu_torch.march.shearwarp import shearwarp_render_image
-    from vrdd_tpu_torch.march.slice import slice_render_image
-    from vrdd_tpu_torch.march.streaming import streaming_decode_render
-    from vrdd_tpu_torch.ops.gaussian import gaussian_stats
+    0.05 + 0.15 blob``, made from ``seed`` (``voxel_fit.blob_truth``). Up to
+    five views (0, then +-``view_angle`` about x and y); each renders the
+    decoded mean (TF scale 1) and variance (TF scale ``1 / max(sigma)^2``)
+    through a 9-entry grayscale LUT, ``2 size`` planes. ``renderer``
+    'pallas' takes the fused kernels (their plain versions on the CPU),
+    'slice' the plain torch sweeps, 'auto' 'pallas' on the card and 'slice'
+    on the CPU. ``streamed`` renders the unrotated view by the seeded
+    streamed decode (``march/streaming.py``). ``loss_fn(mu, log_sigma)`` is
+    the mean over views of the two channels' mean squared image errors
+    against the targets."""
+    from vrdd_tpu_torch.models import voxel_fit
 
-    n, W = size, image
-    H = W
-    if renderer == "auto":
-        renderer = "pallas" if device.type == "cuda" else "slice"
-    backend = "pallas" if renderer == "pallas" else "xla"
-
-    blob_dev = None if device.type == "cpu" else device
-    mu_true = torch.as_tensor(gaussian_blob_volume((n, n, n), seed=seed,
-                                                   device=blob_dev),
-                              device=device)
-    sigma_true = 0.05 + 0.15 * torch.as_tensor(
-        gaussian_blob_volume((n, n, n), seed=seed + 1, device=blob_dev),
-        device=device)
-    lut = torch.as_tensor(grayscale_ramp(9), device=device)
-    a = float(view_angle)
-    view_list = [(0.0, 0.0), (a, 0.0), (0.0, a), (-a, 0.0), (0.0, -a)]
-    view_list = view_list[: max(1, views)]
-    # variance lives in [0, ~sigma_max^2]: scale it into the TF domain
-    var_scale = 1.0 / float(torch.max(sigma_true) ** 2)
-    origin = (0.0, 0.0, 4.0)
-
-    def render_channel(vol, rx, ry, tf_scale):
-        if (rx, ry) == (0.0, 0.0):
-            if renderer == "pallas":
-                return pallas_slice_render_diff(
-                    vol, origin, lut, transfer_scale=tf_scale, width=W,
-                    height=H, n_planes=2 * n, wrt=("volume",))
-            return slice_render_image(vol, origin, W, H, lut,
-                                      transfer_scale=tf_scale,
-                                      n_planes=2 * n)
-        iv = inv_view_from_rotation_translation(rx, ry, (0.0, 0.0, -4.0))
-        return shearwarp_render_image(
-            vol, iv, W, H, lut, transfer_scale=tf_scale, n_planes=2 * n,
-            backend=backend, wrt=("volume",))
-
-    def render_channel_streamed(mu, log_sigma, ch, tf_scale):
-        return streaming_decode_render(
-            (mu, log_sigma),
-            lambda t: gaussian_stats(t[0], torch.exp(t[1]))[..., ch],
-            origin, lut, transfer_scale=tf_scale, width=W, height=H,
-            n_planes=2 * n, wrt=("volume",), backend=backend)
-
-    def render_views(mu, log_sigma):
-        stats = gaussian_stats(mu, torch.exp(log_sigma))
-        out = []
-        for rx, ry in view_list:
-            if streamed and (rx, ry) == (0.0, 0.0):
-                out.append((
-                    render_channel_streamed(mu, log_sigma, 0, 1.0),
-                    render_channel_streamed(mu, log_sigma, 1, var_scale)))
-            else:
-                out.append((render_channel(stats[..., 0], rx, ry, 1.0),
-                            render_channel(stats[..., 1], rx, ry, var_scale)))
-        return out
-
-    with torch.no_grad():
-        targets = render_views(mu_true, torch.log(sigma_true))
+    truth = voxel_fit.blob_truth(size, seed, device)
+    fit = voxel_fit.fit_problem(truth, views=views, view_angle=view_angle,
+                                image=image, renderer=renderer, device=device,
+                                streamed=streamed)
 
     def loss_fn(mu, log_sigma):
-        loss = 0.0
-        for (rm, rv), (tm, tv) in zip(render_views(mu, log_sigma), targets):
-            loss = loss + torch.mean((rm - tm) ** 2) + torch.mean(
-                (rv - tv) ** 2)
-        return loss / len(view_list)
+        return fit.loss(mu, log_sigma)[0]
 
-    return loss_fn, mu_true, renderer
+    return loss_fn, truth[0], fit.renderer
 
 
 def cmd_fit_voxels(args) -> int:
     """BASELINE config 3: per-voxel Gaussian (mu, sigma) recovered from
     multi-view renders through the differentiable renderer
     (:func:`fit_voxels_problem`), with Adam over ``(mu, log sigma)`` from
-    JAX's start (0 and log 0.1). Prints the loss and the step time (host
-    clock; the loss readback waits for the device) of each reported step,
-    and the peak device memory on the card."""
+    JAX's start (0 and log 0.1), a step ``voxel_fit.train_step``. Prints the
+    loss and the step time (host clock; the loss readback waits for the
+    device) of each reported step, and the peak device memory on the
+    card."""
     from vrdd_tpu_torch.io.checkpoint import save_checkpoint
+    from vrdd_tpu_torch.models import voxel_fit
 
     device = _device(args.device)
     n = args.size
-    loss_fn, mu_true, renderer = fit_voxels_problem(
-        n, args.image, args.views, args.view_angle, args.seed, args.renderer,
-        args.streamed, device)
-    n_views = min(max(1, args.views), 5)
-    print(f"fit-voxels renderer: {renderer}{', streamed' if args.streamed else ''}"
-          f" on {device}")
+    mu_true, sigma_true = voxel_fit.blob_truth(n, args.seed, device)
+    fit = voxel_fit.fit_problem(
+        (mu_true, sigma_true), views=args.views, view_angle=args.view_angle,
+        image=args.image, renderer=args.renderer, device=device,
+        streamed=args.streamed)
+    print(f"fit-voxels renderer: {fit.renderer}"
+          f"{', streamed' if args.streamed else ''} on {device}")
     mu = torch.zeros((n, n, n), dtype=torch.float32, device=device,
                      requires_grad=True)
     log_sigma = torch.full((n, n, n), float(np.log(np.float32(0.1))),
@@ -600,10 +537,7 @@ def cmd_fit_voxels(args) -> int:
     loss = float("nan")
     for i in range(args.iters):
         t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss_t = loss_fn(mu, log_sigma)
-        loss_t.backward()
-        opt.step()
+        loss_t, _ = voxel_fit.train_step(fit, opt, mu, log_sigma)
         loss = float(loss_t.detach())
         ms = 1e3 * (time.perf_counter() - t0)
         if (i + 1) % max(1, args.iters // 10) == 0:
@@ -618,7 +552,7 @@ def cmd_fit_voxels(args) -> int:
     save_checkpoint(args.checkpoint,
                     {"mu": mu_np, "sigma": sigma_np, "loss": np.float32(loss)})
     print(f"saved {args.checkpoint} (final loss {loss:.6f}, mu RMSE "
-          f"{err:.4f} over {n_views} views)")
+          f"{err:.4f} over {len(fit.views)} views)")
     return 0
 
 

@@ -201,6 +201,19 @@ def mgrid_params(lo: float, hi: float, n: int):
     return float(lo - pad), float((hi - lo + f(2.0) * pad) / f(n - 1))
 
 
+def _permuted_copy(volume, perm_axes):
+    """The volume with its principal axis first, made contiguous: a copy
+    unless the permuted view already is (a strided channel of a stacked
+    decode always copies). The bytes it writes are counted as
+    ``shearwarp.copy_bytes`` (it reads as many)."""
+    with profiling.annotate("shearwarp.permute"):
+        view = volume.permute(perm_axes)
+        if not view.is_contiguous():
+            profiling.count("shearwarp.copy_bytes",
+                            view.numel() * view.element_size())
+        return view.contiguous()
+
+
 def _pack(img, pack_u8):
     """False: float RGBA; True/4: uint8 RGBA; 3: uint8 RGB."""
     if not pack_u8:
@@ -217,8 +230,8 @@ def _pallas_frame(
     axis_scale, perm_axes, perm_world, pack_u8, bounds,
 ):
     """One rotated frame on the fused sweep: the permuted volume made
-    contiguous, the bounding m-grid from the host corner ``bounds``
-    (:func:`slope_corner_bounds`, float32), the sweep through
+    contiguous (:func:`_permuted_copy`), the bounding m-grid from the host
+    corner ``bounds`` (:func:`slope_corner_bounds`, float32), the sweep through
     ``kernels.slice_vjp._diff_call`` (K3 without gradients, K4/K5 under
     autograd; the plain versions for a CPU volume), the per-pixel warp maps
     and the warp on the device, and the optional uint8 pack. JAX computes
@@ -227,8 +240,7 @@ def _pallas_frame(
     from vrdd_tpu_torch.kernels.slice_vjp import _diff_call, _norm_wrt
 
     px, py, pz = perm_world
-    with profiling.annotate("shearwarp.permute"):
-        vol_perm = volume.permute(perm_axes).contiguous()
+    vol_perm = _permuted_copy(volume, perm_axes)
     with profiling.annotate("shearwarp.geometry"):
         mx_lo, mx_hi, my_lo, my_hi = bounds
         mx0, dmx = mgrid_params(mx_lo, mx_hi, wi)
@@ -350,8 +362,7 @@ def shearwarp_render_image(
         ix = (mx_all - mx[0]) / (mx[-1] - mx[0]) * (wi - 1)
         iy = (my_all - my[0]) / (my[-1] - my[0]) * (hi - 1)
 
-    with profiling.annotate("shearwarp.permute"):
-        vol_perm = volume.permute(perm_axes).contiguous()
+    vol_perm = _permuted_copy(volume, perm_axes)
     origin_p = np.array(
         [origin_w[px], origin_w[py], origin_w[pz]], dtype=np.float32
     )
