@@ -893,8 +893,9 @@ def test_staged_k3_k4_are_bitwise_direct(dev, kind, dtype, size, ck_stride):
 
 @pytest.mark.parametrize("ck_stride", [4, 8])
 def test_staged_ess_and_seed_are_bitwise_direct(dev, ck_stride):
-    """With ESS tested in the kernel, and from a seed with frozen pixels,
-    the staged K3/K4 images and checkpoints are bitwise the direct ones."""
+    """With ESS tested in the kernel (culled chunks skip their planes), and
+    from a seed with frozen pixels, the staged K1/K3/K4 images and
+    checkpoints are bitwise the direct ones."""
     import dataclasses
 
     vol = _sparse_blob(dev)
@@ -922,6 +923,13 @@ def test_staged_ess_and_seed_are_bitwise_direct(dev, ck_stride):
         assert torch.equal(got[0][1], got[1][1])
         assert torch.equal(sv.sweep_fwd(c, *args, acc0, staged=True),
                            sv.sweep_fwd(c, *args, acc0, staged=False))
+    k1 = {}
+    for staged in (True, False):
+        with sk._fetch_path(staged):
+            k1[staged] = sk.sweep_preblended_planes(
+                planes, zs, O, slopes, _band_lut(), 0.8, width=100,
+                height=72, plane_chunk=ck_stride, empty_space_skip=True)
+    assert torch.equal(k1[True], k1[False])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -952,13 +960,17 @@ def test_staged_k1_k2_are_bitwise_direct(dev, dtype):
 @pytest.mark.parametrize("kind", ["none", "linear", "var", "entropy"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("size", SIZES)
-def test_staged_k5_matches_direct(dev, kind, dtype, size):
+@pytest.mark.parametrize("ck_stride", [4, 8])
+def test_staged_k5_matches_direct(dev, kind, dtype, size, ck_stride):
     """K5 on the staged path against the direct path on the same inputs:
     LUT and parameter cotangents bitwise equal (the same per-ray sums in
     the same blocks), d_planes (or d_dec), S and the variance moments within
     1e-6 relative L2 (d_planes: atomics in another order). A seeded sweep
     gives S."""
+    import dataclasses
+
     cfg, vol, rows = _case(dev, kind, dtype, size)
+    cfg = dataclasses.replace(cfg, ck_stride=ck_stride)
     scal = _scalars(dev, kind)
     args = (vol, rows, *scal)
     img, tck = sv.sweep_fwd_ckpt(cfg, *args)
@@ -981,6 +993,69 @@ def test_staged_k5_matches_direct(dev, kind, dtype, size):
         assert _rel_l2(mom_s, mom_d) <= 1e-6
     if seed is not None:
         assert _rel_l2(s_s, s_d) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["none", "linear", "var", "entropy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_footprints_past_the_bound_go_direct_mid_walk(dev, kind, dtype,
+                                                      monkeypatch):
+    """With the host's bound shrunk below the far planes' footprints, the
+    staged kernels fetch those planes directly in the middle of their walk
+    (and stage the near ones): K3/K4 bitwise, K5's LUT cotangents bitwise
+    and d_planes within 1e-6 of the direct path."""
+    cfg, vol, rows = _case(dev, kind, dtype, (100, 72))
+    args = (vol, rows, *_scalars(dev, kind))
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args, staged=False)
+    k3 = sv.sweep_fwd(cfg, *args, staged=False)
+    g = (2.0 / img.numel()) * (img - 0.25)
+    d_ref, small_ref, _, _ = sv.sweep_bwd(cfg, *args, g, tck, True, True,
+                                          False, staged=False)
+    bound = sk.stage_bound
+    widths = []
+
+    def shrunk(params, zs, block):
+        tw, th = bound(params, zs, block)
+        widths.append(tw)
+        return max(tw - 3, 3), th
+
+    monkeypatch.setattr(sk, "stage_bound", shrunk)
+    monkeypatch.setattr(sv, "stage_bound", shrunk)
+    got3 = sv.sweep_fwd(cfg, *args, staged=True)
+    got4 = sv.sweep_fwd_ckpt(cfg, *args, staged=True)
+    d, small, _, _ = sv.sweep_bwd(cfg, *args, g, tck, True, True, False,
+                                  staged=True)
+    torch.cuda.synchronize()
+    assert min(widths) > 6, "vacuous: the near planes would not stage"
+    assert torch.equal(got3, k3)
+    assert torch.equal(got4[0], img) and torch.equal(got4[1], tck)
+    assert torch.equal(small, small_ref)
+    assert _rel_l2(d, d_ref) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(12, 8, 20, 26), (10, 4, 17, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_unaligned_rows_are_bitwise_direct(dev, shape, dtype):
+    """Rows that are not whole 16-byte multiples start at their own
+    16-byte phase in the copies' issue: K4 bitwise, K5 within its limits of
+    the direct path."""
+    hist = torch.from_numpy(_smooth_hist(shape, seed=4)).to(dev, dtype)
+    rows, _ = sk.decode_weight_rows("var", shape[1], family="unit")
+    cfg = sv.render_config(hist.shape, O, stat="var", width=100, height=72)
+    args = (hist, torch.as_tensor(rows, device=dev), *_scalars(dev, "var"))
+    img, tck = sv.sweep_fwd_ckpt(cfg, *args, staged=False)
+    g = (2.0 / img.numel()) * (img - 0.25)
+    d_ref, small_ref, mom_ref, _ = sv.sweep_bwd(cfg, *args, g, tck, True,
+                                                True, False, staged=False)
+    before = (sv.sweep_fwd_ckpt.staged_launches, sv.sweep_bwd.staged_launches)
+    got = sv.sweep_fwd_ckpt(cfg, *args, staged=True)
+    d, small, mom, _ = sv.sweep_bwd(cfg, *args, g, tck, True, True, False,
+                                    staged=True)
+    torch.cuda.synchronize()
+    assert (sv.sweep_fwd_ckpt.staged_launches, sv.sweep_bwd.staged_launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got[0], img) and torch.equal(got[1], tck)
+    assert torch.equal(small, small_ref)
+    assert _rel_l2(d, d_ref) <= 1e-6 and _rel_l2(mom, mom_ref) <= 1e-6
 
 
 def test_k5_on_scalar_planes_defaults_to_direct(dev):

@@ -221,3 +221,89 @@ def test_budget_sends_a_coarse_image_direct():
                                                                         11)
     with sk._fetch_path(False):
         assert sk._stage_dims(None, (41, 11), 1) == (0, 0)
+
+
+# ---- the staged launch's shared memory -------------------------------------
+
+def _stage_layout(tw_b, th_b, B, es, n_lut, row_floats, nslot, extra):
+    """``stage_layout`` of csrc/stage_tile.cuh, line for line: the byte
+    offsets of a staged launch's dynamic shared memory and its total."""
+    rc = (tw_b * es + 30) // 16
+    ring = th_b * B * rc * 16
+    off_lut = nslot * ring
+    off_rows = off_lut + 4 * 4 * n_lut
+    off_dec = off_rows + 4 * row_floats
+    off_rowoff = off_dec + 4 * tw_b * th_b
+    off_extra = off_rowoff + nslot * 4 * th_b * B
+    return dict(ring=ring, off_lut=off_lut, off_extra=off_extra,
+                total=off_extra + extra)
+
+
+def _bwd_extra(tile, n_lut, ck, gvol, momt, gsmall, threads=128):
+    """``bwd_extra`` of csrc/slice_vjp_staged.cu."""
+    return 4 * (3 * ck * threads + (2 * tile if gvol else 0)
+                + (3 * tile if momt else 0)
+                + ((4 * n_lut + 3) * threads if gsmall else 0))
+
+
+@pytest.mark.parametrize("foot", [(41, 11), (41, 6), (7, 3), (130, 33)])
+@pytest.mark.parametrize("kernel", ["fwd", "fwd_ess", "bwd", "bwd_var"])
+@pytest.mark.parametrize("planes", ["f32", "bf16_b16", "bf16_b32"])
+def test_stage_smem_bytes_mirrors_stage_layout(planes, kernel, foot):
+    """The wrapper's shared-memory count is the kernels' layout at odd
+    footprints, for the rings they take: three slots for the forward on
+    scalar planes, two otherwise."""
+    es, B = {"f32": (4, 1), "bf16_b16": (2, 16), "bf16_b32": (2, 32)}[planes]
+    rows = 0 if B == 1 else 4 * B
+    tw, th = foot
+    ck = 8 if kernel.startswith("bwd") else 0
+    momt = kernel == "bwd_var"
+    ess = 4 * 9 * 4 + 16 if kernel == "fwd_ess" else 0
+    extra = _bwd_extra(tw * th, 9, ck, True, momt, True) if ck else ess
+    slots = 3 if B == 1 and not ck else 2
+    want = _stage_layout(tw, th, B, es, 9, rows, slots, extra)["total"]
+    assert sk.stage_smem_bytes(
+        tw, th, n_bins=B, elem_size=es, n_lut=9, row_floats=rows,
+        slots=slots, bwd_ck=ck, g_planes=bool(ck), momt=momt,
+        g_small=bool(ck), ess_bytes=ess) == want
+
+
+def _fit_smem(stat, kernel):
+    """The dynamic shared memory of the fit cells' K4 or K5 launch (512^3 x
+    16 bf16 bins-major histograms -> 1024^2, ``wrt=("hist", "lut")``), or
+    of K4 and the forced staged K5 on the decoded f32 planes (``stat``
+    'scalar'), as the wrappers count it, and the footprint bound."""
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    mode = {"mean": "linear", "var": "var", "entropy": "entropy",
+            "scalar": "none"}[stat]
+    shape = (512, 512, 512) if mode == "none" else (512, 16, 512, 512)
+    rows = None
+    if mode != "none":
+        rows, _ = sk.decode_weight_rows(stat, 16, family="unit")
+    cfg = sv.render_config(shape, (0.0, 0.0, 4.0), stat=mode, width=1024,
+                           height=1024)
+    params = cfg.params(torch.empty(shape, device="meta"), rows, 0.05, 0.0,
+                        1.0)
+    bwd = kernel == "K5"
+    block = sk.BWD_BLOCK if bwd else sk.ESS_TILE[::-1]
+    bound = sk.stage_bound(params, cfg.zs, block)
+    B, es = (1, 4) if mode == "none" else (16, 2)
+    smem = sk.stage_smem_bytes(
+        *bound, n_bins=B, elem_size=es, n_lut=9,
+        row_floats=0 if rows is None else rows.size,
+        slots=3 if mode == "none" and not bwd else 2,
+        bwd_ck=cfg.ck_stride if bwd else 0, g_planes=bwd,
+        momt=bwd and mode == "var", g_small=bwd)
+    return smem, bound
+
+
+@pytest.mark.parametrize("stat", ["mean", "var", "entropy", "scalar"])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_fit_launches_stay_staged(stat, kernel):
+    """Every K4 and K5 launch of the fit cells' geometry, and K4 on scalar
+    f32 planes, fits :data:`_STAGE_BUDGET` with the ring the kernels take,
+    so none of them drops to the direct path."""
+    smem, bound = _fit_smem(stat, kernel)
+    assert smem <= sk._STAGE_BUDGET
+    assert sk._stage_dims(None, bound, smem) == bound

@@ -315,9 +315,16 @@ slice_sweep_kernel(const SweepParams p, const T* __restrict__ vol,
   write_out(p, st, out, pix);
 }
 
-// Ring slots of the staged forward: two (copies one visited plane ahead)
-// for the decode modes, whose decode hides the copies' latency; three (two
-// planes ahead) for scalar planes, which are sampled straight from the ring.
+// Ring slots of the staged forward: two (the copies one visited plane
+// ahead) for the decode modes, three (two planes ahead) for scalar planes,
+// which are sampled straight from the ring. What bounds the staged path on
+// an H100 is instruction issue, not the copies' latency: at 512^3 x 16
+// bf16 -> 1024^2 a third slot made K4 at most 2% faster where it cost no
+// resident block and slower where it did, and issuing each plane's copies
+// twice made K4 a quarter slower. Between a plane's two barriers the
+// threads issue the next plane's copies (stage_issue), decode each
+// footprint voxel (B shared loads and FMAs) and resample and composite
+// each ray (PERF.md).
 template <int MODE>
 __host__ __device__ constexpr int fwd_slots() {
   return MODE == kNone ? 3 : 2;

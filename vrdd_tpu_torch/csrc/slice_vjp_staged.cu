@@ -6,12 +6,16 @@
 // The block (32 x 4 rays, bwd_common.cuh) walks the chunks of CK planes back
 // to front together. A chunk is replayed only if some ray of the block is
 // unfrozen at its checkpoint (__syncthreads_or over tck) and some ray samples
-// one of its planes (warp 0 plans 32 planes at a time, as in the forward);
-// which chunk comes next is known before the replay starts, so its first
-// plane's copies go out during the current chunk's last replay plane. The
-// replay visits the chunk's sampled planes front to back with the forward's
-// tile code (stage_tile.cuh): the raw footprint arrives by cp.async,
-// double-buffered along z, each voxel is decoded once, and each live ray
+// one of its planes (warp 0 plans 32 planes at a time, as in the forward;
+// each test's checkpoint row is loaded one test ahead). A producer walks
+// the replay's visited planes one ahead of it, across chunks: the next
+// visited plane's copies go out while one plane is replayed (two ring
+// slots, double-buffered along z; the next chunk waits in the second of
+// two chunk entries), so a chunk's first plane is in flight during the
+// last chunk's replay, and is issued once its planes are known, not when
+// that chunk's replay starts. The replay visits the chunk's sampled planes
+// front to back with the forward's tile code: the raw footprint arrives by
+// cp.async, each voxel is decoded once, and each live ray
 // resamples from the decoded tile; T, res and the TF alpha are cached per
 // ray (in shared memory, a column per thread), so T and the freeze masks are
 // bitwise K4's. In variance mode with a volume cotangent the decode also
@@ -26,6 +30,13 @@
 // neighbouring blocks' footprints overlap, so most of those atomics meet no
 // contention. A plane whose footprint overflows the host's bound takes the
 // direct path's fetch and scatter (stage_tile.cuh).
+//
+// What bounds it on an H100: the replay costs about K4 (the same
+// issue-bound plane loop, slice_sweep.cu), the reverse loop the rest: a
+// barrier per staged plane, the shared atomics into the d tile and the
+// tile's flush, one global atomic per nonzero footprint voxel. A deeper
+// ring does not pay: at the fit cells' shapes a third slot made K5 0.6-18%
+// slower, and costs a resident block in mean and var mode (PERF.md).
 
 #include "bwd_common.cuh"
 
@@ -67,7 +78,11 @@ slice_bwd_staged(const SweepParams p, const BwdParams bp,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Foot s_foot[2][kPlanBatch];  // batch b of planes in slot b & 1
   __shared__ unsigned s_visit[2];
-  __shared__ Foot s_chunk[2][CK];         // the current chunk's planes
+  // the chunks with planes in flight, the q-th pushed in entry q & 1: its
+  // index, its planes with a sample and their footprints
+  __shared__ int s_ck[2];
+  __shared__ unsigned s_cm[2];
+  __shared__ Foot s_cf[2][CK];
   const int B = MODE == kNone ? 1 : p.n_bins;
   const size_t tile = (size_t)tw_b * th_b;
   const StageLayout L = stage_layout(
@@ -140,34 +155,61 @@ slice_bwd_staged(const SweepParams p, const BwdParams bp,
     return s_foot[(k / kPlanBatch) & 1][k % kPlanBatch];
   };
   // the next chunk at or below c that some ray of the block needs and some
-  // ray samples, or -1 (every test is a barrier, run by all in step)
+  // ray samples, or -1 (every test is a barrier, run by all in step). Each
+  // test's checkpoint row was loaded one test ahead, into t_pre.
+  float t_pre = valid && bp.n_chunks > 0
+                    ? tck[(size_t)(bp.n_chunks - 1) * hw + pix]
+                    : 0.0f;
   auto next_chunk = [&](int c) {
-    for (; c >= 0; --c)
-      if (__syncthreads_or(valid && tck[(size_t)c * hw + pix] >= thr1) &&
-          visits(c) != 0u)
+    for (; c >= 0; --c) {
+      const float tc = t_pre;
+      t_pre = valid && c > 0 ? tck[(size_t)(c - 1) * hw + pix] : 0.0f;
+      if (__syncthreads_or(valid && tc >= thr1) && visits(c) != 0u)
         return c;
+    }
     return -1;
   };
 
-  int kk = next_chunk(bp.n_chunks - 1);
-  unsigned vm = kk >= 0 ? visits(kk) : 0u;
-  // the first plane of the chunk with a sample: its copies go out first
-  Foot fn = kk >= 0 ? foot(kk * CK + __ffs(vm) - 1) : Foot{};
-  int sp = 0;  // staged planes so far: plane #sp uses ring slot sp & 1
+  // The producer walks the replay's visited planes one ahead of it: chunk
+  // pc (n_chunks before the first), whose planes pm are not issued yet, and
+  // nq chunks pushed (chunk q in entry q & 1 of s_ck, s_cm, s_cf). Each
+  // call issues the next visited plane's copies into ring slot si (staged
+  // planes only) and commits one cp.async group.
+  int pc = bp.n_chunks, nq = 0, si = 0;
+  unsigned pm = 0u;
+  auto produce = [&]() {
+    while (pm == 0u && pc >= 0) {
+      pc = next_chunk(pc - 1);
+      if (pc < 0) break;
+      pm = visits(pc);
+      const int qp = nq++ & 1;
+      if (tid < CK) s_cf[qp][tid] = foot(pc * CK + tid);
+      if (tid == 0) {
+        s_ck[qp] = pc;
+        s_cm[qp] = pm;
+      }
+    }
+    if (pm != 0u) {
+      const Foot g = foot(pc * CK + __ffs(pm) - 1);
+      pm &= pm - 1u;
+      if (g.kind == kStaged) {
+        stage_issue(p, vol, B, g, L.rc, smem_raw + si * L.ring,
+                    rowoff + si * row_slot, tid, kBwdThreads);
+        si ^= 1;
+      }
+    }
+    cp_async_commit();
+  };
+
+  produce();  // the first visited plane's copies go out first
+  int sc = 0;  // the next staged plane's ring slot
   int dp = 0;  // staged planes of the reverse loops: d tile dp & 1
-  if (fn.kind == kStaged)
-    stage_issue(p, vol, B, fn, L.rc, smem_raw, rowoff, tid, kBwdThreads);
-  cp_async_commit();
-  int cs = 0;
-  while (kk >= 0) {
-    // this chunk's planes, out of the batch slots (the next chunk's batch
-    // may take one of them)
-    if (tid < CK) s_chunk[cs][tid] = foot(kk * CK + tid);
-    __syncthreads();
-    const int kn = next_chunk(kk - 1);
-    const unsigned vn = kn >= 0 ? visits(kn) : 0u;
-    const Foot fk = kn >= 0 ? foot(kn * CK + __ffs(vn) - 1) : Foot{};
-    const Foot* F = s_chunk[cs];
+  for (int q = 0; q < nq; ++q) {
+    const int qc = q & 1;
+    __syncthreads();  // chunk q's entry qc is visible
+    const int kk = s_ck[qc];
+    const unsigned vm = s_cm[qc];
+    const Foot* F = s_cf[qc];
     const float t0 = valid ? tck[(size_t)kk * hw + pix] : 0.0f;
     const bool need = valid && t0 >= thr1;
 
@@ -179,19 +221,14 @@ slice_bwd_staged(const SweepParams p, const BwdParams bp,
       c_t[ii * kBwdThreads] = tr;
       if (!((vm >> ii) & 1u)) continue;  // no ray of the block samples it
       const Foot f = F[ii];
-      if (f.kind == kStaged) cp_async_wait<0>();
+      if (f.kind == kStaged) cp_async_wait<0>();  // its copies have landed
       __syncthreads();  // the block is past the previous plane's tiles
-      // the next plane with a sample: of this chunk, or the next chunk's
-      // first; its copies are in flight while this one is decoded
-      const unsigned later = vm & ~((2u << ii) - 1u);
-      const Foot nf = later ? F[__ffs(later) - 1] : fk;
-      const int cur = sp & 1;
-      sp += f.kind == kStaged;
-      if (nf.kind == kStaged)
-        stage_issue(p, vol, B, nf, L.rc, smem_raw + (sp & 1) * L.ring,
-                    rowoff + (sp & 1) * row_slot, tid, kBwdThreads);
-      cp_async_commit();
+      // the next visited plane (of this chunk or the next one): its copies
+      // are in flight while this one is decoded
+      produce();
       if (f.kind == kStaged) {
+        const int cur = sc;
+        sc ^= 1;
         stage_decode<MODE, T, MOMT>(smem_raw + cur * L.ring,
                                     rowoff + cur * row_slot, L.rc, B, f,
                                     uniform, s_rows, dec, mt, et, tid,
@@ -298,9 +335,6 @@ slice_bwd_staged(const SweepParams p, const BwdParams bp,
         }
       }
     }
-    kk = kn;
-    vm = vn;
-    cs ^= 1;
   }
   cp_async_wait<0>();
   if (valid && s_out != nullptr) s_out[pix] = st.S;

@@ -185,7 +185,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // Issue this thread's share of the copies of footprint f (B bins of each
 // voxel row) into ring slot `dst`; row r = b * f.th + (y - y_lo) starts at
 // dst + r * rc * 16 and its x_lo sits rowoff[r] elements into the slot.
-// Each row's chunks take a power-of-two run of consecutive threads.
+// Each row's chunks take a power-of-two run of consecutive threads. Where
+// the block's threads are whole runs and a layer's bins fit 32-bit offsets
+// (rows of up to 2 KB: every launch of the benchmark's cells), a thread
+// keeps one chunk column through its rows and computes in 32 bits, and a
+// thread whose column no row needs issues nothing. The issue is on the
+// kernels' critical path: issuing each plane's copies twice made K4 and K5
+// a quarter slower on an H100 (PERF.md).
 template <typename T>
 __device__ __forceinline__ void stage_issue(const SweepParams& p,
                                             const T* __restrict__ vol, int B,
@@ -195,12 +201,30 @@ __device__ __forceinline__ void stage_issue(const SweepParams& p,
   constexpr int es = (int)sizeof(T);
   const int rcp = (f.tw * es + 30) / 16;  // chunks this footprint needs, >= 2
   const int lg = 32 - __clz(rcp - 1);     // ceil(log2(rcp))
-  const int n = (f.th * B) << lg;
+  const int n = f.th * B;
   const FastDiv by_th(f.th);
   const size_t plane_elems = (size_t)p.ny * (size_t)p.nx;
   const T* layer = vol + (size_t)f.layer * B * plane_elems +
                    (size_t)f.y_lo * p.nx + f.x_lo;
-  for (int t = tid; t < n; t += nthreads) {
+  if ((nthreads & ((1 << lg) - 1)) == 0 &&
+      (size_t)(B + 1) * plane_elems < (size_t)0x7fffffff) {
+    const int c = tid & ((1 << lg) - 1);
+    if (c >= rcp) return;
+    const int plane = (int)plane_elems, need = f.tw * es, step = nthreads >> lg;
+    unsigned char* d = dst + c * 16;
+    for (int r = tid >> lg; r < n; r += step) {
+      const int b = by_th(r);
+      const T* row = layer + (b * plane + (r - b * f.th) * p.nx);
+      const int phase = (int)(reinterpret_cast<uintptr_t>(row) & 15u);
+      if (16 * c < phase + need)
+        cp_async16(d + r * rc * 16,
+                   reinterpret_cast<const unsigned char*>(row) - phase +
+                       16 * c);
+      if (c == 0) rowoff[r] = (r * rc * 16 + phase) / es;
+    }
+    return;
+  }
+  for (int t = tid; t < (n << lg); t += nthreads) {
     const int r = t >> lg, c = t & ((1 << lg) - 1);
     if (c >= rcp) continue;
     const int b = by_th(r);
