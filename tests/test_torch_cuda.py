@@ -20,6 +20,7 @@ import torch
 
 from vrdd_tpu_torch.core.transfer import default_transfer_function
 from vrdd_tpu_torch.io.synthetic import gaussian_blob_volume
+from vrdd_tpu_torch.kernels import launch
 from vrdd_tpu_torch.kernels import slice_kernel as sk
 from vrdd_tpu_torch.kernels import slice_vjp as sv
 from vrdd_tpu_torch.march.slice import slice_render_image
@@ -1010,7 +1011,7 @@ def test_footprints_past_the_bound_go_direct_mid_walk(dev, kind, dtype,
     g = (2.0 / img.numel()) * (img - 0.25)
     d_ref, small_ref, _, _ = sv.sweep_bwd(cfg, *args, g, tck, True, True,
                                           False, staged=False)
-    bound = sk.stage_bound
+    bound = launch.stage_bound
     widths = []
 
     def shrunk(params, zs, block):
@@ -1018,8 +1019,7 @@ def test_footprints_past_the_bound_go_direct_mid_walk(dev, kind, dtype,
         widths.append(tw)
         return max(tw - 3, 3), th
 
-    monkeypatch.setattr(sk, "stage_bound", shrunk)
-    monkeypatch.setattr(sv, "stage_bound", shrunk)
+    monkeypatch.setattr(launch, "stage_bound", shrunk)
     got3 = sv.sweep_fwd(cfg, *args, staged=True)
     got4 = sv.sweep_fwd_ckpt(cfg, *args, staged=True)
     d, small, _, _ = sv.sweep_bwd(cfg, *args, g, tck, True, True, False,
@@ -1098,10 +1098,10 @@ def test_footprint_past_the_budget_takes_the_direct_path(dev):
     args = (planes, None, torch.tensor(TF, device=dev),
             torch.tensor(0.8, device=dev), torch.tensor(0.0, device=dev),
             torch.tensor(1.0, device=dev))
-    bound = sk.stage_bound(cfg.params(planes, None, 0.8, 0.0, 1.0), zs,
-                           (32, 8))
-    assert sk.stage_smem_bytes(*bound, n_bins=1, elem_size=4, n_lut=9,
-                               row_floats=0) > sk._STAGE_BUDGET
+    bound = launch.stage_bound(cfg.params(planes, None, 0.8, 0.0, 1.0), zs,
+                               (32, 8))
+    assert launch.stage_smem_bytes(*bound, n_bins=1, elem_size=4, n_lut=9,
+                                   row_floats=0) > launch._STAGE_BUDGET
     before = (sv.sweep_fwd.launches, sv.sweep_fwd.staged_launches)
     got = sv.sweep_fwd(cfg, *args)
     assert (sv.sweep_fwd.launches, sv.sweep_fwd.staged_launches) == (

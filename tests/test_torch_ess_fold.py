@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from vrdd_tpu_torch.core.transfer import default_transfer_function
+from vrdd_tpu_torch.kernels import launch
 from vrdd_tpu_torch.kernels import slice_kernel as sk
 from vrdd_tpu_torch.march.slice import _chunk_rgba_fn, preblend_planes
 from vrdd_tpu_torch.utils.config import MarchConfig
@@ -301,7 +302,7 @@ def test_range_max_is_exact(n):
     la[np.random.default_rng(n + 1).random(n) < 0.3] = 0.0
     t = _table(la)
     assert len(t) == n.bit_length()
-    assert sk._ess_smem_bytes(n, 4) == 4 * n * len(t) + 4
+    assert launch._ess_smem_bytes(n, 4) == 4 * n * len(t) + 4
     for lo in range(n):
         for hi in range(lo, n):
             assert _range_max(t, lo, hi) == la[lo:hi + 1].max()

@@ -2,7 +2,7 @@
 
 The staged sweep kernels (csrc/stage_tile.cuh) copy into shared memory, per
 block and plane, the tap rectangle of the block's corner rays, in a tile
-sized by the host bound ``slice_kernel.stage_bound``. Here every tap of every
+sized by the host bound ``launch.stage_bound``. Here every tap of every
 ray of every block on every plane is computed with the kernels' tap
 arithmetic in numpy float32 (each operation correctly rounded, as the CUDA
 intrinsics), and the test checks that
@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from vrdd_tpu_torch.core.geometry import inv_view_from_rotation_translation
+from vrdd_tpu_torch.kernels import launch
 from vrdd_tpu_torch.kernels import slice_kernel as sk
 from vrdd_tpu_torch.march import shearwarp as sw
 from vrdd_tpu_torch.march.slice import _axis_weights
@@ -139,7 +140,7 @@ def _axis(p, zs, o, m, n, lo, hi, scale, block):
                 starts=starts, ends=ends)
 
 
-@pytest.mark.parametrize("block", [sk.ESS_TILE[::-1], sk.BWD_BLOCK])
+@pytest.mark.parametrize("block", [launch.ESS_TILE[::-1], launch.BWD_BLOCK])
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
 def test_footprint_holds_every_tap(name, block):
     p, zs = GEOMETRIES[name]()
@@ -151,7 +152,7 @@ def test_footprint_holds_every_tap(name, block):
     ay = _axis(p, zs, p["oy"], my, p["ny"], p["ylo"], p["yhi"], p["sy"],
                rows)
     front = (zs < p["oz"]) if p["dz_sign"] < 0 else (zs > p["oz"])
-    tw, th = sk.stage_bound(p, zs, block)
+    tw, th = launch.stage_bound(p, zs, block)
 
     # staged per (plane, block row, block column), and sampled
     staged = (front[:, None, None] & ~ax["out"][:, None, :]
@@ -193,34 +194,60 @@ def test_footprint_holds_every_tap(name, block):
 
 
 def test_budget_sends_a_coarse_image_direct():
-    """The headline's footprint fits the staged budget on both kernels; an
-    image much coarser than the volume does not (it takes the direct
-    path), and its tile is capped at the volume's size."""
+    """The fetch-path rule: the headline's footprint fits the staged budget
+    on both kernels, so both stage; an image much coarser than the volume
+    does not (it takes the direct path, and forcing the staged path raises),
+    and its tile is capped at the volume's size; a tile between the budget
+    and a block's shared memory goes direct by default and stages when
+    forced; K5 on scalar planes goes direct unless a path is forced."""
     p, zs = _headline()
-    for block, ck in ((sk.ESS_TILE[::-1], 0), (sk.BWD_BLOCK, 8)):
-        tw, th = sk.stage_bound(p, zs, block)
-        assert sk.stage_smem_bytes(
+    hist = dict(p, n_bins=16, n_rows=4)
+    for kind, block, ck in (("fwd", launch.ESS_TILE[::-1], 0),
+                            ("bwd", launch.BWD_BLOCK, 8)):
+        tw, th = launch.stage_bound(p, zs, block)
+        assert launch.stage_smem_bytes(
             tw, th, n_bins=16, elem_size=2, n_lut=9, row_floats=64,
             bwd_ck=ck, g_planes=ck > 0, momt=ck > 0,
-            g_small=ck > 0) <= sk._STAGE_BUDGET
-        assert sk._stage_dims(None, (tw, th), 1) == (tw, th)
+            g_small=ck > 0) <= launch._STAGE_BUDGET
+        assert launch.stage_dims(
+            kind, "var", hist, zs, elem_size=2, n_lut=9, row_floats=64,
+            ck_stride=ck, g_planes=ck > 0, g_small=ck > 0) == (tw, th)
     coarse = _params((0.0, 0.0, 4.0), sk.pixel_slope_params(16, 16),
                      width=16, height=16, n=(512, 512), n_planes=8)
-    tw, th = sk.stage_bound(coarse, _plane_zs(8, -1), (32, 8))
+    czs = _plane_zs(8, -1)
+    tw, th = launch.stage_bound(coarse, czs, (32, 8))
     assert tw == 512 and th == 512
-    smem = sk.stage_smem_bytes(tw, th, n_bins=1, elem_size=4, n_lut=9,
-                               row_floats=0)
-    assert sk._stage_dims(None, (tw, th), smem) == (0, 0)
-    assert sk._stage_dims(False, (tw, th), 1) == (0, 0)
+    assert launch.stage_smem_bytes(tw, th, n_bins=1, elem_size=4, n_lut=9,
+                                   row_floats=0) > launch._SMEM_MAX
+
+    def fwd(geometry, depths, **kw):
+        return launch.stage_dims("fwd", "none", geometry, depths,
+                                 elem_size=4, n_lut=9, **kw)
+
+    assert fwd(coarse, czs) == (0, 0)
+    assert fwd(coarse, czs, staged=False) == (0, 0)
     with pytest.raises(ValueError, match="shared memory"):
-        sk._stage_dims(True, (tw, th), smem)
-    assert sk._stage_dims(None, (41, 11), 1, prefer=False) == (0, 0)
+        fwd(coarse, czs, staged=True)
+    # a long LUT's ESS table overflows a block on the direct path too
+    ess = launch._ess_smem_bytes(3072, 40000)
+    with pytest.raises(ValueError, match="shared memory"):
+        launch.stage_dims("fwd", "none", coarse, czs, elem_size=4,
+                          n_lut=3072, ess_bytes=ess)
+    mid = _params((0.0, 0.0, 4.0), sk.pixel_slope_params(32, 32), width=32,
+                  height=32, n=(128, 128), n_planes=8)
+    bound = launch.stage_bound(mid, czs, (32, 8))
+    smem = launch.stage_smem_bytes(*bound, n_bins=1, elem_size=4, n_lut=9,
+                                   row_floats=0, slots=3)
+    assert launch._STAGE_BUDGET < smem <= launch._SMEM_MAX
+    assert fwd(mid, czs) == (0, 0)
+    k5 = dict(elem_size=4, n_lut=9, ck_stride=8, g_planes=True)
+    assert launch.stage_dims("bwd", "none", p, zs, **k5) == (0, 0)
     with sk._fetch_path(True):
-        assert sk._stage_dims(None, (41, 11), 1, prefer=False) == (41, 11)
-        assert sk._stage_dims(None, (41, 11), sk._STAGE_BUDGET + 1) == (41,
-                                                                        11)
+        assert launch.stage_dims("bwd", "none", p, zs, **k5) == \
+            launch.stage_bound(p, zs, launch.BWD_BLOCK)
+        assert fwd(mid, czs) == bound
     with sk._fetch_path(False):
-        assert sk._stage_dims(None, (41, 11), 1) == (0, 0)
+        assert fwd(*_headline()) == (0, 0)
 
 
 # ---- the staged launch's shared memory -------------------------------------
@@ -262,17 +289,18 @@ def test_stage_smem_bytes_mirrors_stage_layout(planes, kernel, foot):
     extra = _bwd_extra(tw * th, 9, ck, True, momt, True) if ck else ess
     slots = 3 if B == 1 and not ck else 2
     want = _stage_layout(tw, th, B, es, 9, rows, slots, extra)["total"]
-    assert sk.stage_smem_bytes(
+    assert launch.stage_smem_bytes(
         tw, th, n_bins=B, elem_size=es, n_lut=9, row_floats=rows,
         slots=slots, bwd_ck=ck, g_planes=bool(ck), momt=momt,
         g_small=bool(ck), ess_bytes=ess) == want
 
 
-def _fit_smem(stat, kernel):
+def _fit_smem(stat, kernel, staged=None):
     """The dynamic shared memory of the fit cells' K4 or K5 launch (512^3 x
     16 bf16 bins-major histograms -> 1024^2, ``wrt=("hist", "lut")``), or
-    of K4 and the forced staged K5 on the decoded f32 planes (``stat``
-    'scalar'), as the wrappers count it, and the footprint bound."""
+    of K4 and K5 on the decoded f32 planes (``stat`` 'scalar'), as the
+    wrappers count it, the footprint bound, and the fetch path the rule
+    gives it (``staged`` forces one)."""
     from vrdd_tpu_torch.kernels import slice_vjp as sv
 
     mode = {"mean": "linear", "var": "var", "entropy": "entropy",
@@ -286,24 +314,76 @@ def _fit_smem(stat, kernel):
     params = cfg.params(torch.empty(shape, device="meta"), rows, 0.05, 0.0,
                         1.0)
     bwd = kernel == "K5"
-    block = sk.BWD_BLOCK if bwd else sk.ESS_TILE[::-1]
-    bound = sk.stage_bound(params, cfg.zs, block)
+    block = launch.BWD_BLOCK if bwd else launch.ESS_TILE[::-1]
+    bound = launch.stage_bound(params, cfg.zs, block)
     B, es = (1, 4) if mode == "none" else (16, 2)
-    smem = sk.stage_smem_bytes(
-        *bound, n_bins=B, elem_size=es, n_lut=9,
-        row_floats=0 if rows is None else rows.size,
+    row_floats = 0 if rows is None else rows.size
+    smem = launch.stage_smem_bytes(
+        *bound, n_bins=B, elem_size=es, n_lut=9, row_floats=row_floats,
         slots=3 if mode == "none" and not bwd else 2,
         bwd_ck=cfg.ck_stride if bwd else 0, g_planes=bwd,
         momt=bwd and mode == "var", g_small=bwd)
-    return smem, bound
+    dims = launch.stage_dims(
+        "bwd" if bwd else "fwd", mode, params, cfg.zs, elem_size=es,
+        n_lut=9, row_floats=row_floats, staged=staged,
+        ck_stride=cfg.ck_stride if bwd else 0, g_planes=bwd, g_small=bwd)
+    return smem, bound, dims
 
 
-@pytest.mark.parametrize("stat", ["mean", "var", "entropy", "scalar"])
-@pytest.mark.parametrize("kernel", ["K4", "K5"])
-def test_fit_launches_stay_staged(stat, kernel):
+@pytest.mark.parametrize("kernel,stat,staged,path", [
+    pytest.param(k, s, True if (k, s) == ("K5", "scalar") else None,
+                 "staged", id=f"{k}-{s}")
+    for k in ("K4", "K5") for s in ("mean", "var", "entropy", "scalar")
+] + [pytest.param("K5", "scalar", None, "direct", id="K5-scalar-default")])
+def test_fit_launches_stay_staged(kernel, stat, staged, path):
     """Every K4 and K5 launch of the fit cells' geometry, and K4 on scalar
     f32 planes, fits :data:`_STAGE_BUDGET` with the ring the kernels take,
-    so none of them drops to the direct path."""
-    smem, bound = _fit_smem(stat, kernel)
-    assert smem <= sk._STAGE_BUDGET
-    assert sk._stage_dims(None, bound, smem) == bound
+    so the fetch-path rule drops none of them to the direct path; K5 on the
+    decoded f32 planes fits when its staged path is forced, and by default
+    goes direct."""
+    smem, bound, dims = _fit_smem(stat, kernel, staged)
+    assert smem <= launch._STAGE_BUDGET
+    assert dims == (bound if path == "staged" else (0, 0))
+
+
+@pytest.mark.parametrize("predicate", ["pallas_supported",
+                                       "hist_render_supported",
+                                       "pallas_diff_supported"])
+def test_support_predicates_accept_the_luts_they_always_took(predicate):
+    """What each support predicate answers over LUTs of 1-48 entries and
+    1-64 bins, and at the edge of the forward's shared memory: the largest
+    LUT each accepts, so the configurations that raised still raise. The
+    differentiable sweep's own check (``_Sweep.check``, which K3 runs too)
+    holds K5's LUT columns beside the decode rows: 23 entries up to 9 bins,
+    22 beyond."""
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    def accepts(n_lut, bins):
+        if predicate == "pallas_supported":
+            return sk.pallas_supported((4, 5, 6), 8, 8, 4, n_lut)
+        if predicate == "hist_render_supported":
+            return sk.hist_render_supported((4, bins, 5, 6), 8, 8, n_lut)
+        return sv.pallas_diff_supported((4, 5, 6), 8, 8, 4, n_lut)
+
+    want = 23 if predicate == "pallas_diff_supported" else 48
+    for bins in range(1, 65):
+        took = [n for n in range(0, 49) if accepts(n, bins)]
+        assert took == list(range(1, want + 1)), bins
+    if predicate == "pallas_supported":
+        assert accepts(3072, 1) and not accepts(3073, 1)
+    elif predicate == "hist_render_supported":
+        for bins in (1, 16, 64):
+            assert accepts(3072 - bins, bins)
+            assert not accepts(3073 - bins, bins)
+    else:
+        for mode, bins in [("none", 1)] + [(m, b) for m in ("linear", "var")
+                                           for b in (1, 9, 10, 64)]:
+            shape = (4, 5, 6) if mode == "none" else (4, bins, 5, 6)
+            cfg = sv.render_config(shape, (0.0, 0.0, 4.0), stat=mode,
+                                   width=8, height=8)
+            vol = torch.empty(shape, device="meta")
+            largest = 23 if bins <= 9 else 22
+            for n_lut in (0, largest + 1):
+                with pytest.raises(ValueError, match="cannot take"):
+                    cfg.check(vol, torch.empty((n_lut, 4)))
+            cfg.check(vol, torch.empty((largest, 4)))

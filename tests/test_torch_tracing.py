@@ -6,6 +6,7 @@ test. The tests marked ``cuda`` skip without a GPU; on a card:
     python -m pytest tests/test_torch_tracing.py -q --noconftest
 """
 
+import collections
 import math
 
 import numpy as np
@@ -142,15 +143,35 @@ def test_unit_ids_and_drain_resets(tracer):
 
 def test_watched_launch_counters_report_the_increase(tracer):
     """The wrappers' own launch attributes, registered by name, report what
-    they gained in the window, counted once."""
+    they gained in the window, counted once; every wrapper reports each of
+    its counters, and K3-K5 keep their per-size Counters."""
     before = sk.sweep_preblended_planes.launches
     sk.sweep_preblended_planes.launches += 2
     try:
         _, counters = tracer.drain()
         assert counters["k1.launches"] == 2
         assert counters["k4.staged_launches"] == 0
-        assert {"k3.ess_launches", "k5.launches", "k2.launches",
-                "bitmap.launches", "ytr.launches"} <= set(counters)
+        fwd = ("launches", "staged_launches", "ess_launches",
+               "seed_launches", "bf16_launches")
+        want = {
+            "k1": (sk.sweep_preblended_planes, fwd),
+            "k2": (sk.pallas_hist_render,
+                   ("launches", "staged_launches", "bf16_launches")),
+            "k3": (sv.sweep_fwd, fwd),
+            "k4": (sv.sweep_fwd_ckpt, fwd + ("live_launches",)),
+            "k5": (sv.sweep_bwd, ("launches", "staged_launches",
+                                  "seed_launches", "bf16_launches")),
+            "bitmap": (sk.ess_bitmap, ("launches",)),
+            "ytr": (sv.dplane_bf16, ("launches",)),
+            "dchain": (sk.decode_chain, ("launches",)),
+        }
+        assert {k for k in counters if k.split(".")[0] in want} == {
+            f"{p}.{a}" for p, (_, attrs) in want.items() for a in attrs}
+        for fn, attrs in want.values():
+            assert all(type(getattr(fn, a)) is int for a in attrs)
+        for fn in (sv.sweep_fwd, sv.sweep_fwd_ckpt, sv.sweep_bwd):
+            assert isinstance(fn.size_launches, collections.Counter)
+            assert isinstance(fn.size_staged_launches, collections.Counter)
     finally:
         sk.sweep_preblended_planes.launches = before
 

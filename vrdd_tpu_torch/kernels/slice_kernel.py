@@ -8,7 +8,7 @@ the sweeps' ESS bits as data: below):
 - **K1**, the scalar sweep over a front-to-back plane stack, launched by
   :func:`sweep_preblended_planes` (TPU: ``pallas_call`` at
   ``slice_kernel.py:1351``) and reached through :func:`pallas_slice_render`
-  -> :func:`pallas_sweep_slope_space` -> :func:`_sweep_call`;
+  -> :func:`pallas_sweep_slope_space`;
 - **K2**, the same sweep with the per-voxel histogram decode (linear mean,
   variance, entropy) in its prologue, launched by :func:`pallas_hist_render`
   (TPU: ``pallas_call`` at ``slice_kernel.py:1595``), the ``render-hist``
@@ -18,16 +18,12 @@ Each wrapper dispatches on the device of its volume: a CUDA tensor goes to
 the kernel, or the wrapper raises; a CPU tensor takes the plain torch
 version (:func:`sweep_preblended_planes_reference`,
 :func:`hist_render_reference`). There is no fallback from the card to the
-plain version. Each wrapper counts its kernel launches in a plain int
-attribute, ``sweep_preblended_planes.launches`` and
-``pallas_hist_render.launches``; ``sweep_preblended_planes.ess_launches``
-counts those of them that tested ESS in the kernel, ``.seed_launches``
-those that resumed from a seed, ``.staged_launches`` those that took the
-staged fetch path (below), ``.bf16_launches`` those in the bf16 mode
-(below). The decode's histogram cotangent, :func:`decode_chain` (the
+plain version. The decode's histogram cotangent, :func:`decode_chain` (the
 backward of every histogram sweep and of the materialized decode), is one
-launch of ``csrc/decode_chain.cu`` on the card, counted in
-``decode_chain.launches``, and :func:`decode_chain_reference` on the CPU.
+launch of ``csrc/decode_chain.cu`` on the card, and
+:func:`decode_chain_reference` on the CPU. Every launch is readied and made
+by ``kernels/launch.py``, and each wrapper's launch counters are declared
+at its definition (``launch.counted``; that module's docstring lists them).
 
 **Empty-space skipping** (``empty_space_skip``, ``ess_stats``) is K1's
 exact TF-interval culling of each (tile, chunk) — the kernel's CUDA block
@@ -41,8 +37,8 @@ bitmap is launched or stored. The test's bits are those of
 :func:`ess_bitmap_reference` (JAX: the XLA code ``_ess_bitmap``, :397),
 the plain version, which zeroes the alpha of culled chunks; both give the
 image without ESS. :func:`ess_bitmap` (one launch of
-``csrc/ess_bitmap.cu``, ``ess_bitmap.launches``) computes the same bitmap
-as data, for the bench's roofline and the tests; no sweep reads it.
+``csrc/ess_bitmap.cu``) computes the same bitmap as data, for the bench's
+roofline and the tests; no sweep reads it.
 :func:`_ess_bits` collects the bits the kernels tested.
 
 **The seeded resume** (``acc_init`` of :func:`sweep_preblended_planes`) is
@@ -52,18 +48,11 @@ on the card passed to the kernel as its ``seed`` pointer (null: unseeded).
 Brightness scales seed and sweep together. Seed and ESS together raise, as
 JAX asserts.
 
-**Two fetch paths** in every sweep kernel (K1-K5): *staged*, where each
-block copies its footprint on a plane (the tap rectangle of its corner rays)
-into shared memory and decodes each voxel there once, and *direct*, where
-every sample fetches its four taps from device memory. Both give the same
-images, checkpoints and LUT cotangents bit for bit (K5's plane cotangent,
-summed with atomics, to rounding). :func:`stage_bound` bounds the footprint over the launch on the host;
-the launch takes the staged path whenever that bound's tile fits
-:data:`_STAGE_BUDGET` bytes of shared memory (:func:`stage_smem_bytes`), the
-direct path otherwise (an image much coarser than the volume). Every wrapper
-counts its staged launches in ``.staged_launches``. The internal ``staged``
-argument of ``_launch`` and of the K3-K5 wrappers, and :func:`_fetch_path`
-around a public call, force either path (tests and ``chip_smoke.py``).
+**Two fetch paths** in every sweep kernel (K1-K5), *staged* (each block's
+plane footprint decoded once in shared memory) and *direct*, which give the
+same images: ``launch.stage_dims`` chooses between them, and the internal
+``staged`` argument of :func:`_launch` and :func:`_fetch_path` around a
+public call force either (tests and ``chip_smoke.py``).
 
 **``precision='bf16'``** is JAX's bf16 resample (``mm_dtype``,
 ``slice_kernel.py:1324, :1581``): the kernels round the tap values (the
@@ -83,12 +72,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from vrdd_tpu_torch.kernels import _build
+# _fetch_path stays reachable here: chip_smoke.py and the tests force the
+# fetch path through slice_kernel
+from vrdd_tpu_torch.kernels.launch import (  # noqa: F401
+    _MODES, ESS_TILE, _device_f32, _fetch_path, _host_floats, _sweep_params,
+    call, counted, lut_fits, prepare, ptrs, record,
+)
 from vrdd_tpu_torch.march.slice import (
     preblend_planes,
     sweep_preblended_planes_xla,
@@ -98,17 +93,8 @@ from vrdd_tpu_torch.utils.config import (
     FLEX_MAX_HISTOGRAM, MAX_HISTOGRAM, MEAN_NORM, VARIANCE_NORM, MarchConfig,
 )
 
-#: decode mode of the kernel template (csrc/slice_sweep.cu DecodeMode)
-_MODES = {"none": 0, "linear": 1, "var": 2, "entropy": 3}
 #: decode-weight rows each histogram statistic contracts against
 _N_ROWS = {"linear": 1, "var": 4, "entropy": 1}
-#: the LUT and the decode rows share the kernel's 48 KB of dynamic shared
-#: memory: (4 * n_lut + n_rows * B) floats
-_SMEM_FLOATS = 48 * 1024 // 4
-#: the forward kernel's CUDA block in pixels, (rows, columns), one thread per
-#: ray: also the pixel footprint of an ESS tile. Defined here once; every
-#: launch passes it to the kernel (csrc/slice_sweep.cu) as its block shape.
-ESS_TILE = (8, 32)
 #: block grid of the ESS plane statistics: 8 x 8 blocks per plane, as the
 #: JAX package's _ESS_YB / _ESS_XB
 _ESS_YB = _ESS_XB = 8
@@ -124,115 +110,8 @@ _ESS_KNOTS = 16
 #: y-interpolated pair each round to bf16, 2^-9 relative); the ESS margin
 #: takes twice that
 _BF16_SPREAD = 2.0 ** -6
-
-
-#: dynamic shared memory (bytes) the staged path may take per block: two
-#: forward blocks of 256 threads or K5 blocks of 128 fit on one SM's 227 KB
-_STAGE_BUDGET = 100 * 1024
-#: the most dynamic shared memory one block can take on an H100
-_SMEM_MAX = 227 * 1024
-#: K5's block in rays, (columns, rows): csrc/bwd_common.cuh kBwdX, kBwdY
-BWD_BLOCK = (32, 4)
-#: a staged path forced by :func:`_fetch_path` (None: by geometry)
-_FORCED_PATH = None
 #: inside :func:`_ess_bits`: the bits of each in-kernel ESS test
 _ESS_BITS = None
-
-
-def stage_bound(params: dict, zs, block) -> Tuple[int, int]:
-    """``(tw, th)``: an upper bound, in voxels, of the tap rectangle of any
-    block of ``block = (columns, rows)`` rays on any plane at depths ``zs``
-    of a launch with the kernels' ``params`` (:func:`_sweep_params`).
-
-    A ray's filter coordinate on an axis is ``q = (o + dz m - lo) / (hi -
-    lo) * n * scale - tex_offset``, monotone in its slope ``m``; the block's
-    corner rays are ``(columns - 1) |dm|`` apart in slope, so their
-    coordinates differ by at most ``dq = |dz|max (columns - 1) |dm| n scale
-    / |hi - lo|`` (clamping to the grid only shrinks it). The rectangle's
-    first taps then differ by at most ``floor(dq) + 1`` (also for nearest
-    filtering, which rounds both the same way) and the second tap adds one:
-    ``floor(dq + margin) + 3`` voxels, capped at ``n``. The margin covers the
-    kernels' float32 rounding of the slopes and coordinates: 1e-4 relative
-    to the magnitudes they pass through, some 800 times their rounding.
-    Holds for either ``dz_sign``, any walk order and a camera inside the
-    box: ``|dz|`` is the largest over all the planes."""
-    cols, rows = block
-    oz = params["oz"]
-    d_max = float(np.max(np.abs(np.asarray(zs, np.float64) - oz)))
-
-    def axis(o, m0, dm, extent, rays, n, lo, hi, scale):
-        k = n * scale / abs(hi - lo)
-        m_max = max(abs(m0), abs(m0 + dm * (extent - 1)))
-        dq = d_max * abs(dm) * (min(rays, extent) - 1) * k
-        margin = 1e-4 * (1.0 + k * (abs(o) + d_max * m_max + abs(lo)
-                                    + abs(hi)))
-        return int(min(n, math.floor(dq + margin) + 3))
-
-    tw = axis(params["ox"], params["mx0"], params["dmx"], params["width"],
-              cols, params["nx"], params["xlo"], params["xhi"], params["sx"])
-    th = axis(params["oy"], params["my0"], params["dmy"], params["height"],
-              rows, params["ny"], params["ylo"], params["yhi"], params["sy"])
-    return tw, th
-
-
-def stage_smem_bytes(tw: int, th: int, *, n_bins: int, elem_size: int,
-                     n_lut: int, row_floats: int, slots: int = 2,
-                     bwd_ck: int = 0, g_planes: bool = False,
-                     momt: bool = False, g_small: bool = False,
-                     ess_bytes: int = 0) -> int:
-    """Dynamic shared memory of a staged launch with ``tw`` x ``th``-voxel
-    footprints: ``slots`` ring slots of raw rows (each bin of each voxel row
-    in 16-byte chunks from the 16-byte boundary below it; the forward takes
-    three for scalar planes, two otherwise), the LUT, the decode rows
-    (``row_floats``), the decoded tile and the slots' row offsets;
-    K5 (``bwd_ck``, its chunk of planes) adds the per-ray caches of a
-    chunk, two d tiles (``g_planes``), the variance moments and touch flags
-    (``momt``) and the per-thread LUT columns (``g_small``); a forward with
-    ESS adds ``ess_bytes`` (:func:`_ess_smem_bytes`). Mirrors
-    ``stage_layout`` (csrc/stage_tile.cuh) and ``bwd_extra``
-    (csrc/slice_vjp_staged.cu)."""
-    rc = (tw * elem_size + 30) // 16
-    tile = tw * th
-    threads = BWD_BLOCK[0] * BWD_BLOCK[1]
-    total = (slots * th * n_bins * rc * 16
-             + 4 * (4 * n_lut + row_floats + tile) + 4 * slots * th * n_bins)
-    if bwd_ck:
-        total += 4 * (3 * bwd_ck * threads + (2 * tile if g_planes else 0)
-                      + (3 * tile if momt else 0)
-                      + ((4 * n_lut + 3) * threads if g_small else 0))
-    return total + ess_bytes
-
-
-def _stage_dims(staged, bound, smem: int, prefer: bool = True):
-    """The kernels' ``(stage_w, stage_h)``: the bound on the staged path,
-    ``(0, 0)`` on the direct path. ``staged=None`` chooses by geometry
-    (staged when ``prefer`` and the tile fits :data:`_STAGE_BUDGET`, unless
-    :func:`_fetch_path` forces a path); True forces the staged path, which
-    raises when no block can hold the tile."""
-    if staged is None:
-        staged = (_FORCED_PATH if _FORCED_PATH is not None
-                  else prefer and smem <= _STAGE_BUDGET)
-    if not staged:
-        return 0, 0
-    if smem > _SMEM_MAX:
-        raise ValueError(
-            f"a {bound[0]} x {bound[1]}-voxel footprint needs {smem} bytes of "
-            f"shared memory, more than a block has ({_SMEM_MAX})"
-        )
-    return bound
-
-
-@contextlib.contextmanager
-def _fetch_path(staged):
-    """Force every sweep launch inside the block onto the staged (True) or
-    the direct (False) fetch path, through public entry points that take no
-    ``staged`` argument (chip_smoke.py times both)."""
-    global _FORCED_PATH
-    prev, _FORCED_PATH = _FORCED_PATH, staged
-    try:
-        yield
-    finally:
-        _FORCED_PATH = prev
 
 
 @contextlib.contextmanager
@@ -251,18 +130,6 @@ def _ess_bits():
         _ESS_BITS = prev
 
 
-def _smem_ok(n_lut: int, row_elems: int) -> bool:
-    return n_lut >= 1 and 4 * n_lut + row_elems <= _SMEM_FLOATS
-
-
-def _ess_smem_bytes(n_lut: int, n_chunks: int) -> int:
-    """Shared memory of a forward launch's ESS (csrc/slice_sweep.cu
-    ``ess_smem``): the sparse table of the LUT's |alpha| (floor(log2 n) + 1
-    levels of n floats, csrc/ess_common.cuh), then a byte per chunk,
-    rounded up to 4."""
-    return 4 * n_lut * n_lut.bit_length() + -(-n_chunks // 4) * 4
-
-
 def pallas_supported(
     volume_shape: Tuple[int, int, int], width: int, height: int,
     n_planes: int, n_lut: int = 9,
@@ -272,7 +139,7 @@ def pallas_supported(
     return (
         len(volume_shape) == 3 and min(volume_shape) >= 1
         and width >= 1 and height >= 1 and n_planes >= 1
-        and _smem_ok(n_lut, 0)
+        and lut_fits(n_lut)
     )
 
 
@@ -284,7 +151,7 @@ def hist_render_supported(hist_shape, width: int, height: int,
     return (
         len(hist_shape) == 4 and min(hist_shape) >= 1
         and width >= 1 and height >= 1
-        and _smem_ok(n_lut, 4 * hist_shape[1])
+        and lut_fits(n_lut, 4 * hist_shape[1])
     )
 
 
@@ -407,6 +274,7 @@ def _decode_plain(hist_bm: torch.Tensor, rows: torch.Tensor,
     return out
 
 
+@counted("dchain")
 def decode_chain(hist_bm: torch.Tensor, rows: torch.Tensor, mode: str,
                  d_dec: torch.Tensor, mom=None) -> torch.Tensor:
     """The histogram cotangent from the decoded-volume cotangent ``d_dec``
@@ -419,12 +287,10 @@ def decode_chain(hist_bm: torch.Tensor, rows: torch.Tensor, mode: str,
     bfloat16 or float32 ``hist_bm`` and, on the same device, ``d_dec``,
     ``mom`` (``(nz, 2, ny, nx)`` float32) and the ``(n_rows, B)`` decode
     rows, and raises on anything else. A CPU tensor takes the plain version.
-    Counts its launches in ``decode_chain.launches``. Shared by the in-kernel
-    route's backward and the materialized decode's (:class:`_Decode`)."""
+    Shared by the in-kernel route's backward and the materialized decode's
+    (:class:`_Decode`)."""
     if not _on_card(hist_bm):
         return decode_chain_reference(hist_bm, rows, mode, d_dec, mom)
-    from vrdd_tpu_torch.kernels import _build
-
     if mode not in _N_ROWS:
         raise ValueError(f"unknown decode mode {mode!r}")
     _check_chain_hist(hist_bm)
@@ -446,20 +312,12 @@ def decode_chain(hist_bm: torch.Tensor, rows: torch.Tensor, mode: str,
     d_hist = torch.empty_like(hist_bm)
     if d_hist.numel() == 0:
         return d_hist
-    with profiling.annotate("sweep.launch"), torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _build.library().vrdd_decode_chain(
-            _MODES[mode], int(hist_bm.dtype == torch.bfloat16),
-            hist_bm.data_ptr(), rows.data_ptr(), d_dec.data_ptr(),
-            mom.data_ptr() if mom is not None and mode == "var" else None,
-            d_hist.data_ptr(), nz, B, ny * nx, stream)
-    if rc != 0:
-        raise RuntimeError(f"vrdd_decode_chain launch failed: CUDA error {rc}")
-    decode_chain.launches += 1
+    call("vrdd_decode_chain", dev, _MODES[mode],
+         int(hist_bm.dtype == torch.bfloat16),
+         *ptrs(hist_bm, rows, d_dec, mom if mode == "var" else None, d_hist),
+         nz, B, ny * nx)
+    record(decode_chain)
     return d_hist
-
-
-decode_chain.launches = 0
 
 
 def _check_chain_hist(hist_bm: torch.Tensor) -> None:
@@ -587,16 +445,6 @@ def decode_with_rows(hist_bm: torch.Tensor, rows, mode: str) -> torch.Tensor:
     return _decode_plain(hist_bm, rows, mode)
 
 
-def _host_floats(x, n: int) -> list:
-    """A length-n vector (sequence, numpy array or tensor) as Python floats."""
-    if isinstance(x, torch.Tensor):
-        x = profiling.to_host(x.detach(), "host_floats")
-    vals = [float(v) for v in np.asarray(x, dtype=np.float32).reshape(-1)]
-    if len(vals) != n:
-        raise ValueError(f"expected {n} values, got {len(vals)}")
-    return vals
-
-
 def _on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (kernel), False for a CPU tensor (plain
     version); any other device raises — there is no silent fallback."""
@@ -605,22 +453,6 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}: use 'cuda' or 'cpu'")
-
-
-def _device_f32(x, dev: torch.device, site: str = "f32") -> torch.Tensor:
-    """``x`` (sequence, numpy array or tensor) as a contiguous float32
-    tensor on ``dev``. A host array goes up to the card through pinned
-    memory without blocking (``profiling.to_device``, counted under
-    ``site``): a pageable upload would wait for all the work queued on the
-    stream before it."""
-    if isinstance(x, torch.Tensor):
-        if x.device == dev:
-            return x.detach().to(torch.float32).contiguous()
-        x = profiling.to_host(x.detach(), site)
-    host = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-    if dev.type != "cuda":
-        return host
-    return profiling.to_device(host, dev, site, pinned=True)
 
 
 #: the kernels' SweepParams.precision of each ``precision`` JAX accepts
@@ -648,52 +480,34 @@ def _check_seed(acc_init, empty_space_skip):
 def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
             params: dict, ck_stride: int = 0, ess=None, ess_chunk: int = 0,
             seed=None, staged=None, zs_host=None, live_map=False):
-    """Validate, allocate the (H, W, 4) output and launch the CUDA kernel on
-    the current stream of the volume's device, in blocks of
-    :data:`ESS_TILE` pixels. ``ck_stride > 0`` also writes the transmittance
-    checkpoints (K4): the result is then ``(out, tck)``. ``ess``, over
-    chunks of ``ess_chunk`` planes: an :class:`EssTest` (the kernel tests
-    each (tile, chunk) itself; inside :func:`_ess_bits` it also writes the
-    bits it tested), or None (no culling). ``seed``: the
-    ``(H, W, 4)`` image the sweep resumes from (None: unseeded); host data
-    goes up through :func:`_device_f32`. ``staged``: the fetch path (None:
-    by geometry, :func:`_stage_dims`); ``zs_host``: the depths on the host
-    for the footprint bound, when ``zs`` is already on the card.
+    """The forward launch, K1-K4: ready it (``launch.prepare``), allocate
+    the (H, W, 4) output and launch the CUDA kernel on the current stream of
+    the volume's device, in blocks of :data:`ESS_TILE` pixels.
+    ``ck_stride > 0`` also writes the transmittance checkpoints (K4): the
+    result is then ``(out, tck)``. ``ess``, over chunks of ``ess_chunk``
+    planes: an :class:`EssTest` (the kernel tests each (tile, chunk) itself;
+    inside :func:`_ess_bits` it also writes the bits it tested), or None (no
+    culling). ``seed``: the ``(H, W, 4)`` image the sweep resumes from
+    (None: unseeded); host data goes up through :func:`_device_f32`.
+    ``staged``: the fetch path (None: by geometry); ``zs_host``: the depths
+    on the host for the footprint bound, when ``zs`` is already on the card.
     ``live_map`` (K4 only): also fill K4's live map, a zeroed uint8
     ``(n_chunks, n_tile_rows, n_tile_cols)`` tensor over :data:`ESS_TILE`
     tiles, and return ``(out, tck, live)``. Returns ``(result, staged)``,
     the second saying which path the launch took."""
-    from vrdd_tpu_torch.kernels import _build
-
     with profiling.annotate("sweep.prepare"):
-        if vol.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"volume dtype {vol.dtype}: use float32 or "
-                            "bfloat16")
-        if not vol.is_contiguous():
-            raise ValueError("the volume must be contiguous")
+        zs_t, lut_t, rows_t, p, stage = prepare(
+            "fwd", vol, mode, zs, tf_lut, rows, params, staged=staged,
+            zs_host=zs_host, ess_chunk=0 if ess is None else ess_chunk)
         dev = vol.device
-        if zs_host is None:
-            zs_host = (profiling.to_host(zs.detach(), "zs").numpy()
-                       if isinstance(zs, torch.Tensor) else zs)
-
-        zs_t = _device_f32(zs, dev, "zs")
-        lut_t = _device_f32(tf_lut, dev, "lut")
-        # K1 reads no decode rows
-        rows_t = None if rows is None else _device_f32(rows, dev, "rows")
-        if lut_t.ndim != 2 or lut_t.shape[1] != 4:
-            raise ValueError(f"tf_lut must be (n_lut, 4), got "
-                             f"{tuple(lut_t.shape)}")
-        if zs_t.numel() != params["n_planes"]:
-            raise ValueError("zs must hold one depth per plane")
-        H, W = params["height"], params["width"]
+        H, W, n_planes = params["height"], params["width"], params["n_planes"]
         ess_min = ess_max = bits = None
-        n_lut = lut_t.shape[0]
         if ess is not None:
             if not isinstance(ess, EssTest):
                 raise TypeError(f"ess: an EssTest or None, not {type(ess)}")
             if mode != "none":
                 raise ValueError("ESS culls scalar plane sweeps only")
-            want = (params["n_planes"], _ESS_YB, _ESS_XB)
+            want = (n_planes, _ESS_YB, _ESS_XB)
             ess_min, ess_max = ess.pmin, ess.pmax
             if any(t.dtype != torch.float32 or tuple(t.shape) != want
                    or t.device != dev or not t.is_contiguous()
@@ -705,10 +519,13 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
                                  f"{ess.kwargs['plane_chunk']} planes, a "
                                  f"launch over chunks of {ess_chunk}")
             if _ESS_BITS is not None:
-                bits = torch.zeros(_ess_shape(params["n_planes"], ess_chunk,
-                                              H, W),
+                bits = torch.zeros(_ess_shape(n_planes, ess_chunk, H, W),
                                    dtype=torch.uint8, device=dev)
                 _ESS_BITS.append((bits, ess))
+            p.ess = _ess_params(params, ess.q_margin, ess_chunk, p.n_lut)
+            counts = profiling.ess_counts(dev)  # tracing: the pairs tested
+            if counts is not None:
+                p.ess.counts = counts.data_ptr()
         seed_t = None if seed is None else _device_f32(seed, dev, "seed")
         if seed_t is not None and tuple(seed_t.shape) != (H, W, 4):
             raise ValueError(f"acc_init {tuple(seed_t.shape)}: want "
@@ -716,81 +533,25 @@ def _launch(vol: torch.Tensor, mode: str, zs, tf_lut, rows,
         out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
         tck = live = None
         if ck_stride:
-            n_chunks = -(-params["n_planes"] // ck_stride)
-            tck = torch.empty((n_chunks, H, W), dtype=torch.float32,
-                              device=dev)
+            tck = torch.empty((-(-n_planes // ck_stride), H, W),
+                              dtype=torch.float32, device=dev)
         if live_map:
             if not ck_stride:
                 raise ValueError("the live map is K4's: it needs "
                                  "ck_stride > 0")
-            live = torch.zeros(_ess_shape(params["n_planes"], ck_stride, H,
-                                          W), dtype=torch.uint8, device=dev)
-        n_bins = params.get("n_bins", 1) if mode != "none" else 1
-        row_floats = 0 if rows_t is None else rows_t.numel()
-        ess_bytes = 0 if ess is None else _ess_smem_bytes(
-            n_lut, -(-params["n_planes"] // ess_chunk))
-        if ess_bytes and 4 * (4 * n_lut + row_floats) + ess_bytes > _SMEM_MAX:
-            raise ValueError(f"ESS over {params['n_planes']} planes with a "
-                             f"{n_lut}-entry LUT does not fit a block's "
-                             "shared memory")
-        bound = stage_bound(params, zs_host, (ESS_TILE[1], ESS_TILE[0]))
-        stage = _stage_dims(staged, bound, stage_smem_bytes(
-            *bound, n_bins=n_bins, elem_size=vol.element_size(), n_lut=n_lut,
-            row_floats=row_floats, slots=3 if mode == "none" else 2,
-            ess_bytes=ess_bytes))
-        p = _build.SweepParams(n_lut=n_lut, **params)
-        if ess_min is not None:
-            p.ess = _ess_params(params, ess.q_margin, ess_chunk, n_lut)
-            counts = profiling.ess_counts(dev)  # tracing: the pairs tested
-            if counts is not None:
-                p.ess.counts = counts.data_ptr()
-        lib = _build.library()
-    with profiling.annotate("sweep.launch"):
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.vrdd_slice_sweep(
-                p, _MODES[mode], int(vol.dtype == torch.bfloat16),
-                vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(),
-                None if rows_t is None else rows_t.data_ptr(), out.data_ptr(),
-                ck_stride, None if tck is None else tck.data_ptr(),
-                *(None if t is None else t.data_ptr()
-                  for t in (ess_min, ess_max, bits)), int(ess_chunk),
-                None if seed_t is None else seed_t.data_ptr(),
-                None if live is None else live.data_ptr(),
-                ESS_TILE[1], ESS_TILE[0], *stage, stream,
-            )
-    if rc != 0:
-        raise RuntimeError(f"vrdd_slice_sweep launch failed: CUDA error {rc}")
+            live = torch.zeros(_ess_shape(n_planes, ck_stride, H, W),
+                               dtype=torch.uint8, device=dev)
+    rows_p, tck_p, min_p, max_p, bits_p, seed_p, live_p = ptrs(
+        rows_t, tck, ess_min, ess_max, bits, seed_t, live)
+    call("vrdd_slice_sweep", dev, p, _MODES[mode],
+         int(vol.dtype == torch.bfloat16), vol.data_ptr(), zs_t.data_ptr(),
+         lut_t.data_ptr(), rows_p, out.data_ptr(), ck_stride, tck_p, min_p,
+         max_p, bits_p, int(ess_chunk), seed_p, live_p, ESS_TILE[1],
+         ESS_TILE[0], *stage)
     result = out
     if ck_stride:
         result = (out, tck, live) if live_map else (out, tck)
     return result, stage[0] > 0
-
-
-def _sweep_params(origin, slopes, density, brightness, transfer_offset,
-                  transfer_scale, spacing, march, *, width, height, ny, nx,
-                  n_planes, n_layers, dz_sign, reverse, length_correction,
-                  tex_offset, axis_scale, filter_linear, n_bins=1,
-                  n_rows=1, precision=0) -> dict:
-    ox, oy, oz = _host_floats(origin, 3)
-    mx0, dmx, my0, dmy = _host_floats(slopes, 4)
-    return dict(
-        ox=ox, oy=oy, oz=oz, density=float(density),
-        brightness=float(brightness), tf_off=float(transfer_offset),
-        tf_scale=float(transfer_scale), spacing=float(spacing),
-        mx0=mx0, dmx=dmx, my0=my0, dmy=dmy,
-        xlo=march.box_min[0], ylo=march.box_min[1],
-        xhi=march.box_max[0], yhi=march.box_max[1],
-        tstep=march.tstep, threshold=march.opacity_threshold,
-        thr1=1.0 - float(march.opacity_threshold),
-        tex_offset=float(tex_offset), sx=float(axis_scale[0]),
-        sy=float(axis_scale[1]), height=int(height), width=int(width),
-        ny=int(ny), nx=int(nx), n_planes=int(n_planes),
-        n_layers=int(n_layers), n_bins=int(n_bins), n_rows=int(n_rows),
-        dz_sign=int(dz_sign), reverse=int(bool(reverse)),
-        length_correction=int(bool(length_correction)),
-        filter_linear=int(bool(filter_linear)), precision=int(precision),
-    )
 
 
 def _slope_grids(slopes, width: int, height: int):
@@ -849,6 +610,7 @@ def _ess_shape(n_planes: int, plane_chunk: int, height: int, width: int):
     return (-(-n_planes // plane_chunk), -(-height // th), -(-width // tw))
 
 
+@counted("bitmap")
 @torch.no_grad()
 def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
                width: int, height: int, ny: int, nx: int, plane_chunk: int,
@@ -861,11 +623,11 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
     device of ``plane_stats`` (``(n_planes, 8, 8)`` block min and max of
     :func:`ess_plane_stats`): on the card one launch of the bitmap kernel
     (``csrc/ess_bitmap.cu``), which computes the bytes of
-    :func:`ess_bitmap_reference`; on the CPU that plain version. Counts its
-    launches in ``ess_bitmap.launches``. ``q_margin``: the widening of each
-    culled LUT-coordinate interval (:func:`_ess_q_margin`). The sweep
-    kernels test the same bits themselves (:class:`EssTest`); this is for
-    the callers that need the bitmap as data."""
+    :func:`ess_bitmap_reference`; on the CPU that plain version.
+    ``q_margin``: the widening of each culled LUT-coordinate interval
+    (:func:`_ess_q_margin`). The sweep kernels test the same bits themselves
+    (:class:`EssTest`); this is for the callers that need the bitmap as
+    data."""
     pmin, pmax = plane_stats
     if not _on_card(pmin):
         return ess_bitmap_reference(
@@ -874,8 +636,6 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
             plane_chunk=plane_chunk, march=march, tex_offset=tex_offset,
             axis_scale=axis_scale, q_margin=q_margin,
         )
-    from vrdd_tpu_torch.kernels import _build
-
     dev = pmin.device
     n_planes = pmin.shape[0]
     want = (n_planes, _ESS_YB, _ESS_XB)
@@ -899,19 +659,9 @@ def ess_bitmap(plane_stats, zs, origin, slopes, tf_lut, tf_off, tf_scale, *,
         tf_off=float(tf_off), tf_scale=float(tf_scale), n_planes=n_planes,
         height=int(height), width=int(width), ny=int(ny), nx=int(nx),
     ), q_margin, plane_chunk, lut_t.shape[0])
-    lib = _build.library()
-    with profiling.annotate("sweep.launch"), torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vrdd_ess_bitmap(p, pmin.data_ptr(), pmax.data_ptr(),
-                                 zs_t.data_ptr(), lut_t.data_ptr(),
-                                 out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"vrdd_ess_bitmap launch failed: CUDA error {rc}")
-    ess_bitmap.launches += 1
+    call("vrdd_ess_bitmap", dev, p, *ptrs(pmin, pmax, zs_t, lut_t, out))
+    record(ess_bitmap)
     return out
-
-
-ess_bitmap.launches = 0
 
 
 def _ess_params(params: dict, q_margin: float, plane_chunk: int, n_lut: int):
@@ -920,8 +670,6 @@ def _ess_params(params: dict, q_margin: float, plane_chunk: int, n_lut: int):
     float64 values :func:`ess_bitmap_reference` computes with; the sweep's
     own :func:`_sweep_params` carry them too), tiles of :data:`ESS_TILE`
     and the statistics' 8 x 8 blocks."""
-    from vrdd_tpu_torch.kernels import _build
-
     th, tw = ESS_TILE
     return _build.EssParams(
         **{k: params[k] for k in (
@@ -1159,6 +907,7 @@ def sweep_preblended_planes_reference(
     )
 
 
+@counted("k1", "staged", "ess", "seed", "bf16")
 def sweep_preblended_planes(
     planes_all, zs, origin, slopes, tf_lut, density=0.05, brightness=1.0,
     transfer_offset=0.0, transfer_scale=1.0, *, dz_sign=-1, width, height,
@@ -1190,11 +939,12 @@ def sweep_preblended_planes(
     n_planes, ny, nx = planes_all.shape
     if plane_spacing is None:
         plane_spacing = (march.box_max[2] - march.box_min[2]) / n_planes
+    card = _on_card(planes_all)
     with profiling.annotate("sweep.prepare"):
         zs_host = (profiling.to_host(zs.detach(), "zs").numpy()
                    if isinstance(zs, torch.Tensor)
                    else np.asarray(zs, np.float32))
-        if _on_card(planes_all):  # one upload each for the ESS test and K1
+        if card:  # one upload each for the ESS test and K1
             zs = _device_f32(zs, planes_all.device, "zs")
             tf_lut = _device_f32(tf_lut, planes_all.device, "lut")
         ess = _resolve_ess(
@@ -1204,7 +954,7 @@ def sweep_preblended_planes(
             tex_offset=tex_offset, axis_scale=axis_scale,
             reverse_planes=reverse_planes, bf16=bf16,
         )
-    if not _on_card(planes_all):
+    if not card:
         _count_plain_ess(ess)
         return sweep_preblended_planes_reference(
             planes_all, zs, origin, slopes, tf_lut, density, brightness,
@@ -1234,65 +984,38 @@ def sweep_preblended_planes(
     out, staged = _launch(planes_all, "none", zs, tf_lut, None, params,
                           ess=ess, ess_chunk=plane_chunk, seed=acc_init,
                           zs_host=zs_host)
-    sweep_preblended_planes.launches += 1
-    sweep_preblended_planes.staged_launches += staged
-    sweep_preblended_planes.ess_launches += ess is not None
-    sweep_preblended_planes.seed_launches += acc_init is not None
-    sweep_preblended_planes.bf16_launches += bf16
+    record(sweep_preblended_planes, staged=staged, ess=ess is not None,
+           seed=acc_init is not None, bf16=bf16)
     return out
 
 
-sweep_preblended_planes.launches = 0
-#: the launches among ``launches`` in the bf16 mode
-sweep_preblended_planes.bf16_launches = 0
-#: the launches among ``launches`` that took the staged fetch path
-sweep_preblended_planes.staged_launches = 0
-#: the launches among ``launches`` that tested ESS in the kernel
-sweep_preblended_planes.ess_launches = 0
-#: the launches among ``launches`` that resumed from a seed
-sweep_preblended_planes.seed_launches = 0
+def _layer_zs(n: int, march: MarchConfig, dz_sign: int = -1):
+    """The depths of ``n`` planes at the centres of ``n`` layers over the
+    box, front to back for ``dz_sign``, and their spacing."""
+    zlo, zhi = march.box_min[2], march.box_max[2]
+    spacing = (zhi - zlo) / n
+    zs = (zlo + spacing * (np.arange(n, dtype=np.float32) + 0.5)
+          ).astype(np.float32)
+    return (zs[::-1].copy() if dz_sign < 0 else zs), spacing
 
 
-def _sweep_call(
-    volume, origin, slopes, tf_lut, density, brightness, transfer_offset,
-    transfer_scale, *, dz_sign, width, height, march, n_planes,
-    length_correction, precision, plane_chunk, tex_offset=0.5,
-    empty_space_skip=False, axis_scale=(1.0, 1.0, 1.0), ess_stats=None,
-    filter_linear=True,
-):
-    nz = volume.shape[0]
-    # PURE-SELECTION fast path: with n_planes == nz (and the default z
-    # filter grid) every plane IS a volume layer, zf = (p+0.5)*nz/n_planes
-    # - 0.5 = p exactly — so stream the volume itself and let the kernel
-    # walk it back to front instead of materializing a flipped copy. With
-    # ESS it needs cached stats, as in JAX (slice_kernel.py:1244-1247)
-    pure_sel = (
-        n_planes == nz and tex_offset == 0.5 and axis_scale[2] == 1.0
-        and (not empty_space_skip or ess_stats is not None)
-    )
-    if pure_sel:
-        zlo, zhi = march.box_min[2], march.box_max[2]
-        spacing = (zhi - zlo) / n_planes
-        zs = (
-            zlo + spacing * (np.arange(n_planes, dtype=np.float32) + 0.5)
-        ).astype(np.float32)
-        if dz_sign < 0:
-            zs = zs[::-1].copy()
-        planes_all = volume
-    else:
-        planes_all, zs = preblend_planes(
-            volume, n_planes, march.box_min, march.box_max, dz_sign,
-            tex_offset, z_scale=axis_scale[2], filter_linear=filter_linear,
-        )
-    return sweep_preblended_planes(
-        planes_all, zs, origin, slopes, tf_lut, density, brightness,
-        transfer_offset, transfer_scale, dz_sign=dz_sign, width=width,
-        height=height, march=march, length_correction=length_correction,
-        precision=precision, plane_chunk=plane_chunk, tex_offset=tex_offset,
-        empty_space_skip=empty_space_skip, axis_scale=axis_scale[:2],
-        ess_stats=ess_stats, filter_linear=filter_linear,
-        reverse_planes=pure_sel and dz_sign < 0,
-    )
+def _plane_stack(volume, n_planes: int, march: MarchConfig, dz_sign: int,
+                 tex_offset=0.5, z_scale=1.0, filter_linear=True,
+                 pure_ok=True):
+    """``(planes_all, zs, pure_sel)``: the front-to-back plane stack a sweep
+    of ``volume`` walks, its depths, and whether it is the PURE-SELECTION
+    fast path. With ``n_planes == nz`` (and the default z filter grid) every
+    plane IS a volume layer, zf = (p+0.5)*nz/n_planes - 0.5 = p exactly, so
+    the stack is the volume itself, which the kernel walks back to front
+    for ``dz_sign < 0`` instead of a flipped copy; ``pure_ok`` False (ESS
+    whose stats come from the stack) keeps the pre-blend."""
+    if (pure_ok and n_planes == volume.shape[0] and tex_offset == 0.5
+            and z_scale == 1.0):
+        return volume, _layer_zs(n_planes, march, dz_sign)[0], True
+    planes_all, zs = preblend_planes(
+        volume, n_planes, march.box_min, march.box_max, dz_sign, tex_offset,
+        z_scale=z_scale, filter_linear=filter_linear)
+    return planes_all, zs, False
 
 
 def pallas_sweep_slope_space(
@@ -1326,15 +1049,22 @@ def pallas_sweep_slope_space(
     my0, dmy = _uniform_grid_params(my, "my")
     if n_planes <= 0:
         n_planes = 2 * volume.shape[0]
-    return _sweep_call(
-        volume, origin, (mx0, dmx, my0, dmy), tf_lut, density, brightness,
-        transfer_offset, transfer_scale, dz_sign=int(dz_sign),
-        width=int(np.asarray(mx).shape[0]), height=int(np.asarray(my).shape[0]),
-        march=march, n_planes=n_planes, length_correction=length_correction,
-        precision=precision, plane_chunk=plane_chunk,
-        tex_offset=float(tex_offset), empty_space_skip=empty_space_skip,
-        axis_scale=tuple(axis_scale), ess_stats=ess_stats,
-        filter_linear=filter_linear,
+    dz_sign, tex_offset = int(dz_sign), float(tex_offset)
+    # with ESS the pure selection needs cached stats, as in JAX
+    # (slice_kernel.py:1244-1247)
+    planes_all, zs, pure_sel = _plane_stack(
+        volume, n_planes, march, dz_sign, tex_offset, axis_scale[2],
+        filter_linear, pure_ok=not empty_space_skip or ess_stats is not None)
+    return sweep_preblended_planes(
+        planes_all, zs, origin, (mx0, dmx, my0, dmy), tf_lut, density,
+        brightness, transfer_offset, transfer_scale, dz_sign=dz_sign,
+        width=int(np.asarray(mx).shape[0]),
+        height=int(np.asarray(my).shape[0]), march=march,
+        length_correction=length_correction, precision=precision,
+        plane_chunk=plane_chunk, tex_offset=tex_offset,
+        empty_space_skip=empty_space_skip, axis_scale=tuple(axis_scale[:2]),
+        ess_stats=ess_stats, filter_linear=filter_linear,
+        reverse_planes=pure_sel and dz_sign < 0,
     )
 
 
@@ -1363,8 +1093,6 @@ def pallas_slice_render(
 ) -> torch.Tensor:
     """Fused forward render of a scalar ``(nz, ny, nx)`` volume; same
     semantics as ``march.slice.slice_render_image``."""
-    if n_planes <= 0:
-        n_planes = 2 * volume.shape[0]
     mx, my = _pixel_slopes(width, height, focal)
     return pallas_sweep_slope_space(
         volume, origin, mx, my, tf_lut, density, brightness,
@@ -1380,11 +1108,7 @@ def _hist_geometry(nz: int, width: int, height: int, focal: float,
                    march: MarchConfig):
     """Plane depths (front to back for the -z camera), slopes and spacing
     of the in-kernel decode sweep (one plane per z-layer)."""
-    zlo, zhi = march.box_min[2], march.box_max[2]
-    spacing = (zhi - zlo) / nz
-    zs = (
-        zlo + spacing * (np.arange(nz, dtype=np.float32) + 0.5)
-    ).astype(np.float32)[::-1].copy()
+    zs, spacing = _layer_zs(nz, march)
     mxh, myh = _pixel_slopes(width, height, focal)
     slopes = (
         float(mxh[0]), float(mxh[1] - mxh[0]) if width > 1 else 0.0,
@@ -1430,6 +1154,7 @@ def hist_render_reference(
     )
 
 
+@counted("k2", "staged", "bf16")
 def pallas_hist_render(
     hist_bm: torch.Tensor,
     weights,
@@ -1490,21 +1215,5 @@ def pallas_hist_render(
         n_rows=rows.shape[0], precision=bf16,
     )
     out, staged = _launch(hist_bm, stat, zs, tf_lut, rows, params)
-    pallas_hist_render.launches += 1
-    pallas_hist_render.staged_launches += staged
-    pallas_hist_render.bf16_launches += bf16
+    record(pallas_hist_render, staged=staged, bf16=bf16)
     return out
-
-
-pallas_hist_render.launches = 0
-pallas_hist_render.staged_launches = 0
-pallas_hist_render.bf16_launches = 0
-
-# the launch counters a traced window reports (``profiling.drain``)
-profiling.watch("k1", sweep_preblended_planes, (
-    "launches", "staged_launches", "ess_launches", "seed_launches",
-    "bf16_launches"))
-profiling.watch("k2", pallas_hist_render, (
-    "launches", "staged_launches", "bf16_launches"))
-profiling.watch("bitmap", ess_bitmap, ("launches",))
-profiling.watch("dchain", decode_chain, ("launches",))

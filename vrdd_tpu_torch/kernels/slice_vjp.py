@@ -22,16 +22,11 @@ Each wrapper dispatches on the device of its volume: a CUDA tensor goes to
 the kernel or the wrapper raises; a CPU tensor takes the plain torch version
 (:func:`sweep_fwd_reference`, :func:`sweep_fwd_ckpt_reference`,
 :func:`sweep_bwd_reference`: the plain sweep, its transmittance recursion,
-the analytic VJP of ``march/slice.py`` and its ``P_total``). Each counts
-its kernel launches in ``.launches``; K3's and K4's ``.ess_launches`` count
-those of them that tested ESS in the kernel, every wrapper's
-``.seed_launches`` those that resumed from a seed (K5: that wrote ``S``),
-``.staged_launches`` those that took the staged fetch path (each block's
-plane footprint decoded once in shared memory; see ``slice_kernel``), and
-``.size_launches`` and ``.size_staged_launches`` (Counters) its launches
-and staged launches per image ``(H, W)``. Each wrapper takes an internal
-``staged`` argument that forces a fetch path; K5 stages by default only in
-the decode modes (on scalar planes the direct path measured faster).
+the analytic VJP of ``march/slice.py`` and its ``P_total``). Each wrapper
+takes an internal ``staged`` argument that forces a fetch path (None: the
+rule of ``launch.stage_dims``). Every launch is readied and made by
+``kernels/launch.py``, and each wrapper's launch counters are declared at
+its definition (``launch.counted``; that module's docstring lists them).
 
 Brightness is folded outside the kernels (they run at brightness 1 and the
 image is scaled in torch), so it stays differentiable. In the histogram
@@ -66,13 +61,11 @@ live sample into a row buffer ``dtmp (n_planes, H, nx)`` (the x-transpose,
 summed over each image row), and :func:`dplane_bf16` forms ``d_planes =
 bf16(wy)^T bf16(dtmp)`` per plane, rounding the whole-row sums as JAX
 does. The LUT, parameter and seed cotangents see only the bf16 ``res``.
-``dtmp`` is 4 P H nx bytes (1 GiB at 512 planes to 1024^2). Every wrapper
-counts its bf16 launches in ``.bf16_launches``.
+``dtmp`` is 4 P H nx bytes (1 GiB at 512 planes to 1024^2).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Optional, Tuple
 
@@ -81,19 +74,20 @@ import torch
 
 from vrdd_tpu_torch.march.slice import (
     bf16_y_transpose,
-    preblend_planes,
     sweep_p_total,
     transmittance_checkpoints,
 )
+from vrdd_tpu_torch.kernels import _build
+from vrdd_tpu_torch.kernels.launch import (
+    _MODES, BWD_BLOCK, _device_f32, _host_floats, _sweep_params, call,
+    counted, lut_fits, prepare, ptrs, record,
+)
 from vrdd_tpu_torch.kernels.slice_kernel import (
-    BWD_BLOCK, ESS_TILE, _MODES, _SMEM_FLOATS, EssTest, _count_plain_ess,
-    _plain_bitmap,
-    _precision_flag, _decode_plain, _decode_rows, _decode_rows_grad,
-    _device_f32, _hist_geometry, _host_floats, _launch, _on_card,
-    _pixel_slopes,
-    _resolve_ess, _slope_grids, _stage_dims, _sweep_params,
+    ESS_TILE, EssTest, _count_plain_ess, _decode_plain, _decode_rows,
+    _decode_rows_grad, _hist_geometry, _launch, _on_card, _pixel_slopes,
+    _plain_bitmap, _plane_stack, _precision_flag, _resolve_ess, _slope_grids,
     _uniform_grid_params, decode_chain, decode_with_rows,
-    hist_render_supported, pallas_supported, stage_bound, stage_smem_bytes,
+    hist_render_supported, pallas_supported,
     sweep_preblended_planes_reference,
 )
 from vrdd_tpu_torch.utils import profiling
@@ -111,16 +105,9 @@ __all__ = [
 
 #: checkpoint strides K5 is compiled for (csrc/slice_vjp.cu dispatch_ck)
 CK_STRIDES = (4, 8)
-#: threads per K5 block; each keeps its own column of LUT/param cotangents
-#: in shared memory (csrc/bwd_common.cuh kBwdThreads)
-_BWD_THREADS = BWD_BLOCK[0] * BWD_BLOCK[1]
 #: the TPU's HBM budget in JAX's route='auto' rule (slice_vjp.py:1396): a
 #: 16 GB chip's; kept verbatim until the H100 policy is measured
 _TPU_AUTO_BUDGET = 13 * 1024 ** 3
-
-
-def _bwd_smem_ok(n_lut: int, row_elems: int) -> bool:
-    return 4 * n_lut + row_elems + (4 * n_lut + 3) * _BWD_THREADS <= _SMEM_FLOATS
 
 
 def pallas_diff_supported(volume_shape, width, height, n_planes,
@@ -129,7 +116,7 @@ def pallas_diff_supported(volume_shape, width, height, n_planes,
     LUT must fit the forward's shared memory and the reverse sweep's
     per-thread LUT cotangent columns (n_lut <= 23)."""
     return (pallas_supported(volume_shape, width, height, n_planes, n_lut)
-            and _bwd_smem_ok(n_lut, 0))
+            and lut_fits(n_lut, bwd=True))
 
 
 def _norm_wrt(wrt) -> tuple:
@@ -221,16 +208,19 @@ class _Sweep:
         )
 
     def check(self, vol, lut):
+        """Raise unless K3-K5 all take the sweep: the forward's support
+        predicate, and the LUT with K5's LUT columns (forward-only K3
+        included)."""
         n_lut = lut.shape[0]
         if self.mode == "none":
-            ok = pallas_diff_supported(vol.shape, self.width, self.height,
-                                       len(self.zs), n_lut)
+            ok = pallas_supported(vol.shape, self.width, self.height,
+                                  len(self.zs), n_lut)
             row_elems = 0
         else:
             ok = hist_render_supported(vol.shape, self.width, self.height,
                                        n_lut)
             row_elems = 4 * vol.shape[1]
-        if not (ok and _bwd_smem_ok(n_lut, row_elems)):
+        if not (ok and lut_fits(n_lut, row_elems, bwd=True)):
             raise ValueError(
                 f"the differentiable sweep cannot take {tuple(vol.shape)} -> "
                 f"{self.width}x{self.height} with a {n_lut}-entry LUT"
@@ -283,6 +273,7 @@ def sweep_fwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
                                    tscl, acc0=acc0)
 
 
+@counted("k3", "staged", "ess", "seed", "bf16", sizes=True)
 def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, acc0=None,
               staged=None):
     """K3: the differentiable sweep's primal without checkpoints, for calls
@@ -293,29 +284,24 @@ def sweep_fwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, acc0=None,
         _count_plain_ess(cfg.ess)
         return sweep_fwd_reference(cfg, vol, rows, lut, density, toff, tscl,
                                    acc0)
+    return _forward(sweep_fwd, cfg, vol, rows, lut, density, toff, tscl, acc0,
+                    staged)
+
+
+def _forward(wrapper, cfg: _Sweep, vol, rows, lut, density, toff, tscl,
+             acc0, staged, ck_stride=0, live_map=False):
+    """K3's or K4's launch on the card, counted in ``wrapper``'s counters."""
     with profiling.annotate("sweep.prepare"):
         cfg.check(vol, lut)
         params = cfg.params(vol, rows, density, toff, tscl)
     out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows, params,
-                      ess=cfg.ess, ess_chunk=cfg.ck_stride, seed=acc0,
-                      staged=staged)
-    sweep_fwd.launches += 1
-    sweep_fwd.staged_launches += st
-    sweep_fwd.ess_launches += cfg.ess is not None
-    sweep_fwd.seed_launches += acc0 is not None
-    sweep_fwd.bf16_launches += cfg.bf16
-    sweep_fwd.size_launches[(cfg.height, cfg.width)] += 1
-    sweep_fwd.size_staged_launches[(cfg.height, cfg.width)] += st
+                      ck_stride=ck_stride, ess=cfg.ess,
+                      ess_chunk=cfg.ck_stride, seed=acc0, staged=staged,
+                      live_map=live_map)
+    record(wrapper, (cfg.height, cfg.width), staged=st,
+           ess=cfg.ess is not None, seed=acc0 is not None, bf16=cfg.bf16,
+           live=live_map)
     return out
-
-
-sweep_fwd.launches = 0
-sweep_fwd.bf16_launches = 0
-sweep_fwd.staged_launches = 0
-sweep_fwd.ess_launches = 0
-sweep_fwd.seed_launches = 0
-sweep_fwd.size_launches = collections.Counter()
-sweep_fwd.size_staged_launches = collections.Counter()
 
 
 # ---- K4 ----------------------------------------------------------------
@@ -349,6 +335,7 @@ def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
     return (img, *res) if live_map else (img, res)
 
 
+@counted("k4", "staged", "ess", "seed", "bf16", "live", sizes=True)
 def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
                    acc0=None, staged=None, live_map=False):
     """K4: the primal plus ``tck (n_chunks, H, W)``, the transmittance at
@@ -358,38 +345,14 @@ def sweep_fwd_ckpt(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
     fetch path (None: by geometry). ``live_map``: also K4's live map, uint8
     ``(n_chunks, ceil(H / 8), ceil(W / 32))`` over :data:`ESS_TILE` tiles, 1
     where some ray of the tile is not done at the chunk's first plane
-    (``(img, tck, live)``; counted in ``.live_launches``)."""
+    (``(img, tck, live)``)."""
     if not _on_card(vol):
         _count_plain_ess(cfg.ess)
         out = sweep_fwd_ckpt_reference(cfg, vol, rows, lut, density, toff,
                                        tscl, acc0, live_map)
         return out[:3] if live_map else out
-    with profiling.annotate("sweep.prepare"):
-        cfg.check(vol, lut)
-        params = cfg.params(vol, rows, density, toff, tscl)
-    out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows, params,
-                      ck_stride=cfg.ck_stride, ess=cfg.ess,
-                      ess_chunk=cfg.ck_stride, seed=acc0, staged=staged,
-                      live_map=live_map)
-    sweep_fwd_ckpt.launches += 1
-    sweep_fwd_ckpt.staged_launches += st
-    sweep_fwd_ckpt.ess_launches += cfg.ess is not None
-    sweep_fwd_ckpt.seed_launches += acc0 is not None
-    sweep_fwd_ckpt.bf16_launches += cfg.bf16
-    sweep_fwd_ckpt.live_launches += bool(live_map)
-    sweep_fwd_ckpt.size_launches[(cfg.height, cfg.width)] += 1
-    sweep_fwd_ckpt.size_staged_launches[(cfg.height, cfg.width)] += st
-    return out
-
-
-sweep_fwd_ckpt.launches = 0
-sweep_fwd_ckpt.bf16_launches = 0
-sweep_fwd_ckpt.live_launches = 0
-sweep_fwd_ckpt.staged_launches = 0
-sweep_fwd_ckpt.ess_launches = 0
-sweep_fwd_ckpt.seed_launches = 0
-sweep_fwd_ckpt.size_launches = collections.Counter()
-sweep_fwd_ckpt.size_staged_launches = collections.Counter()
+    return _forward(sweep_fwd_ckpt, cfg, vol, rows, lut, density, toff, tscl,
+                    acc0, staged, cfg.ck_stride, live_map)
 
 
 # ---- K5 ----------------------------------------------------------------
@@ -411,8 +374,8 @@ def sweep_bwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g,
     """Plain version of K5: the analytic VJP of ``march/slice.py`` over the
     plain planes from the seed ``acc0``, and for a seed its ``P_total``
     (``march.slice.sweep_p_total``). Returns ``(d_planes, small, mom,
-    s_img)`` like :func:`sweep_bwd` (``mom`` None: the torch chain computes
-    the moments itself)."""
+    s_img)`` like :func:`sweep_bwd` (``mom`` None: the chain to the
+    histograms computes the moments itself)."""
     planes = cfg.planes(vol.detach(), rows).detach().to(torch.float32)
     acc0 = None if acc0 is None else acc0.detach()
     with torch.enable_grad():
@@ -441,6 +404,7 @@ def sweep_bwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g,
     return d[0], _small(lut.shape[0], vol.device, d[1], d[2:]), None, s_img
 
 
+@counted("k5", "staged", "seed", "bf16", sizes=True)
 def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
               g_planes: bool, g_lut: bool, g_params: bool, acc0=None,
               staged=None):
@@ -457,8 +421,6 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
     if not _on_card(vol):
         return sweep_bwd_reference(cfg, vol, rows, lut, density, toff, tscl,
                                    g, g_planes, g_lut, g_params, acc0)
-    from vrdd_tpu_torch.kernels import _build
-
     with profiling.annotate("sweep.prepare"):
         cfg.check(vol, lut)
         if not (g_planes or g_lut or g_params):
@@ -473,11 +435,12 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
                              f"{cfg.n_chunks} checkpoints")
         params = cfg.params(vol, rows, density, toff, tscl)
         ny, nx, n_layers = params["ny"], params["nx"], params["n_layers"]
-        lut_t = _device_f32(lut.detach(), dev, "lut")
-        n_lut = lut_t.shape[0]
+        zs_t, lut_t, rows_t, p, stage = prepare(
+            "bwd", vol, cfg.mode, cfg.zs, lut, rows, params, staged=staged,
+            ck_stride=cfg.ck_stride, g_planes=g_planes,
+            g_small=g_lut or g_params)
+        n_lut = p.n_lut
         g = g.to(torch.float32).contiguous()
-        zs_t = _device_f32(cfg.zs, dev, "zs")
-        rows_t = None if rows is None else rows.detach().contiguous()
         d_planes = (torch.zeros((n_layers, ny, nx), dtype=torch.float32,
                                 device=dev) if g_planes else None)
         # bf16 mode: K5 fills the row buffer, the y-transpose kernel d_planes
@@ -492,55 +455,21 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
                if (cfg.mode == "var" and g_planes) else None)
         s_img = (None if acc0 is None
                  else torch.empty((H, W), dtype=torch.float32, device=dev))
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        hist = cfg.mode != "none"
-        bound = stage_bound(params, cfg.zs, BWD_BLOCK)
-        # by default only the decode modes stage: on scalar planes a voxel is
-        # one load and the staged K5 measured slower than the direct one on an
-        # H100 (PERF.md)
-        stage = _stage_dims(staged, bound, stage_smem_bytes(
-            *bound, n_bins=params["n_bins"] if hist else 1,
-            elem_size=vol.element_size(), n_lut=n_lut,
-            row_floats=rows_t.numel() if hist else 0, bwd_ck=cfg.ck_stride,
-            g_planes=g_planes, momt=mom is not None,
-            g_small=partials is not None), prefer=hist)
-        p = _build.SweepParams(n_lut=n_lut, **params)
         bp = _build.BwdParams(ck_stride=cfg.ck_stride, n_chunks=cfg.n_chunks,
                               g_planes=int(g_planes), g_lut=int(g_lut),
-                              g_params=int(g_params), dtmp=ptr(dtmp))
-        lib = _build.library()
-    with profiling.annotate("sweep.launch"), torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vrdd_slice_bwd(
-            p, bp, _MODES[cfg.mode], int(vol.dtype == torch.bfloat16),
-            vol.data_ptr(), zs_t.data_ptr(), lut_t.data_ptr(), ptr(rows_t),
-            g.data_ptr(), tck.data_ptr(), ptr(d_planes), ptr(partials),
-            ptr(mom), ptr(s_img), *stage, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vrdd_slice_bwd launch failed: CUDA error {rc}")
-    sweep_bwd.launches += 1
-    sweep_bwd.staged_launches += stage[0] > 0
-    sweep_bwd.seed_launches += acc0 is not None
-    sweep_bwd.bf16_launches += cfg.bf16
-    sweep_bwd.size_launches[(H, W)] += 1
-    sweep_bwd.size_staged_launches[(H, W)] += stage[0] > 0
+                              g_params=int(g_params),
+                              dtmp=None if dtmp is None else dtmp.data_ptr())
+    call("vrdd_slice_bwd", dev, p, bp, _MODES[cfg.mode],
+         int(vol.dtype == torch.bfloat16),
+         *ptrs(vol, zs_t, lut_t, rows_t, g, tck, d_planes, partials, mom,
+               s_img), *stage)
+    record(sweep_bwd, (H, W), staged=stage[0] > 0, seed=acc0 is not None,
+           bf16=cfg.bf16)
     if dtmp is not None:
         dplane_bf16(cfg, dtmp, d_planes)
     small = (partials.sum(0) if partials is not None
              else torch.zeros(4 * n_lut + 3, dtype=torch.float32, device=dev))
     return d_planes, small, mom, s_img
-
-
-sweep_bwd.launches = 0
-sweep_bwd.bf16_launches = 0
-sweep_bwd.staged_launches = 0
-sweep_bwd.seed_launches = 0
-sweep_bwd.size_launches = collections.Counter()
-sweep_bwd.size_staged_launches = collections.Counter()
 
 
 # ---- the bf16 mode's y-transpose ----------------------------------------
@@ -589,20 +518,18 @@ def dplane_bf16_reference(cfg: _Sweep, dtmp, n_layers: int, ny: int):
     return out
 
 
+@counted("ytr")
 def dplane_bf16(cfg: _Sweep, dtmp, d_planes):
     """The bf16 backward's y-transpose (``csrc/dplane_bf16.cu``):
     ``d_planes[layer(k), y, x] = sum_r bf16(wy[k, r, y]) bf16(dtmp[k, r,
     x])`` over the image rows, ``dtmp (P, H, nx)`` the row buffer K5 fills,
     ``wy`` recomputed from each row's slope as the sweep does; the layers of
     the P planes of ``d_planes (n_layers, ny, nx)`` are overwritten. A CPU
-    ``dtmp`` takes the plain version (:func:`dplane_bf16_reference`).
-    Counts ``dplane_bf16.launches``."""
+    ``dtmp`` takes the plain version (:func:`dplane_bf16_reference`)."""
     n_layers, ny, nx = d_planes.shape
     if not _on_card(dtmp):
         d_planes.copy_(dplane_bf16_reference(cfg, dtmp, n_layers, ny))
         return d_planes
-    from vrdd_tpu_torch.kernels import _build
-
     if (tuple(dtmp.shape) != (len(cfg.zs), cfg.height, nx)
             or dtmp.dtype != torch.float32 or not dtmp.is_contiguous()
             or d_planes.dtype != torch.float32
@@ -614,17 +541,9 @@ def dplane_bf16(cfg: _Sweep, dtmp, d_planes):
         d_planes, None, 0.0, 0.0, 1.0)
     p = _build.SweepParams(n_lut=1, **params)
     zs_t = _device_f32(cfg.zs, dtmp.device, "zs")
-    with profiling.annotate("sweep.launch"), torch.cuda.device(dtmp.device):
-        stream = torch.cuda.current_stream(dtmp.device).cuda_stream
-        rc = _build.library().vrdd_dplane_bf16(
-            p, zs_t.data_ptr(), dtmp.data_ptr(), d_planes.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"vrdd_dplane_bf16 launch failed: CUDA error {rc}")
-    dplane_bf16.launches += 1
+    call("vrdd_dplane_bf16", dtmp.device, p, *ptrs(zs_t, dtmp, d_planes))
+    record(dplane_bf16)
     return d_planes
-
-
-dplane_bf16.launches = 0
 
 
 # ---- autograd ------------------------------------------------------------
@@ -725,8 +644,9 @@ class _PlanesDiff(torch.autograd.Function):
 
 class _HistDiff(torch.autograd.Function):
     """The in-kernel decode sweep: K4 forward, K5 backward to the decoded
-    planes, then the torch chain to the histograms (and, linear mode, to the
-    decode weights), and the seed's cotangent."""
+    planes, then the chain to the histograms (``decode_chain``: one launch
+    of ``csrc/decode_chain.cu`` on the card) and, linear mode, to the decode
+    weights, and the seed's cotangent."""
 
     @staticmethod
     def forward(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl, acc0):
@@ -927,21 +847,9 @@ def _diff_call(
     # cotangent in layer order; otherwise the torch pre-blend (autograd
     # takes its transpose). ESS keeps the pre-blend, as in JAX: its plane
     # stats come from the stack
-    pure_sel = (n_planes == nz and tex_offset == 0.5 and axis_scale[2] == 1.0
-                and not empty_space_skip)
-    if pure_sel:
-        zlo, zhi = march.box_min[2], march.box_max[2]
-        spacing = (zhi - zlo) / n_planes
-        zs = (zlo + spacing * (np.arange(n_planes, dtype=np.float32) + 0.5)
-              ).astype(np.float32)
-        if dz_sign < 0:
-            zs = zs[::-1].copy()
-        planes_all = volume
-    else:
-        planes_all, zs = preblend_planes(
-            volume, n_planes, march.box_min, march.box_max, dz_sign,
-            tex_offset, z_scale=axis_scale[2],
-        )
+    planes_all, zs, pure_sel = _plane_stack(
+        volume, n_planes, march, dz_sign, tex_offset, axis_scale[2],
+        pure_ok=not empty_space_skip)
     with profiling.annotate("sweep.prepare"):
         ess = _resolve_ess(
             empty_space_skip, None, planes_all, zs, origin, slopes, tf_lut,
@@ -1026,8 +934,6 @@ def pallas_slice_render_diff(
     ``pallas_slice_render``; gradients to the volume, LUT, density,
     brightness and TF offset/scale, pruned by ``wrt`` ('volume', 'lut',
     'params': pruned inputs get exact zeros)."""
-    if n_planes <= 0:
-        n_planes = 2 * volume.shape[0]
     mx, my = _pixel_slopes(width, height, focal)
     return pallas_sweep_slope_space_diff(
         volume, origin, mx, my, tf_lut, density, brightness,
@@ -1077,7 +983,8 @@ def pallas_hist_render_diff(
 
     ``route``: 'inkernel' decodes inside K3/K4/K5 (nothing decoded is
     stored; K5 returns the decoded-plane cotangent and the chain to
-    ``d_hist`` is torch, z-chunked); 'materialized' decodes with torch
+    ``d_hist`` is one launch of ``csrc/decode_chain.cu``,
+    ``slice_kernel.decode_chain``); 'materialized' decodes with torch
     (``decode_with_rows``, whose backward is the same chain) and runs the
     scalar sweep's kernels; 'auto' is :func:`auto_route`. ``wrt``: 'hist',
     'weights' (linear only), 'lut', 'params'; ``d_hist`` comes back in the
@@ -1173,16 +1080,7 @@ def live_fractions(
     nz = volume.shape[0]
     if n_planes <= 0:
         n_planes = 2 * nz
-    pure_sel = n_planes == nz
-    if pure_sel:
-        zlo, zhi = march.box_min[2], march.box_max[2]
-        spacing = (zhi - zlo) / n_planes
-        zs = (zlo + spacing * (np.arange(n_planes, dtype=np.float32) + 0.5)
-              ).astype(np.float32)[::-1].copy()
-        planes_all = volume
-    else:
-        planes_all, zs = preblend_planes(volume, n_planes, march.box_min,
-                                         march.box_max, -1, 0.5)
+    planes_all, zs, pure_sel = _plane_stack(volume, n_planes, march, -1)
     _, slopes, _ = _hist_geometry(nz, width, height, focal, march)
     cfg = planes_config(
         zs, origin, slopes, width=width,
@@ -1200,15 +1098,3 @@ def live_fractions(
         "strip_live_frac": float(bits.any(axis=2).mean()),
         "n_xt": int(bits.shape[2]),
     }
-
-
-# the launch counters a traced window reports (``profiling.drain``)
-profiling.watch("k3", sweep_fwd, (
-    "launches", "staged_launches", "ess_launches", "seed_launches",
-    "bf16_launches"))
-profiling.watch("k4", sweep_fwd_ckpt, (
-    "launches", "staged_launches", "ess_launches", "seed_launches",
-    "bf16_launches", "live_launches"))
-profiling.watch("k5", sweep_bwd, (
-    "launches", "staged_launches", "seed_launches", "bf16_launches"))
-profiling.watch("ytr", dplane_bf16, ("launches",))
