@@ -387,3 +387,40 @@ def test_support_predicates_accept_the_luts_they_always_took(predicate):
                 with pytest.raises(ValueError, match="cannot take"):
                     cfg.check(vol, torch.empty((n_lut, 4)))
             cfg.check(vol, torch.empty((largest, 4)))
+
+
+@pytest.mark.parametrize("stat", ["scalar", "var"])
+@pytest.mark.parametrize("scalars", [(0.05, 0.1, 1.0 / 3.0),
+                                     (1.0 / 3.0, -0.05, 12.1)])
+def test_host_scalars_keep_the_kernels_sweep_params(scalars, stat):
+    """``_Sweep.params`` from density, TF offset and TF scale given as
+    Python floats, numpy float64 scalars or float64 CPU tensors
+    (``launch.host_scalars``) equals, field for field and byte for byte in
+    the kernels' ``SweepParams``, its parameters from 0-d float32 tensors:
+    each number rounded to float32 once, the value the old upload to the
+    card and read back gave. None of the numbers is a float32."""
+    from vrdd_tpu_torch.kernels import _build
+    from vrdd_tpu_torch.kernels import slice_vjp as sv
+
+    assert all(float(np.float32(v)) != v for v in scalars)
+    mode = "none" if stat == "scalar" else stat
+    shape = (6, 10, 12) if mode == "none" else (6, 4, 10, 12)
+    rows = None if mode == "none" else sk.decode_weight_rows(
+        stat, 4, family="unit")[0]
+    cfg = sv.render_config(shape, (0.0, 0.0, 4.0), stat=mode, width=24,
+                           height=16)
+    vol = torch.empty(shape, device="meta")
+    # the parent's reading: float() of each float32 tensor
+    f32 = [torch.tensor(v, dtype=torch.float32) for v in scalars]
+    want = cfg.params(vol, rows, *(float(t) for t in f32))
+    forms = [scalars, [np.float64(v) for v in scalars],
+             [torch.tensor(v, dtype=torch.float64) for v in scalars], f32]
+    for form in forms:
+        got = launch.host_scalars(*form)
+        assert all(type(v) is float for v in got)
+        params = cfg.params(vol, rows, *got)
+        assert params == want
+        assert bytes(_build.SweepParams(n_lut=9, **params)) == bytes(
+            _build.SweepParams(n_lut=9, **want))
+    assert (want["density"], want["tf_off"], want["tf_scale"]) == tuple(
+        float(t) for t in f32)

@@ -149,6 +149,63 @@ def test_wrt_pruning_returns_exact_zeros(wrt):
             assert g.shape == f.shape and float(g.abs().max()) == 0.0, grp
 
 
+#: density, TF offset, TF scale: none of them representable in float32
+SCALARS = (0.05, 0.1, 1.0 / 3.0)
+
+
+def _scalar_step(kind, as_tensors):
+    """One fit step, ``loss = mean((img - 0.25)^2)``, of the in-kernel
+    histogram route (``hist``) or the scalar sweep (``planes``) with
+    density, TF offset and TF scale as Python floats or as float32 tensors
+    that need gradients. Returns the image and the autograd Function's
+    gradients of each of its inputs (None where it gives none)."""
+    lut = torch.as_tensor(TF, dtype=torch.float32).requires_grad_()
+    scal = [torch.tensor(v, dtype=torch.float32, requires_grad=True)
+            for v in SCALARS] if as_tensors else list(SCALARS)
+    d, to, ts = scal
+    if kind == "hist":
+        rng = np.random.default_rng(6)
+        h = rng.random((6, 8, 10, 12)).astype(np.float32)
+        vol = torch.from_numpy(h / h.sum(axis=1, keepdims=True))
+        rows, mode = tk.decode_weight_rows("mean", 8, family="unit")
+        img = tv.pallas_hist_render_diff(
+            vol.requires_grad_(), rows, O, lut, d, 1.0, to, ts, width=20,
+            height=16, stat=mode, wrt=("hist", "lut", "params"))
+    else:
+        vol = torch.from_numpy(gaussian_blob_volume((8, 12, 12), seed=3))
+        img = tv.pallas_slice_render_diff(
+            vol.requires_grad_(), O, lut, d, 1.0, to, ts, width=24,
+            height=20, n_planes=8)
+    g, = torch.autograd.grad(torch.mean((img - 0.25) ** 2), img,
+                             retain_graph=True)
+    # img = out * brightness: the Function's node is the product's input
+    node = img.grad_fn.next_functions[0][0]
+    assert type(node).__name__ == ("_HistDiffBackward" if kind == "hist"
+                                   else "_PlanesDiffBackward")
+    return img.detach(), node.apply(g)
+
+
+@pytest.mark.parametrize("kind", ["hist", "planes"])
+def test_scalars_as_numbers_or_tensors_give_one_step(kind):
+    """The sweep's scalars as host numbers or as tensors that need
+    gradients: the same image and, bit for bit, the same gradients of the
+    volume (histograms or planes) and the LUT. The numbers get None from
+    the Function; the tensors get their cotangents."""
+    img_n, got_n = _scalar_step(kind, False)
+    img_t, got_t = _scalar_step(kind, True)
+    # the Functions' inputs end with (volume, [rows,] lut, density, toff,
+    # tscl, acc0)
+    vol_i, lut_i = (3, 5) if kind == "hist" else (3, 4)
+    params = slice(lut_i + 1, lut_i + 4)
+    assert torch.equal(img_n, img_t)
+    for i in (vol_i, lut_i):
+        assert got_n[i] is not None and torch.equal(got_n[i], got_t[i])
+    assert got_n[params] == (None, None, None)
+    for g in got_t[params]:
+        assert g.shape == () and torch.isfinite(g) and float(g) != 0.0
+    assert got_n[-1] is None and got_t[-1] is None
+
+
 def test_no_grad_primal_is_the_forward_sweep():
     """Without a gradient the diff wrappers run K3, which is K1 (and K2) at
     brightness 1 with the brightness folded outside."""

@@ -392,3 +392,68 @@ def test_to_host_of_a_card_tensor_is_one_sync(dev):
     assert counters["sync.probe"] == 1
     assert counters["sync.up"] == 1
     assert counters["upload.pinned.pin"] == 1
+
+
+def _traced_fit_step(dev, kind, as_tensors):
+    """One traced fit step at a small shape, the benchmark's fit cells in
+    miniature (decode rows and LUT on the card, ``wrt`` without 'params'):
+    the in-kernel histogram route (``hist``) or the scalar sweep on pure
+    selection (``planes``), with density, TF offset and TF scale as Python
+    floats or as card tensors that need gradients. Returns the image, the
+    gradients of the volume and the LUT, and the counters."""
+    rng = np.random.default_rng(7)
+    lut = torch.as_tensor(TF, dtype=torch.float32, device=dev)
+    lut.requires_grad_()
+    scal = (0.05, 0.1, 1.0 / 3.0)
+    if as_tensors:
+        scal = [torch.tensor(v, dtype=torch.float32, device=dev,
+                             requires_grad=True) for v in scal]
+    d, to, ts = scal
+    profiling.enable()
+    try:
+        if kind == "hist":
+            h = rng.random((24, 8, 40, 36)).astype(np.float32)
+            vol = torch.from_numpy(h / h.sum(axis=1, keepdims=True)).to(
+                dev, torch.bfloat16).requires_grad_()
+            rows, mode = sk.decode_weight_rows("mean", 8, family="unit")
+            img = sv.pallas_hist_render_diff(
+                vol, torch.as_tensor(rows, device=dev), O, lut, d, 1.0, to,
+                ts, width=72, height=56, stat=mode, wrt=("hist", "lut"))
+        else:
+            vol = torch.from_numpy(gaussian_blob_volume((24, 40, 36))).to(
+                dev).requires_grad_()
+            img = sv.pallas_slice_render_diff(
+                vol, O, lut, d, 1.0, to, ts, width=72, height=56,
+                n_planes=24, wrt=("volume", "lut"))
+        loss = torch.mean((img - 0.25) ** 2)
+        grads = torch.autograd.grad(loss, [vol, lut])
+        torch.cuda.synchronize()
+        _, counters = profiling.drain()
+    finally:
+        profiling.disable()
+        profiling.drain()
+    return img.detach(), grads, counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hist", "planes"])
+def test_fit_step_reads_the_card_once_a_sweep_at_most(dev, kind):
+    """The sweep's scalars as Python floats cost the step no wait for the
+    card (no ``sync.*`` at all: neither K4's nor K5's preparation reads
+    them back); as card tensors, one read a sweep (``sync.sweep_params``).
+    The kernels get the same arguments either way: the image and the LUT's
+    gradient are bitwise equal, and the volume's, which K5 sums with
+    atomics, is within the 1e-6 relative L2 of two runs of one form
+    (``test_torch_cuda.py::test_k5_two_runs``)."""
+    img_f, grads_f, got_f = _traced_fit_step(dev, kind, False)
+    img_t, grads_t, got_t = _traced_fit_step(dev, kind, True)
+    syncs = {k: v for k, v in got_f.items() if k.startswith("sync.")}
+    assert syncs == {}
+    assert got_t["sync.sweep_params"] == 1
+    assert "sync.diff_sweep" not in got_t
+    assert got_f["k4.launches"] == got_f["k5.launches"] == 1
+    assert torch.equal(img_f, img_t)
+    assert torch.equal(grads_f[1], grads_t[1])
+    d_f, d_t = (g.double() for g in (grads_f[0], grads_t[0]))
+    assert float(d_f.norm()) > 0.0
+    assert float((d_f - d_t).norm() / d_f.norm()) <= 1e-6

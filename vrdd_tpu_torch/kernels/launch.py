@@ -208,6 +208,27 @@ def _host_floats(x, n: int) -> list:
     return vals
 
 
+def host_scalars(*xs) -> tuple:
+    """Scalars (Python or numpy numbers, one-element tensors) as Python
+    floats rounded to float32: the values the kernels' ``c_float`` fields
+    hold. A host number costs no transfer; the tensors on a card among
+    ``xs`` are read back together, one copy that waits for the work queued
+    before it (one ``sync.sweep_params``)."""
+    vals = list(xs)
+    card = [i for i, x in enumerate(xs)
+            if isinstance(x, torch.Tensor) and x.device.type == "cuda"]
+    if card:
+        got = profiling.to_host(torch.stack(
+            [xs[i].detach().reshape(()).to(torch.float32) for i in card]),
+            "sweep_params")
+        for i, v in zip(card, got):
+            vals[i] = v
+    return tuple(float(v.detach().reshape(()).to(torch.float32))
+                 if isinstance(v, torch.Tensor)
+                 else float(np.asarray(v, dtype=np.float32).reshape(()))
+                 for v in vals)
+
+
 def _device_f32(x, dev: torch.device, site: str = "f32") -> torch.Tensor:
     """``x`` (sequence, numpy array or tensor) as a contiguous float32
     tensor on ``dev``. A host array goes up to the card through pinned

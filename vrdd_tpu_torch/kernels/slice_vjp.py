@@ -35,6 +35,14 @@ histograms is one more kernel, ``csrc/decode_chain.cu``
 (``slice_kernel.decode_chain``, one pass over the volume), where JAX leaves
 it to XLA outside the kernel.
 
+**Density, TF offset and TF scale** reach the kernels as ``c_float``
+fields of ``SweepParams``. A differentiable sweep settles them to host
+floats once, before any launch (``launch.host_scalars``): a Python or numpy
+number costs no transfer, tensors on the card one read of all three. No
+launch's preparation then waits for the card, so K5 is queued while K4 and
+the loss still run. A tensor among them still enters the autograd Function
+for its gradient. The wrappers and plain versions take numbers or tensors.
+
 **Seeded sweeps** (``acc_init`` of :func:`sweep_preblended_planes_diff` and
 :func:`sweep_preblended_hist_diff`): K3/K4 resume the "over" recursion from
 the ``(H, W, 4)`` seed (K4's checkpoint row 0 is ``T_0 = 1 - seed_a``), K5
@@ -80,7 +88,7 @@ from vrdd_tpu_torch.march.slice import (
 from vrdd_tpu_torch.kernels import _build
 from vrdd_tpu_torch.kernels.launch import (
     _MODES, BWD_BLOCK, _device_f32, _host_floats, _sweep_params, call,
-    counted, lut_fits, prepare, ptrs, record,
+    counted, host_scalars, lut_fits, prepare, ptrs, record,
 )
 from vrdd_tpu_torch.kernels.slice_kernel import (
     ESS_TILE, EssTest, _count_plain_ess, _decode_plain, _decode_rows,
@@ -186,10 +194,9 @@ class _Sweep:
         return _precision_flag(self.precision)
 
     def params(self, vol, rows, density, toff, tscl) -> dict:
-        """The kernels' SweepParams (brightness 1: folded outside); a
-        parameter on the card is read back (``sync.sweep_params``)."""
-        density, toff, tscl = (profiling.to_host(t, "sweep_params")
-                               for t in (density, toff, tscl))
+        """The kernels' SweepParams (brightness 1: folded outside) from the
+        host floats ``density``, ``toff`` and ``tscl``
+        (:func:`launch.host_scalars`)."""
         if self.mode == "none":
             n_layers, ny, nx = vol.shape
             n_bins, n_rows = 1, 1
@@ -197,8 +204,8 @@ class _Sweep:
             n_layers, n_bins, ny, nx = vol.shape
             n_rows = rows.shape[0]
         return _sweep_params(
-            self.origin, self.slopes, float(density), 1.0, float(toff),
-            float(tscl), self.plane_spacing, self.march, width=self.width,
+            self.origin, self.slopes, density, 1.0, toff, tscl,
+            self.plane_spacing, self.march, width=self.width,
             height=self.height, ny=ny, nx=nx, n_planes=len(self.zs),
             n_layers=n_layers, dz_sign=self.dz_sign, reverse=self.reverse,
             length_correction=self.length_correction,
@@ -262,6 +269,12 @@ def _f32(x, dev, site: str = "diff_sweep") -> torch.Tensor:
     return profiling.to_device(x, dev, site, dtype=torch.float32)
 
 
+def _plain_scalars(dev, *xs) -> list:
+    """Density, TF offset and TF scale for the plain versions: float32
+    tensors on the CPU ``dev``."""
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in xs]
+
+
 # ---- K3 ----------------------------------------------------------------
 
 def sweep_fwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl,
@@ -293,7 +306,7 @@ def _forward(wrapper, cfg: _Sweep, vol, rows, lut, density, toff, tscl,
     """K3's or K4's launch on the card, counted in ``wrapper``'s counters."""
     with profiling.annotate("sweep.prepare"):
         cfg.check(vol, lut)
-        params = cfg.params(vol, rows, density, toff, tscl)
+        params = cfg.params(vol, rows, *host_scalars(density, toff, tscl))
     out, st = _launch(vol, cfg.mode, cfg.zs, lut.detach(), rows, params,
                       ck_stride=ck_stride, ess=cfg.ess,
                       ess_chunk=cfg.ck_stride, seed=acc0, staged=staged,
@@ -314,6 +327,7 @@ def sweep_fwd_ckpt_reference(cfg: _Sweep, vol, rows, lut, density, toff,
     K4's live map over :data:`ESS_TILE` tiles and the map of its tiles with
     a ray within 1e-6 of a cutoff (``(img, tck, live, tied)``;
     ``transmittance_checkpoints``)."""
+    density, toff, tscl = _plain_scalars(vol.device, density, toff, tscl)
     with torch.no_grad():
         planes = cfg.planes(vol, rows)
         img = cfg.reference_image(planes, lut, density, toff, tscl,
@@ -381,7 +395,8 @@ def sweep_bwd_reference(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g,
     with torch.enable_grad():
         leaves = [planes.requires_grad_(g_planes),
                   lut.detach().requires_grad_(g_lut)] + [
-            t.detach().requires_grad_(g_params) for t in (density, toff, tscl)
+            t.detach().requires_grad_(g_params)
+            for t in _plain_scalars(vol.device, density, toff, tscl)
         ]
         wanted = [t for t in leaves if t.requires_grad]
         got = iter(())
@@ -433,7 +448,7 @@ def sweep_bwd(cfg: _Sweep, vol, rows, lut, density, toff, tscl, g, tck,
             raise ValueError(f"g {tuple(g.shape)} / tck {tuple(tck.shape)} "
                              f"do not fit a {W}x{H} image with "
                              f"{cfg.n_chunks} checkpoints")
-        params = cfg.params(vol, rows, density, toff, tscl)
+        params = cfg.params(vol, rows, *host_scalars(density, toff, tscl))
         ny, nx, n_layers = params["ny"], params["nx"], params["n_layers"]
         zs_t, lut_t, rows_t, p, stage = prepare(
             "bwd", vol, cfg.mode, cfg.zs, lut, rows, params, staged=staged,
@@ -559,14 +574,15 @@ def _unpack_small(small, n_lut, need, flags):
     return [g_lut] + params
 
 
-def _save(ctx, cfg, wrt, vol, rows, lut, density, toff, tscl, acc0):
-    """K4 forward of both Functions; keeps what K5 needs. Every tensor goes
-    through ``save_for_backward``, so a recompute under
-    ``torch.utils.checkpoint`` replaces all of them."""
-    img, tck = sweep_fwd_ckpt(cfg, vol, rows, lut, density, toff, tscl,
-                              acc0)
-    ctx.cfg, ctx.wrt = cfg, wrt
-    ctx.save_for_backward(vol, rows, lut, density, toff, tscl, acc0, tck)
+def _save(ctx, cfg, wrt, scalars, vol, rows, lut, acc0):
+    """K4 forward of both Functions from the host floats ``scalars``
+    (density, TF offset, TF scale); keeps what K5 needs. Every tensor goes
+    through ``save_for_backward`` and the floats ride on ``ctx`` beside
+    ``cfg``, so a recompute under ``torch.utils.checkpoint`` replaces all of
+    them."""
+    img, tck = sweep_fwd_ckpt(cfg, vol, rows, lut, *scalars, acc0)
+    ctx.cfg, ctx.wrt, ctx.scalars = cfg, wrt, scalars
+    ctx.save_for_backward(vol, rows, lut, acc0, tck)
     return img
 
 
@@ -586,7 +602,7 @@ def _grads(ctx, g, need):
     decode rows, LUT, density, TF offset, TF scale, seed) for the inputs in
     ``need``; exact zeros where ``wrt`` prunes one that needs a gradient
     (the seed's is never pruned)."""
-    vol, rows, lut, density, toff, tscl, acc0, tck = ctx.saved_tensors
+    vol, rows, lut, acc0, tck = ctx.saved_tensors
     cfg, wrt = ctx.cfg, ctx.wrt
     hist = cfg.mode != "none"
     want_vol = need[0] and ("hist" if hist else "volume") in wrt
@@ -600,9 +616,9 @@ def _grads(ctx, g, need):
         # prefix) still needs K5 for S: it runs with the parameter sums, as
         # JAX's backward always computes them, and drops them
         d_planes, small_k5, mom, s_img = sweep_bwd(
-            cfg, vol, None if rows is None else rows.detach(), lut, density,
-            toff, tscl, g, tck, *(flags if any(flags) else (False, False,
-                                                            True)),
+            cfg, vol, None if rows is None else rows.detach(), lut,
+            *ctx.scalars, g, tck, *(flags if any(flags) else (False, False,
+                                                               True)),
             acc0=acc0 if need[6] else None)
         if any(flags):
             small = small_k5
@@ -626,63 +642,69 @@ def _grads(ctx, g, need):
 
 class _PlanesDiff(torch.autograd.Function):
     """The scalar sweep: K4 forward, K5 backward (gradients to the plane
-    stack, the LUT, density, TF offset, TF scale and the seed)."""
+    stack, the LUT, density, TF offset, TF scale and the seed). The kernels
+    read density and the TF's offset and scale from ``scalars``; the inputs
+    ``density``, ``toff`` and ``tscl`` (numbers or tensors) are there for
+    their gradients."""
 
     @staticmethod
-    def forward(ctx, cfg, wrt, planes, lut, density, toff, tscl, acc0):
+    def forward(ctx, cfg, wrt, scalars, planes, lut, density, toff, tscl,
+                acc0):
         with profiling.annotate("planes_diff.forward"):
-            return _save(ctx, cfg, wrt, planes, None, lut, density, toff,
-                         tscl, acc0)
+            return _save(ctx, cfg, wrt, scalars, planes, None, lut, acc0)
 
     @staticmethod
     def backward(ctx, g):
         n = ctx.needs_input_grad
         with profiling.annotate("planes_diff.backward"):
-            d = _grads(ctx, g, (n[2], False, *n[3:]))
-        return (None, None, d[0], *d[2:])
+            d = _grads(ctx, g, (n[3], False, *n[4:]))
+        return (None, None, None, d[0], *d[2:])
 
 
 class _HistDiff(torch.autograd.Function):
     """The in-kernel decode sweep: K4 forward, K5 backward to the decoded
     planes, then the chain to the histograms (``decode_chain``: one launch
     of ``csrc/decode_chain.cu`` on the card) and, linear mode, to the decode
-    weights, and the seed's cotangent."""
+    weights, and the seed's cotangent. ``scalars``: as in
+    :class:`_PlanesDiff`."""
 
     @staticmethod
-    def forward(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl, acc0):
+    def forward(ctx, cfg, wrt, scalars, hist, rows, lut, density, toff, tscl,
+                acc0):
         with profiling.annotate("hist_diff.forward"):
-            return _save(ctx, cfg, wrt, hist, rows, lut, density, toff, tscl,
-                         acc0)
+            return _save(ctx, cfg, wrt, scalars, hist, rows, lut, acc0)
 
     @staticmethod
     def backward(ctx, g):
         with profiling.annotate("hist_diff.backward"):
-            return (None, None, *_grads(ctx, g, ctx.needs_input_grad[2:]))
+            return (None, None, None,
+                    *_grads(ctx, g, ctx.needs_input_grad[3:]))
 
 
 def _diff_sweep(cfg: _Sweep, wrt, vol, rows, tf_lut, density, toff, tscl,
                 acc_init=None):
     """K3 when nothing needs a gradient, else the autograd Function; from
-    the seed ``acc_init`` when given."""
+    the seed ``acc_init`` when given. Density and the TF's offset and scale
+    become host floats here, once for K4 and K5 (the module docstring)."""
     dev = vol.device
     with profiling.annotate("sweep.prepare"):
-        lut, density, toff, tscl = (_f32(x, dev)
-                                    for x in (tf_lut, density, toff, tscl))
+        lut = _f32(tf_lut, dev)
+        scalars = host_scalars(density, toff, tscl)
         acc0 = None
         if acc_init is not None:
             acc0 = _f32(acc_init, dev, "seed")
             if tuple(acc0.shape) != (cfg.height, cfg.width, 4):
                 raise ValueError(f"acc_init {tuple(acc0.shape)}: want "
                                  f"({cfg.height}, {cfg.width}, 4)")
-    tensors = [vol, lut, density, toff, tscl] + [
-        t for t in (rows, acc0) if t is not None]
+    tensors = [t for t in (vol, rows, lut, density, toff, tscl, acc0)
+               if isinstance(t, torch.Tensor)]
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
-        return sweep_fwd(cfg, vol, rows, lut, density, toff, tscl, acc0)
+        return sweep_fwd(cfg, vol, rows, lut, *scalars, acc0)
     if rows is None:
-        return _PlanesDiff.apply(cfg, wrt, vol, lut, density, toff, tscl,
-                                 acc0)
-    return _HistDiff.apply(cfg, wrt, vol, rows, lut, density, toff, tscl,
-                           acc0)
+        return _PlanesDiff.apply(cfg, wrt, scalars, vol, lut, density, toff,
+                                 tscl, acc0)
+    return _HistDiff.apply(cfg, wrt, scalars, vol, rows, lut, density, toff,
+                           tscl, acc0)
 
 
 # ---- public API -----------------------------------------------------------
@@ -1089,8 +1111,9 @@ def live_fractions(
     )
     dev = volume.device
     _, _, live = sweep_fwd_ckpt(
-        cfg, planes_all, None, _f32(tf_lut, dev), _f32(density, dev),
-        _f32(transfer_offset, dev), _f32(transfer_scale, dev), live_map=True)
+        cfg, planes_all, None, _f32(tf_lut, dev),
+        *host_scalars(density, transfer_offset, transfer_scale),
+        live_map=True)
     # (n_chunks, n_ty, n_tx)
     bits = profiling.to_host(live, "live_map").numpy().astype(bool)
     return {
