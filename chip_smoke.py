@@ -113,16 +113,23 @@ Phases (each prints its lines; any failure exits non-zero):
    9b. the flexible blocks of an Isabel-sized raw volume (500 x 500 x 100
        float32, smooth seeded blobs over [0, 255], made on the card):
        ``from_raw`` with blocks of 4 (125 x 125 x 25 x 64 bins), each stage
-       timed and the peak memory printed; its integral-histogram counts
-       against a direct per-block count (the largest count error printed;
-       blocks whose prefix boxes hold at most 2^24 voxels must be exact)
-       and its stats against the direct count's; queries 8/9/0 (normalized)
+       timed and the peak memory printed; the resident ``IntegralVolume``
+       (int32): its grid query's counts against a direct per-block count
+       (exact), ``from_raw``'s stats bitwise the direct count's; queries
+       8/9/0 (normalized)
        to 1024^2 as in 9a (K1 on the zero-padded 126 x 126 x 26 grid with
        axis scale (125/126, 125/126, 25/26), ESS at that z scale; the
        504-byte rows take the staged copy's per-row offsets), query 9
        rotated through shear-warp K3; K1 on the grid with and without ESS
        and K3 on the rotated view's m-grid timed on both fetch paths
-       against their plain versions;
+       against their plain versions; the explorer's slider at blocks of 2,
+       16 and 4 (a re-query of the resident table, ``set_flexible``,
+       queries 8/9/0 through 'auto'), which must launch the re-query
+       kernel once a re-query (counter reset before, read after), each
+       frame bitwise a fresh pipeline's; the re-query kernel
+       (``csrc/flex_blocks.cu``) at those sizes against its plain version
+       on the same card tensors (each channel within 2e-6 of its largest
+       magnitude, bitwise on a second launch), both timed, with its bound;
    9c. ``from_codebooks`` at the reference's Fuel scale (64^3, the full
        262,144-span Fenwick universe, blocks of 6) on the card against
        ``from_raw`` of the same raw volume (1e-4 relative and absolute);
@@ -299,6 +306,7 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4           # abs, per channel
 FLIP_BUDGET = 1e-3   # share of pixels allowed past TOL (cutoff flips)
 GRAD_TOL = 1e-3      # relative L2 of gradients (atomics, cutoff flips)
+FLEX_STATS_TOL = 2e-6  # of a channel's largest (float32 rounding, log2f)
 ORIGIN = (0.0, 0.0, 4.0)
 TIMED_RUNS = 10
 def fail(msg: str):
@@ -2011,25 +2019,20 @@ def fractal_decode_oracle(t, cb, eb, ev, idx):
     return out
 
 
-def flex_counts(raw, block, n_bins, vmax):
+def flex_counts(sat, raw, block, vmax):
     """``(integral-histogram counts, direct counts)`` of every block of a
-    volume that tiles: the 8-corner query of ``integral_histogram`` (the
-    stages of ``from_raw``) and a direct per-block count of the voxels'
-    bins, each ``(Zb, Yb, Xb, n_bins)`` float32."""
-    import numpy as np
+    volume that tiles: the grid query of the integral histogram ``sat``
+    (``block_edges``, ``query_blocks``) and a direct per-block count of the
+    voxels' bins, each ``(Zb, Yb, Xb, n_bins)`` float32."""
     import torch
 
-    from vrdd_tpu_torch.ops.integral import (
-        divide_blocks, integral_histogram, query_block_histogram)
+    from vrdd_tpu_torch.ops.integral import block_edges, query_blocks
 
+    n_bins = sat.shape[3]
     nz, ny, nx = raw.shape
     zb, yb, xb = nz // block, ny // block, nx // block
-    sat = integral_histogram(raw, n_bins, 0.0, vmax)
-    spans = divide_blocks((nx, ny, nz), block)
-    low = np.stack([spans[:, 2], spans[:, 1], spans[:, 0]], -1) - 1
-    high = np.stack([spans[:, 5], spans[:, 4], spans[:, 3]], -1) - 1
-    counts = query_block_histogram(sat, low, high).reshape(zb, yb, xb, n_bins)
-    del sat
+    counts = query_blocks(sat, [block_edges(n, block, raw.device)
+                                for n in raw.shape])
     bins = torch.clamp((raw / vmax * n_bins).to(torch.int32), 0, n_bins - 1)
     blocks = bins.reshape(zb, block, yb, block, xb, block).permute(
         0, 2, 4, 1, 3, 5).reshape(zb, yb, xb, -1).long()
@@ -2038,6 +2041,111 @@ def flex_counts(raw, block, n_bins, vmax):
     direct.scatter_add_(-1, blocks, torch.ones_like(blocks,
                                                     dtype=torch.float32))
     return counts, direct
+
+
+def flex_slider(pipe, integral, cfgs, W, sizes):
+    """The explorer's main path: at each block size of ``sizes`` a re-query
+    of the resident integral histogram (``IntegralVolume.blocks``), its
+    min-max map handed to the pipeline (``set_flexible``) and the frames of
+    ``cfgs`` through 'auto', with the re-query kernel's launch counter reset
+    before and read after (one launch a re-query); each frame bitwise a
+    fresh pipeline's at that block size. Returns ``{block: launches}``."""
+    import torch
+
+    from vrdd_tpu_torch.core.geometry import default_benchmark_inv_view
+    from vrdd_tpu_torch.kernels import flex_blocks as fb
+    from vrdd_tpu_torch.models.pipeline import RenderPipeline
+
+    iv = default_benchmark_inv_view()
+    launches = {}
+    for b in sizes:
+        torch.cuda.synchronize()
+        fb.block_stats.launches = 0
+        t0 = time.perf_counter()
+        vol = integral.blocks(b).normalized()
+        pipe.set_flexible(vol)
+        images = {q: pipe.render(iv, cfg, "auto") for q, cfg in cfgs.items()}
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches[b] = fb.block_stats.launches
+        print(f"  [9b slider] blocks of {b} -> {vol.n_blocks}: a re-query "
+              f"and {len(cfgs)} frames in {ms:.3f} ms (host clock, the first "
+              f"at this size), re-query kernel launches {launches[b]}")
+        if launches[b] != 1:
+            fail(f"9b: the re-query at blocks of {b} launched the re-query "
+                 f"kernel {launches[b]} times")
+        fresh = RenderPipeline(flexible=vol)
+        for q, cfg in cfgs.items():
+            check_frame(images[q], f"9b slider b{b} q{q}", W)
+            bitwise(fresh.render(iv, cfg, "auto"), images[q],
+                    f"9b slider b{b} q{q}: after set_flexible vs a fresh "
+                    "pipeline")
+        del fresh, images
+    return launches
+
+
+def flex_requery_records(integral, shape, slider):
+    """The re-query kernel (``kernels/flex_blocks.py block_stats``) on the
+    resident integral histogram at each block size of ``slider`` (block ->
+    its launches in the main-path run): held to its plain version
+    (``query_blocks``, then the clamp-normalize and the stats) on the same
+    card tensors, each channel within ``FLEX_STATS_TOL`` of its largest
+    magnitude, and bitwise on a second launch; both timed (CUDA events,
+    medians of 10 and 3); bound: each distinct corner row of the table read
+    once and the grid written once (``benchmark/roofline/flex.py``).
+    Returns a record a block size."""
+    import torch
+
+    from benchmark.roofline.flex import requery_work
+    from vrdd_tpu_torch.kernels import flex_blocks as fb
+    from vrdd_tpu_torch.models.flexible import _stats
+    from vrdd_tpu_torch.ops.integral import query_blocks
+
+    sat = integral.sat
+    B = sat.shape[3]
+    records = []
+    for b, launches in slider.items():
+        edges = integral.edges(b)
+
+        def plain():
+            return _stats(query_blocks(sat, edges))
+
+        def kernel():
+            return fb.block_stats(sat, edges)
+
+        got, want = kernel(), plain()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"9b: the re-query kernel at blocks of {b} gave "
+                 f"{tuple(got.shape)} (plain {tuple(want.shape)}) or a "
+                 "non-finite stat")
+        scale = want.abs().reshape(-1, 3).amax(0).clamp(min=1e-30)
+        err = float((got - want).abs().max())
+        gap = ((got - want).abs() / scale).reshape(-1, 3).amax(0).tolist()
+        bitwise(kernel(), got, f"9b: the re-query kernel at blocks of {b}, "
+                "two launches")
+        ms = time_ms(kernel, TIMED_RUNS)
+        p_ms = time_ms(plain, 3)
+        n_bytes, n_ops = requery_work(shape, b, B)
+        bd = bound(n_bytes, n_ops)
+        print(f"  [9b] re-query kernel, blocks of {b} -> "
+              f"{tuple(got.shape[:3])}: {ms:.4f} ms, plain {p_ms:.3f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+              f"{n_bytes} bytes); against the plain version: max abs "
+              f"{err:.3e}, of each channel's largest (mean, variance, "
+              f"entropy) {gap[0]:.3e}, {gap[1]:.3e}, {gap[2]:.3e}")
+        if max(gap) > FLEX_STATS_TOL:
+            fail(f"9b: the re-query kernel at blocks of {b} is {max(gap):.3e} "
+                 f"of a channel's largest from its plain version (limit "
+                 f"{FLEX_STATS_TOL:g})")
+        records.append({
+            "name": f"flex_block_stats[b{b}]", "route": "cuda",
+            "source": "vrdd_tpu_torch/csrc/flex_blocks.cu",
+            "replaces": "vrdd_tpu/ops/integral.py:66", "launches": launches,
+            "max_abs_err": err, "max_gap_of_largest": max(gap), "ms": ms,
+            "plain_ms": p_ms, **bd,
+        })
+        del got, want
+    return records
 
 
 def flex_k1_records(pipe, tf, q, W):
@@ -2199,7 +2307,8 @@ def phase_9(dev, card, smi, tf, work):
         fractal_volume_on_device, gaussian_blob_volume,
         synthetic_flexible_dataset)
     from vrdd_tpu_torch.kernels import slice_kernel as sk
-    from vrdd_tpu_torch.models.flexible import FlexibleBlockVolume
+    from vrdd_tpu_torch.models.flexible import (
+        FlexibleBlockVolume, IntegralVolume)
     from vrdd_tpu_torch.models.pipeline import RenderPipeline
     from vrdd_tpu_torch.models.volumes import FractalHistogramVolume
     from vrdd_tpu_torch.ops.histogram import (
@@ -2255,21 +2364,18 @@ def phase_9(dev, card, smi, tf, work):
           + f" (host clock, synchronized); peak device memory "
           f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the raw "
           "volume)")
-    counts, direct = flex_counts(raw, 4, 64, 256.0)
+    int_ms, integral = timed_once(
+        lambda: IntegralVolume.from_raw(raw, 64, 0.0, 256.0))
+    print(f"  the resident integral histogram {tuple(integral.sat.shape)} "
+          f"{integral.sat.dtype} ({integral.sat.numel() * 4 / 1e9:.2f} GB) "
+          f"built in {int_ms:.3f} ms (CUDA events)")
+    counts, direct = flex_counts(integral.sat, raw, 4, 256.0)
     cerr = (counts - direct).abs().amax(dim=-1)
-    zb, yb, xb = cerr.shape
-    # a block whose high corner's prefix box holds at most 2^24 voxels has
-    # exact float32 prefix counts: its counts must be exact
-    ext = (torch.arange(1, zb + 1, device=dev)[:, None, None] * 4
-           * (torch.arange(1, yb + 1, device=dev)[None, :, None] * 4)
-           * (torch.arange(1, xb + 1, device=dev)[None, None, :] * 4))
-    small = ext <= (1 << 24)
     print(f"  integral-histogram counts vs the direct per-block count: max "
           f"abs error {float(cerr.max()):g} counts, {int((cerr > 0).sum())} "
-          f"of {cerr.numel()} blocks off; where the prefix box holds <= 2^24 "
-          f"voxels ({int(small.sum())} blocks): max {float(cerr[small].max()):g}")
-    if float(cerr[small].max()) != 0.0:
-        fail("9b: integral-histogram counts are off where float32 is exact")
+          f"of {cerr.numel()} blocks off")
+    if float(cerr.max()) != 0.0:
+        fail("9b: integral-histogram counts are off (int32 counts are exact)")
     sdirect = flex_block_stats(normalize_histogram(direct)[0])
     serr = (flex.stats_grid - sdirect).abs().reshape(-1, 3).amax(0).tolist()
     print(f"  stats vs those of the direct count: max abs error mean "
@@ -2277,7 +2383,10 @@ def phase_9(dev, card, smi, tf, work):
           f"(of ranges {[round(float(v), 3) for v in flex.stat_ranges()[:, 1]]})")
     if not torch.isfinite(flex.stats_grid).all():
         fail("9b: non-finite flexible stats")
-    del counts, direct, cerr, sdirect, raw
+    if not torch.equal(flex.stats_grid, sdirect):
+        fail("9b: from_raw's stats differ from those of the direct count "
+             "(the same counts, the same stages)")
+    del counts, direct, cerr, sdirect
     torch.cuda.empty_cache()
     pipe = RenderPipeline(flexible=flex.normalized())
     cfgs = {q: render_cfg(q, W) for q in (8, 9, 0)}
@@ -2295,7 +2404,11 @@ def phase_9(dev, card, smi, tf, work):
     r = flex_shearwarp_record(pipe, tf, 9, (30.0, 20.0), W)
     r["launches"], r["staged_launches"] = sw_launches, sw_staged
     records.append(r)
+    slider = flex_slider(pipe, integral, cfgs, W, (2, 16, 4))
     del pipe, flex
+    torch.cuda.empty_cache()
+    records += flex_requery_records(integral, tuple(raw.shape), slider)
+    del integral, raw
     torch.cuda.empty_cache()
 
     # ---- 9c: from_codebooks at the reference's Fuel scale

@@ -1752,3 +1752,53 @@ def test_decode_chain_launches_once_a_backward(dev, stat, route):
     torch.autograd.grad(img.square().mean(), [h, lut])
     torch.cuda.synchronize()
     assert sk.decode_chain.launches == before + 2
+
+
+# ---- the flexible-block re-query (csrc/flex_blocks.cu) ----------------------
+
+@pytest.mark.parametrize("bins", [2, 5, 64, 256])
+@pytest.mark.parametrize("block", [1, 2, 3, 7])
+def test_flex_blocks_matches_plain(dev, bins, block):
+    """One launch gives every block's stats of an unaligned rough field
+    within float32 rounding of the plain version (``IntegralVolume.blocks``
+    off the card; each channel in units of
+    its largest magnitude; the kernel sums the bins in another order and
+    uses CUDA's log2f), the same bits on a second launch. (One bin has no
+    entropy: both divide by log2 1 = 0.)"""
+    from vrdd_tpu_torch.kernels import flex_blocks as fb
+    from vrdd_tpu_torch.models.flexible import IntegralVolume
+    from vrdd_tpu_torch.ops.integral import block_edges, integral_histogram
+
+    g = torch.Generator(device=dev).manual_seed(10 * bins + block)
+    field = torch.rand((11, 13, 17), generator=g, device=dev)
+    sat = integral_histogram(field, bins, 0.0, 1.0)
+    edges = [block_edges(n, block, dev) for n in field.shape]
+    before = fb.block_stats.launches
+    got = fb.block_stats(sat, edges)
+    assert fb.block_stats.launches == before + 1
+    want = IntegralVolume(sat.cpu()).blocks(block).stats_grid.to(dev)
+    assert got.shape == want.shape
+    scale = want.abs().reshape(-1, 3).amax(0).clamp(min=1e-30)
+    assert float(((got - want).abs() / scale).max()) <= 2e-6
+    assert torch.equal(got, fb.block_stats(sat, edges))
+
+
+def test_flex_requery_waits_for_nothing(dev):
+    """A re-query and its min-max map on the card make no host wait (torch's
+    sync debug mode raises on one), and the grid is the fused kernel's."""
+    from vrdd_tpu_torch.kernels import flex_blocks as fb
+    from vrdd_tpu_torch.models.flexible import IntegralVolume
+
+    field = torch.rand((21, 33, 39), device=dev)
+    integral = IntegralVolume.from_raw(field, 64, 0.0, 1.0)
+    torch.cuda.synchronize()
+    before = fb.block_stats.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vol = integral.blocks(4).normalized()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fb.block_stats.launches == before + 1
+    assert vol.n_blocks == (6, 9, 10)
+    r = vol.stat_ranges()
+    np.testing.assert_allclose(r[:2], [[0.0, 1.0], [0.0, 1.0]], atol=1e-6)

@@ -4,7 +4,8 @@
 against ``vrdd_tpu`` on the same numpy inputs.
 
 Tolerances: the integral histogram, the block query and the Fenwick helpers
-are exact (integer counts in float32, integer index arrays); the stats grids
+are exact (int32 counts, against JAX's float32 values, which are exact
+integers at these sizes; integer index arrays); the stats grids
 within 1e-5 (relative to each channel's range) of JAX's; the codebook path
 against the raw path as tests/test_flexible.py holds them."""
 
@@ -62,7 +63,7 @@ def test_integral_histogram_is_jax_exactly():
         sat = ti.integral_histogram(raw, nb, vmin, vmax)
         ref = np.asarray(ji.integral_histogram(jnp.asarray(raw), nb, vmin,
                                                vmax))
-        assert sat.dtype == torch.float32 and tuple(sat.shape) == ref.shape
+        assert sat.dtype == torch.int32 and tuple(sat.shape) == ref.shape
         np.testing.assert_array_equal(sat.numpy(), ref)
         low = rng.integers(0, 4, size=(30, 3))
         high = np.minimum(low + rng.integers(0, 4, size=(30, 3)), [4, 5, 6])
@@ -86,6 +87,23 @@ def test_block_query_equals_direct_count():
         direct = np.bincount(bins[z:z + 2, y:y + 3, x:x + 2].ravel(),
                              minlength=16)
         np.testing.assert_array_equal(g, direct)
+
+
+def test_counts_past_2_to_the_24_are_exact():
+    """One bin holding 257^3 = 16,974,593 voxels, odd and above 2^24, so no
+    float32 holds it: the table counts it exactly, and blocks of 2 (their
+    prefix boxes past 2^24 at the far corner, the last block a single
+    voxel) count every voxel exactly, by both queries."""
+    n = 257
+    sat = ti.integral_histogram(torch.zeros((n, n, n)), 1, 0.0, 1.0)
+    assert int(sat[-1, -1, -1, 0]) == n ** 3 == 16_974_593
+    edges = [ti.block_edges(n, 2) for _ in range(3)]
+    got = ti.query_blocks(sat, edges)[..., 0]
+    side = torch.tensor([2.0] * 128 + [1.0])
+    want = side[:, None, None] * side[None, :, None] * side[None, None, :]
+    assert torch.equal(got, want)
+    corner = ti.query_block_histogram(sat, [[n - 1] * 3], [[n - 1] * 3])
+    assert float(corner[0, 0]) == 1.0
 
 
 def test_fenwick_helpers_are_jax_exactly():

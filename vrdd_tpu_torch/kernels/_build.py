@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "slice_sweep.cu", CSRC / "slice_vjp.cu",
            CSRC / "slice_vjp_staged.cu", CSRC / "ess_bitmap.cu",
-           CSRC / "dplane_bf16.cu", CSRC / "decode_chain.cu")
+           CSRC / "dplane_bf16.cu", CSRC / "decode_chain.cu",
+           CSRC / "flex_blocks.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -149,6 +150,13 @@ DECODE_CHAIN_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                             ctypes.c_longlong, ctypes.c_void_p])
 
 
+#: vrdd_flex_blocks's argument types: sat, ez, ey, ex, out, nbz, nby, nbx,
+#: sz, sy, n_bins, bin_width, stream
+FLEX_BLOCKS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                        + [ctypes.c_longlong] * 2
+                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
@@ -180,4 +188,7 @@ def library() -> ctypes.CDLL:
     chain = lib.vrdd_decode_chain
     chain.argtypes = DECODE_CHAIN_ARGTYPES
     chain.restype = i32
+    flex = lib.vrdd_flex_blocks
+    flex.argtypes = FLEX_BLOCKS_ARGTYPES
+    flex.restype = i32
     return lib

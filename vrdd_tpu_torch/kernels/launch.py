@@ -334,9 +334,10 @@ def counted(prefix: str, *flags: str, sizes: bool = False):
     path), ess (tested ESS in the kernel), seed (resumed from a seed; K5:
     wrote ``S``), bf16 (the bf16 mode) or live (K4 with its live map). A
     traced window reports them as ``<prefix>.<attribute>``: k1-k5, ``ytr``
-    (``dplane_bf16``), ``dchain`` (``decode_chain``) and ``bitmap``
-    (``ess_bitmap``). ``sizes`` (K3-K5) adds the Counters
-    ``.size_launches`` and ``.size_staged_launches``, per image (H, W)."""
+    (``dplane_bf16``), ``dchain`` (``decode_chain``), ``bitmap``
+    (``ess_bitmap``) and ``flexq`` (``flex_blocks.block_stats``).
+    ``sizes`` (K3-K5) adds the Counters ``.size_launches`` and
+    ``.size_staged_launches``, per image (H, W)."""
     names = ("launches",) + tuple(f"{f}_launches" for f in flags)
 
     def declare(fn):

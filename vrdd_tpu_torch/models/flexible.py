@@ -10,6 +10,9 @@ histograms via the integral-histogram identity. Two construction paths:
   device (replacing the reference's 5-kernel pipeline d_divideBlock ->
   d_allocateSpace -> d_queryBlockNew -> d_querySpanNew -> d_computeBlock,
   volumeRender_kernel.cu:1735-1796, including its 194 s span search).
+  :class:`IntegralVolume` keeps the integral histogram on the device, so
+  that a new block size (the explorer's slider) is a re-query of it,
+  :meth:`IntegralVolume.blocks`, with no rebuild and no host round trip.
 
 - :meth:`FlexibleBlockVolume.from_codebooks` — only the reference-format
   compressed span banks exist (fractal-coded spans >= 8 voxels + sparse
@@ -34,16 +37,19 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from vrdd_tpu_torch.kernels import flex_blocks
 from vrdd_tpu_torch.ops.fractal import fractal_decode_batch
 from vrdd_tpu_torch.ops.histogram import flex_block_stats, normalize_histogram
 from vrdd_tpu_torch.ops.integral import (
+    block_edges,
     block_prefix_entries,
     build_span_lookup,
     divide_blocks,
     integral_histogram,
-    query_block_histogram,
+    query_blocks,
 )
 from vrdd_tpu_torch.ops.sparse import densify_sparse_histograms
+from vrdd_tpu_torch.utils import profiling
 from vrdd_tpu_torch.utils.config import FLEX_N_BINS
 from vrdd_tpu_torch.utils.timing import StageTimer
 
@@ -51,6 +57,14 @@ from vrdd_tpu_torch.utils.timing import StageTimer
 def _stats(counts: torch.Tensor) -> torch.Tensor:
     hist, _ = normalize_histogram(counts)
     return flex_block_stats(hist)
+
+
+def _raw_tensor(raw) -> torch.Tensor:
+    """A raw volume as float32 on its device (a numpy volume goes to the
+    card)."""
+    return torch.as_tensor(
+        raw, dtype=torch.float32,
+        device=raw.device if isinstance(raw, torch.Tensor) else "cuda")
 
 
 @dataclasses.dataclass
@@ -85,14 +99,13 @@ class FlexibleBlockVolume:
         :1106-1115). Constant channels (max == min) map to 0.
         """
         g = self.stats_grid
-        flat = g.reshape(-1, 3)
+        flat = g.reshape(-1, 3)[:, :2]
         lo = torch.amin(flat, dim=0)
         hi = torch.amax(flat, dim=0)
         span = torch.where(hi > lo, hi - lo, 1.0)
-        entropy = torch.tensor([0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
-        mapped = (g - lo) / span
+        mapped = (g[..., :2] - lo) / span
         return dataclasses.replace(
-            self, stats_grid=mapped * (1.0 - entropy) + g * entropy
+            self, stats_grid=torch.cat([mapped, g[..., 2:]], dim=-1)
         )
 
     # ---------------------------------------------------------------- raw path
@@ -106,31 +119,24 @@ class FlexibleBlockVolume:
         vmax: float = 255.0,
     ) -> "FlexibleBlockVolume":
         """O(1)-per-block construction from a raw scalar volume ``(Z, Y, X)``
-        on its device (a tensor; a numpy volume goes to the card).
+        on its device (a tensor; a numpy volume goes to the card): the
+        integral histogram, then its query at ``block_size`` in the plain
+        version's stages (the grid :meth:`IntegralVolume.blocks` gives off
+        the card; on the card within float32 rounding of it).
 
         Each stage's time (host clock, waiting for the device) is kept in
         ``timings``, as the reference's dataProcessing banners
-        (volumeRender_kernel.cu:1739-1783)."""
+        (volumeRender_kernel.cu:1739-1783), under the JAX package's names:
+        ``divide_blocks`` is the block boundaries (``block_edges``)."""
         timer = StageTimer()
-        raw = torch.as_tensor(raw, dtype=torch.float32,
-                              device=raw.device if isinstance(raw, torch.Tensor)
-                              else "cuda")
-        nz, ny, nx = raw.shape
-        with timer.stage("divide_blocks"):
-            spans = divide_blocks((nx, ny, nz), block_size)  # (nb, 6) 1-indexed
-        sat = timer.time("integral_histogram", integral_histogram, raw,
-                         n_bins, vmin, vmax)
-        low = np.stack([spans[:, 2], spans[:, 1], spans[:, 0]], -1) - 1  # zyx
-        high = np.stack([spans[:, 5], spans[:, 4], spans[:, 3]], -1) - 1
-        counts = timer.time("query_blocks", query_block_histogram, sat,
-                            low, high)
-        del sat
+        sat = timer.time("integral_histogram", integral_histogram,
+                         _raw_tensor(raw), n_bins, vmin, vmax)
+        integral = IntegralVolume(sat)
+        edges = timer.time("divide_blocks", integral.edges, block_size)
+        counts = timer.time("query_blocks", query_blocks, sat, edges)
         stats = timer.time("compute_block_stats", _stats, counts)
-        nbx = -(-nx // block_size)
-        nby = -(-ny // block_size)
-        nbz = -(-nz // block_size)
-        grid = stats.reshape(nbz, nby, nbx, 3)
-        return cls(grid, block_size, (nx, ny, nz), timer.as_dict())
+        return FlexibleBlockVolume(stats, block_size, integral.volume_dim,
+                                   timer.as_dict())
 
     # ----------------------------------------------------------- codebook path
     @classmethod
@@ -217,3 +223,61 @@ class FlexibleBlockVolume:
         nbz = -(-nz // block_size)
         grid = stats.reshape(nbz, nby, nbx, 3)
         return cls(grid, block_size, volume_dim, timer.as_dict())
+
+
+@dataclasses.dataclass
+class IntegralVolume:
+    """A raw volume's integral histogram, built once and kept on its device:
+    ``sat`` is the ``(Z+1, Y+1, X+1, n_bins)`` int32 table of
+    ``ops/integral.py integral_histogram``. :meth:`blocks` answers any
+    block size from it (the flexible-block explorer's slider re-queries it
+    at every change); nothing rebuilds it."""
+
+    sat: torch.Tensor
+
+    @classmethod
+    def from_raw(cls, raw, n_bins: int = FLEX_N_BINS, vmin: float = 0.0,
+                 vmax: float = 255.0) -> "IntegralVolume":
+        """The integral histogram of a raw scalar volume ``(Z, Y, X)``, on
+        its device (a numpy volume goes to the card)."""
+        return cls(integral_histogram(_raw_tensor(raw), n_bins, vmin, vmax))
+
+    @property
+    def volume_dim(self) -> Tuple[int, int, int]:
+        """(x, y, z) extents of the raw volume."""
+        nz, ny, nx = (n - 1 for n in self.sat.shape[:3])
+        return (nx, ny, nz)
+
+    def edges(self, block_size: int):
+        """Each axis's block boundaries, (z, y, x), on the table's device
+        (``ops/integral.py block_edges``)."""
+        nx, ny, nz = self.volume_dim
+        return [block_edges(n, block_size, self.sat.device)
+                for n in (nz, ny, nx)]
+
+    def blocks(self, block_size: int) -> FlexibleBlockVolume:
+        """The (mean, variance, entropy) grid of ``block_size`` blocks, the
+        blocks of ``divide_blocks`` (a short last block where the size does
+        not divide an extent), all on the table's device: the boundaries by
+        ``arange``, then on the card one launch of
+        ``kernels/flex_blocks.py block_stats`` (the 8-corner int32 counts,
+        the clamp-normalize and the stats of every block), elsewhere its
+        plain version in two stages (each distinct corner row read once and
+        differenced in int32, then the stats). Nothing waits for the device
+        or reads it back."""
+        with profiling.annotate("flex.requery"):
+            with profiling.annotate("flex.corners"):
+                edges = self.edges(block_size)
+            if self.sat.device.type == "cuda":  # the counts and the stats
+                with profiling.annotate("flex.query"):
+                    grid = flex_blocks.block_stats(self.sat, edges)
+            else:
+                with profiling.annotate("flex.query"):
+                    counts = query_blocks(self.sat, edges)
+                with profiling.annotate("flex.stats"):
+                    grid = _stats(counts)
+        nbz, nby, nbx = grid.shape[:3]
+        profiling.count("flex.requeries")
+        profiling.count("flex.blocks", nbz * nby * nbx)
+        profiling.count("flex.corner_rows", (nbz + 1) * (nby + 1) * (nbx + 1))
+        return FlexibleBlockVolume(grid, block_size, self.volume_dim)

@@ -113,6 +113,18 @@ class RenderPipeline:
         self._ess_cache: Dict[tuple, tuple] = {}
         self._channel_cache: Dict[QueryMethod, torch.Tensor] = {}
 
+    def set_flexible(self, flexible: FlexibleBlockVolume) -> None:
+        """Render queries 8/9/0 from ``flexible`` from now on (a new block
+        size of the explorer's slider). Drops exactly the state derived
+        from the old grid: its zero-padded copy, its channels and their ESS
+        plane stats; the raw, fractal and query-7 state stays."""
+        old = [self._channel_cache.pop(m) for m in _FLEX
+               if m in self._channel_cache]
+        self._ess_cache = {k: e for k, e in self._ess_cache.items()
+                           if not any(e[0] is t for t in old)}
+        self._flex_padded = None
+        self.flexible = flexible
+
     def _need(self, method: QueryMethod):
         """Raise unless the volume that ``method`` reads is loaded."""
         if method in _RAW and self.raw_stats is None:

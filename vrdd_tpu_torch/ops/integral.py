@@ -10,8 +10,9 @@ codebook for each — a brute-force O(64*64*32) scan per span that costs
 1. ``integral_histogram``: a 3-D prefix sum (cumsum over Z, Y, X) of the
    one-hot binned volume — the integral histogram — as torch ops on the
    volume's device. Any axis-aligned block's histogram is then an O(1)
-   8-corner +/- combination (``query_block_histogram``), vectorized over all
-   query blocks at once.
+   8-corner +/- combination, vectorized over all query blocks at once
+   (``query_blocks`` on a grid of blocks; ``query_block_histogram``, the
+   JAX package's form, on blocks given by their corners).
 
 2. Fenwick decomposition utilities (``fenwick_spans``,
    ``prefix_box_decomposition``, ``block_prefix_entries``) mirroring the
@@ -25,8 +26,17 @@ P(corner_c)`` with low-corner coordinates ``low-1`` (exclusive). The
 reference's sign pattern (+0,3,4,7 / -1,2,5,6 at volumeRender_kernel.cu:
 1041-1046) pairs with its 1-indexed span decomposition.
 
-Counts are float32, as in JAX: a prefix count above 2^24 is no longer an
-exact integer, and a block count is a difference of such prefixes.
+Counts are int32, exact up to 2^31 voxels: JAX counts in float32, where a
+prefix count above 2^24 is no longer an exact integer. The block queries
+take their differences in int32 and only then convert to float32, so a
+block's counts are exact however large its prefix boxes are.
+
+The flexible-block explorer re-queries one resident integral histogram at
+every block size: ``block_edges`` gives each axis's block boundaries on
+the device; off the card ``query_blocks`` reads each distinct corner row
+of the grid once and takes the 8-corner difference as three axis
+differences (on the card ``kernels/flex_blocks.py`` does the query and
+the stats in one launch).
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from vrdd_tpu_torch.utils import profiling
 
 
 def _bin_index(raw: torch.Tensor, n_bins: int, vmin: float,
@@ -60,43 +72,53 @@ def onehot_bin_volume(
 def integral_histogram(
     raw, n_bins: int, vmin: float = 0.0, vmax: float = 255.0
 ) -> torch.Tensor:
-    """3-D prefix-sum histogram volume ``(Z+1, Y+1, X+1, n_bins)``.
+    """3-D prefix-sum histogram volume ``(Z+1, Y+1, X+1, n_bins)`` int32.
 
     ``sat[z, y, x, b]`` = count of voxels with bin ``b`` in the prefix box
     ``[0, z) x [0, y) x [0, x)`` (zero-padded on the low side so empty
     prefixes need no special-casing). Built in place: the one-hot is written
     into the padded array's interior and summed there along each axis (z,
     then y, then x, JAX's order) a slab at a time, so the peak is one
-    ``(Z+1, Y+1, X+1, n_bins)`` float32 array plus a slab, not JAX's three
-    or four whole arrays.
+    ``(Z+1, Y+1, X+1, n_bins)`` int32 array plus a slab, not JAX's three
+    or four whole arrays. Exact up to ``2^31 - 1`` voxels; a larger volume
+    raises.
     """
-    idx = _bin_index(raw, n_bins, vmin, vmax)
-    nz, ny, nx = idx.shape
-    sat = torch.zeros((nz + 1, ny + 1, nx + 1, n_bins), dtype=torch.float32,
-                      device=idx.device)
-    inner = sat[1:, 1:, 1:]
-    for z in range(nz):  # one z-layer of one-hot at a time
-        inner[z].scatter_(-1, idx[z].long()[..., None], 1.0)
-    del idx
-    # the z sums in y-slabs, the y and x sums in z-slabs
-    step_y = max(1, (1 << 26) // max(1, nz * nx * n_bins))
-    for y0 in range(0, ny, step_y):
-        slab = inner[:, y0:y0 + step_y]
-        slab.copy_(torch.cumsum(slab, dim=0))
-    step_z = max(1, (1 << 26) // max(1, ny * nx * n_bins))
-    for dim in (1, 2):
-        for z0 in range(0, nz, step_z):
-            slab = inner[z0:z0 + step_z]
-            slab.copy_(torch.cumsum(slab, dim=dim))
-    return sat
+    with profiling.annotate("flex.integral"):
+        idx = _bin_index(raw, n_bins, vmin, vmax)
+        nz, ny, nx = idx.shape
+        if nz * ny * nx >= 2 ** 31:
+            raise ValueError(f"{nz * ny * nx} voxels: int32 counts hold "
+                             "fewer than 2^31")
+        sat = torch.zeros((nz + 1, ny + 1, nx + 1, n_bins), dtype=torch.int32,
+                          device=idx.device)
+        inner = sat[1:, 1:, 1:]
+        for z in range(nz):  # one z-layer of one-hot at a time
+            inner[z].scatter_(-1, idx[z].long()[..., None], 1)
+        del idx
+        # the z sums in y-slabs, the y and x sums in z-slabs
+        step_y = max(1, (1 << 26) // max(1, nz * nx * n_bins))
+        for y0 in range(0, ny, step_y):
+            slab = inner[:, y0:y0 + step_y]
+            slab.copy_(torch.cumsum(slab, dim=0, dtype=torch.int32))
+        step_z = max(1, (1 << 26) // max(1, ny * nx * n_bins))
+        for dim in (1, 2):
+            for z0 in range(0, nz, step_z):
+                slab = inner[z0:z0 + step_z]
+                slab.copy_(torch.cumsum(slab, dim=dim, dtype=torch.int32))
+        return sat
 
 
 def query_block_histogram(sat: torch.Tensor, low, high) -> torch.Tensor:
     """Histogram counts of blocks ``[low, high]`` (0-indexed, inclusive).
 
     ``low``/``high`` are ``(..., 3)`` int arrays in (z, y, x) order; returns
-    ``(..., n_bins)`` counts. O(1) per block: 8 gathers with +/- signs,
-    summed in JAX's corner order.
+    ``(..., n_bins)`` float32 counts. O(1) per block: 8 gathers with +/-
+    signs, summed in JAX's corner order in the table's dtype (exact in
+    int32), then converted.
+
+    The port of JAX's query, kept for parity with it (the tests hold the
+    two together); the package's own queries take a grid of blocks through
+    :func:`query_blocks`, which reads each corner row once.
     """
     low = torch.as_tensor(low, device=sat.device).long()
     hi = torch.as_tensor(high, device=sat.device).long() + 1  # exclusive
@@ -105,10 +127,31 @@ def query_block_histogram(sat: torch.Tensor, low, high) -> torch.Tensor:
         z = hi[..., 0] if dz == 1 else low[..., 0]
         y = hi[..., 1] if dy == 1 else low[..., 1]
         x = hi[..., 2] if dx == 1 else low[..., 2]
-        sign = 1.0 if (dz + dy + dx) % 2 == 1 else -1.0
-        term = sign * sat[z, y, x]
+        term = sat[z, y, x] if (dz + dy + dx) % 2 == 1 else -sat[z, y, x]
         out = term if out is None else out + term
-    return out
+    return out.float()
+
+
+def block_edges(n: int, block: int, device=None) -> torch.Tensor:
+    """The block boundaries along an axis of ``n`` voxels, ``0, block,
+    2 block, ..., n`` (``ceil(n / block) + 1`` int64 values on ``device``):
+    block ``i`` spans ``[edges[i], edges[i + 1])``, the last one cut short
+    where ``block`` does not divide ``n``, as :func:`divide_blocks` cuts
+    it."""
+    if block < 1:
+        raise ValueError(f"block size must be at least 1, got {block}")
+    return torch.arange(0, n + block, block, device=device).clamp_(max=n)
+
+
+def query_blocks(sat: torch.Tensor, edges) -> torch.Tensor:
+    """Every block's counts of the grid whose boundaries along (z, y, x)
+    are ``edges`` (:func:`block_edges`): ``(nbz, nby, nbx, n_bins)``
+    float32. Each distinct corner row of the table is read once, and the
+    8-corner inclusion-exclusion is taken as a difference along z, then y,
+    then x, in int32 (exact) before the conversion."""
+    ez, ey, ex = edges
+    rows = sat[ez[:, None, None], ey[None, :, None], ex[None, None, :]]
+    return rows.diff(dim=0).diff(dim=1).diff(dim=2).float()
 
 
 def divide_blocks(volume_dim: Tuple[int, int, int], block: int) -> np.ndarray:
